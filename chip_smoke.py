@@ -1,0 +1,344 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (`nsc_tpu_torch`) on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Serves the `base_fast` codec at full width (weights made from seed 0) on
+64 x 10 s of 16 kHz audio and checks every hand-written kernel of that path
+against its plain PyTorch version. Phases, each printing one JSON line:
+
+  1. device   the card's name and power limit; TF32 off for every float32
+              reference
+  2. build    the kernels, compiled from nsc_tpu_torch/csrc (seconds)
+  3. kernels  each kernel against its plain version at the main path's shapes:
+              residual_stack on all 8 stages (B=64, full T) in bf16 and f32;
+              rvq_quantize / rvq_dequantize at M=32000, 16 x 1024 x 128
+  4. main     load_model("base_fast", serving=True); reconstruct with the
+              launch counters reset just before and read just after; a
+              compress/decompress round trip; serving vs float32 agreement
+  5. timing   reconstruct wall time and real-time factor; each kernel's time
+              beside its plain version's and its bound
+
+then the `kernels` summary line, the card line and, last,
+{"ok": true, "device": {...}}. Any failed check raises and exits non-zero.
+Without CUDA, or without the package beside it, it exits non-zero and prints
+no result.
+"""
+
+import json
+import os
+import re
+import subprocess
+import sys
+import time
+
+# Published H100 SXM peaks at the 700 W limit (NVIDIA data sheet), used for
+# the bound of each kernel: dense bf16 tensor-core rate, float32 rate outside
+# the tensor cores, HBM3 bandwidth.
+PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
+
+# Tolerances of the kernel checks, against the plain version on the same
+# inputs. residual_stack float32: only the summation order of 3C- and
+# C-term float32 dot products differs (~1e-6 relative per unit), so
+# 1e-5 x max|ref|. bfloat16: a float32 sum that lands on the other side of
+# a bf16 rounding boundary flips one ulp (2^-7 relative) and the flip
+# propagates through later units, so 2e-2 x max|ref| (a few ulps at the
+# largest values) on the max and 1e-3 x max|ref| on the mean.
+# rvq_quantize: a different index is allowed only where the plain version's
+# top-2 score margin is below 1e-3 (scores are ~1e2; float32 dots of 128
+# terms differ by ~1e-5 with the order). rvq_dequantize: bit-exact.
+K1_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2e-2, 1e-3)}
+K2_NEAR_TIE = 1e-3
+
+BATCH, SECONDS = 64, 10.0
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def check(cond: bool, what: str) -> None:
+    if not cond:
+        raise AssertionError(what)
+
+
+def main() -> int:
+    t_start = time.perf_counter()
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import numpy as np
+
+    from nsc_tpu_torch import api, bitstream, kernels
+    from nsc_tpu_torch.kernels import _build
+    from nsc_tpu_torch.kernels import residual_stack as RS
+    from nsc_tpu_torch.kernels import rvq as KR
+    from nsc_tpu_torch.ops import rvq as rvq_ops
+
+    torch.set_grad_enabled(False)
+    dev = torch.device("cuda", 0)
+
+    # 1. device -------------------------------------------------------------
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = card_line()
+    print(card, flush=True)
+    emit({"phase": "device", "card": card, "kind": torch.cuda.get_device_name(0),
+          "count": torch.cuda.device_count(), "torch": torch.__version__,
+          "cuda": torch.version.cuda})
+
+    # 2. build --------------------------------------------------------------
+    _build.library()
+    # ptxas's resource line (registers, shared memory) per compiled kernel
+    ptxas, name = [], "?"
+    for ln in _build.build_log.splitlines():
+        if "Compiling entry function" in ln:
+            name = re.search(r"(residual_stack|rvq_quantize|rvq_dequantize)_kernel", ln).group(0)
+            if name == "residual_stack_kernel":
+                name += "<%s,%s>" % ("bf16" if "bfloat16" in ln else "f32",
+                                     "snake_fast" if "Lb1E" in ln else "snake")
+        elif "Used" in ln and "registers" in ln:
+            ptxas.append(f"{name}: {ln.split(': ', 1)[-1]}")
+    emit({"phase": "build", "seconds": round(_build.build_seconds, 3), "ptxas": ptxas})
+
+    def events_ms(fn, reps=5):
+        fn()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / reps
+
+    # the model, its inputs, and the 8 stage shapes of the main path
+    bundle = api.load_model("base_fast", serving=True, device=dev)
+    cfg, model, params, rvq = bundle.cfg, bundle.model, bundle.params, bundle.rvq
+    t_len = int(SECONDS * cfg.sample_rate)
+    wav_np = np.random.RandomState(0).randn(BATCH, t_len).astype(np.float32) * 0.1
+    wav = torch.from_numpy(wav_np).to(dev)
+    stages = []  # (name, stage params, T)
+    t = t_len
+    for i, (st, s) in enumerate(zip(params["encoder"]["stages"], cfg.strides)):
+        stages.append((f"enc{i}", st, t))
+        t //= s
+    for i, (st, s) in enumerate(zip(params["decoder"]["stages"], reversed(cfg.strides))):
+        t *= s
+        stages.append((f"dec{i}", st, t))
+    fast = cfg.activation == "snake_fast"
+    dil = tuple(cfg.dilations)
+
+    # 3. kernels against their plain versions -------------------------------
+    gen = torch.Generator(device=dev).manual_seed(1)
+    k1_err = {}
+    for name, st, t in stages:
+        c = st["stack"]["w1"].shape[-1]
+        x32 = torch.randn(BATCH, c, t, device=dev, generator=gen) * 0.5
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).split(".")[-1]
+            packed = RS.pack_stage(st["units"], dtype)
+            x = x32.to(dtype)
+            got = RS.residual_stack(x, packed, dil, fast)
+            torch.cuda.synchronize()
+            ref = RS.residual_stack_plain(x, packed, dil, fast)
+            err = (got.float() - ref.float()).abs()
+            scale = ref.float().abs().max().item()
+            rec = {"phase": "kernel_check", "kernel": "residual_stack", "stage": name,
+                   "B": BATCH, "C": c, "T": t, "dtype": dname,
+                   "max_abs_err": err.max().item(), "mean_abs_err": err.mean().item(),
+                   "max_abs_ref": scale, "max_rel_err": err.max().item() / max(scale, 1e-30),
+                   "first_tile_max_abs_err": err[..., :64].max().item(),
+                   "frac_differ": (got != ref).float().mean().item()}
+            tol_max, tol_mean = K1_TOL[dname]
+            emit(rec)
+            check(torch.isfinite(got).all().item(), f"K1 {name} {dname}: non-finite output")
+            check(rec["max_abs_err"] <= tol_max * max(1.0, scale),
+                  f"K1 {name} {dname}: max abs err {rec['max_abs_err']}")
+            check(rec["mean_abs_err"] <= tol_mean * max(1.0, scale),
+                  f"K1 {name} {dname}: mean abs err {rec['mean_abs_err']}")
+            if dtype == torch.bfloat16:
+                k1_err[name] = rec["max_abs_err"]
+            del got, ref, err, x
+        del x32
+
+    books = rvq["codebooks"].contiguous()
+    z = model.latents(params, wav)  # the main path's own latents
+    z2d = z.reshape(-1, z.shape[-1]).float().contiguous()
+    idx_k = KR.quantize(books, z2d)
+    torch.cuda.synchronize()
+    idx_p = KR.quantize_plain(books, z2d)
+    diff = idx_k != idx_p
+    bad_frames = diff.any(dim=1).nonzero().flatten()
+    near_ties, worst_margin = 0, 0.0
+    if bad_frames.numel():
+        margins = rvq_ops.argmin_margins(rvq, z2d[bad_frames])
+        first = diff[bad_frames].int().argmax(dim=1)
+        m_first = margins[torch.arange(bad_frames.numel(), device=dev), first]
+        near_ties = int((m_first < K2_NEAR_TIE).sum().item())
+        worst_margin = m_first.max().item()
+    emit({"phase": "kernel_check", "kernel": "rvq_quantize", "M": z2d.shape[0],
+          "n_q": books.shape[0], "K": books.shape[1], "D": books.shape[2],
+          "index_mismatches": int(diff.sum().item()),
+          "frames_differing": int(bad_frames.numel()), "near_ties": near_ties,
+          "worst_first_mismatch_margin": worst_margin})
+    check(near_ties == bad_frames.numel(),
+          "K2: an index differs where the plain version's margin is not a near-tie")
+    deq_k = KR.dequantize(books, idx_p)
+    torch.cuda.synchronize()
+    deq_p = KR.dequantize_plain(books, idx_p)
+    deq_err = (deq_k - deq_p).abs().max().item()
+    emit({"phase": "kernel_check", "kernel": "rvq_dequantize", "M": idx_p.shape[0],
+          "bit_exact": bool(torch.equal(deq_k, deq_p)), "max_abs_err": deq_err})
+    check(torch.equal(deq_k, deq_p), "K3: not bit-exact against its plain version")
+
+    # 4. main path ----------------------------------------------------------
+    kernels.reset_launches()
+    out = model.reconstruct(params, rvq, wav)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    emit({"phase": "main", "what": "reconstruct", "shape": list(out.shape),
+          "finite": bool(torch.isfinite(out).all().item()), "launches": launches})
+    check(tuple(out.shape) == (BATCH, t_len), f"reconstruct shape {tuple(out.shape)}")
+    check(torch.isfinite(out).all().item(), "reconstruct output not finite")
+    check(launches == {"residual_stack": 8, "rvq_quantize": 1, "rvq_dequantize": 1},
+          f"launch counts {launches}")
+
+    one = wav_np[0]
+    idx_one = api.encode(bundle, one)
+    rt = {}
+    for entropy in (False, True):
+        blob = api.compress(bundle, one, entropy_coding=entropy)
+        header, idx_back = bitstream.deserialize(blob)
+        back = api.decompress(bundle, blob)
+        rt["entropy" if entropy else "raw"] = {
+            "bytes": len(blob), "indices_equal": bool(np.array_equal(idx_back, idx_one)),
+            "wav_shape": list(back.shape), "finite": bool(np.isfinite(back).all())}
+        check(np.array_equal(idx_back, idx_one), "compress/decompress indices differ")
+        check(back.shape == one.shape and np.isfinite(back).all(), "decompress output")
+    emit({"phase": "main", "what": "compress_roundtrip", "frames": int(idx_one.shape[0]),
+          "n_q": int(idx_one.shape[1]), **rt})
+
+    f32 = api.load_model("base_fast", serving=False, device=dev)
+    idx_s = model.encode(params, rvq, wav)
+    idx_f = f32.model.encode(f32.params, f32.rvq, wav)
+    dec_s = model.decode(params, rvq, idx_f)
+    dec_f = f32.model.decode(f32.params, f32.rvq, idx_f)
+    lat_f = f32.model.latents(f32.params, wav)
+    margins = rvq_ops.argmin_margins(f32.rvq, lat_f).flatten()
+    ref_rms = dec_f.pow(2).mean().sqrt().item()
+    emit({"phase": "main", "what": "serving_vs_float32",
+          "index_agreement": (idx_s == idx_f).float().mean().item(),
+          "decode_only_max_abs": (dec_s - dec_f).abs().max().item(),
+          "decode_only_rel_rms": ((dec_s - dec_f).pow(2).mean().sqrt().item()
+                                  / max(ref_rms, 1e-12)),
+          "float32_argmin_margin_percentiles": {
+              p: torch.quantile(margins.double(), p / 100).item()
+              for p in (0, 1, 5, 50)}})
+    del f32, idx_s, idx_f, dec_s, dec_f, lat_f
+
+    # 5. timing -------------------------------------------------------------
+    def recon():
+        return model.reconstruct(params, rvq, wav)
+
+    recon()
+    torch.cuda.synchronize()
+    reps = 3
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        recon()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / reps
+    ev_ms = events_ms(recon, reps=reps)
+    emit({"phase": "timing", "what": "reconstruct", "batch": BATCH, "seconds": SECONDS,
+          "wall_ms": wall * 1e3, "event_ms": ev_ms, "rtf": BATCH * SECONDS / wall,
+          "card": card})
+
+    k1 = {"ms": 0.0, "plain_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0, "bound_ms": 0.0}
+    for name, st, t in stages:
+        p = st["stack"]
+        c = p["w1"].shape[-1]
+        x = (torch.randn(BATCH, c, t, device=dev, generator=gen) * 0.5).to(torch.bfloat16)
+        ms = events_ms(lambda: RS.residual_stack(x, p, dil, fast))
+        plain_ms = events_ms(lambda: RS.residual_stack_plain(x, p, dil, fast), reps=3)
+        nbytes = 2 * x.numel() * x.element_size() + sum(
+            v.numel() * v.element_size() for v in p.values())
+        flops = 2 * BATCH * t * len(dil) * 4 * c * c
+        bytes_ms, ops_ms = nbytes / PEAK_BYTES * 1e3, flops / PEAK_BF16_FLOPS * 1e3
+        emit({"phase": "timing", "kernel": "residual_stack", "stage": name, "C": c, "T": t,
+              "ms": ms, "plain_ms": plain_ms, "bytes": nbytes, "flops": flops,
+              "bound_ms": max(bytes_ms, ops_ms),
+              "bound_by": "bytes" if bytes_ms > ops_ms else "operations"})
+        k1["ms"] += ms
+        k1["plain_ms"] += plain_ms
+        k1["bytes_ms"] += bytes_ms
+        k1["ops_ms"] += ops_ms
+        k1["bound_ms"] += max(bytes_ms, ops_ms)
+        del x
+
+    n_q, k, d = books.shape
+    m = z2d.shape[0]
+    q_ms = events_ms(lambda: KR.quantize(books, z2d))
+    q_plain = events_ms(lambda: KR.quantize_plain(books, z2d))
+    q_bytes = (z2d.numel() + books.numel() + m * n_q) * 4
+    q_flops = 2 * m * k * d * n_q
+    q_bytes_ms, q_ops_ms = q_bytes / PEAK_BYTES * 1e3, q_flops / PEAK_F32_FLOPS * 1e3
+
+    dq_ms = events_ms(lambda: KR.dequantize(books, idx_p))
+    dq_plain = events_ms(lambda: KR.dequantize_plain(books, idx_p))
+    flat = books.reshape(n_q * k, d)
+    offs = idx_p.long() + torch.arange(n_q, device=dev)[None, :] * k
+    dq_lib = events_ms(lambda: torch.nn.functional.embedding_bag(offs, flat, mode="sum"))
+    used_rows = torch.unique(offs).numel()  # codewords this run's indices read
+    dq_bytes = (idx_p.numel() + used_rows * d + m * d) * 4
+    dq_flops = m * d * n_q
+    dq_bytes_ms, dq_ops_ms = dq_bytes / PEAK_BYTES * 1e3, dq_flops / PEAK_F32_FLOPS * 1e3
+    emit({"phase": "timing", "kernel": "rvq", "quantize_ms": q_ms,
+          "quantize_plain_ms": q_plain, "dequantize_ms": dq_ms,
+          "dequantize_plain_ms": dq_plain, "dequantize_library_ms": dq_lib,
+          "card": card})
+
+    summary = {"kernels": [
+        {"name": "residual_stack", "route": "cuda",
+         "source": "nsc_tpu_torch/csrc/residual_stack.cu",
+         "replaces": "nsc_tpu/ops/pallas/residual_stack.py:305",
+         "launches": launches["residual_stack"], "max_abs_err": max(k1_err.values()),
+         "ms": k1["ms"], "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
+         "bound_by": "bytes" if k1["bytes_ms"] > k1["ops_ms"] else "operations",
+         "library_ms": None},
+        {"name": "rvq_quantize", "route": "cuda", "source": "nsc_tpu_torch/csrc/rvq.cu",
+         "replaces": "nsc_tpu/ops/pallas/rvq_argmin.py:90",
+         "launches": launches["rvq_quantize"], "max_abs_err": worst_margin,
+         "ms": q_ms, "plain_ms": q_plain, "bound_ms": max(q_bytes_ms, q_ops_ms),
+         "bound_by": "bytes" if q_bytes_ms > q_ops_ms else "operations",
+         "library_ms": None},
+        {"name": "rvq_dequantize", "route": "cuda", "source": "nsc_tpu_torch/csrc/rvq.cu",
+         "replaces": "nsc_tpu/ops/pallas/rvq_argmin.py:147",
+         "launches": launches["rvq_dequantize"], "max_abs_err": deq_err,
+         "ms": dq_ms, "plain_ms": dq_plain, "bound_ms": max(dq_bytes_ms, dq_ops_ms),
+         "bound_by": "bytes" if dq_bytes_ms > dq_ops_ms else "operations",
+         "library_ms": dq_lib},
+    ]}
+    emit({"phase": "total", "seconds": time.perf_counter() - t_start})
+    emit(summary)
+    print(card, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,278 @@
+"""Public API: load_model / encode / decode / compress / decompress
+(counterpart of `nsc_tpu/api.py`).
+
+Waveforms and indices cross the host boundary as numpy arrays; the model runs
+on the bundle's device. Models run on CUDA unless the caller passes
+`device="cpu"`: `load_model` raises when CUDA is asked for and absent.
+Bit-packing is host-side numpy.
+
+Causal configs pad every input to a power-of-two frame count (at least 64
+frames), so arbitrary lengths reuse a few shapes; trailing zeros cannot
+change earlier frames of a causal model, and the extra frames are trimmed.
+Non-causal configs pad tightly to the hop.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import zlib
+from typing import Optional, Union
+
+import numpy as np
+import torch
+
+from nsc_tpu_torch import bitstream, weights
+from nsc_tpu_torch.configs import CodecConfig, get_config, list_configs
+from nsc_tpu_torch.models.codec import NeuralSpeechCodec
+
+ArrayLike = Union[np.ndarray, torch.Tensor]
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelBundle:
+    """A loaded codec: static model + parameter/quantizer dicts on a device."""
+
+    model: NeuralSpeechCodec
+    params: dict
+    rvq: dict
+
+    @property
+    def cfg(self) -> CodecConfig:
+        return self.model.cfg
+
+    @property
+    def device(self) -> torch.device:
+        return self.rvq["codebooks"].device
+
+
+def list_models() -> tuple:
+    return list_configs()
+
+
+def serving_config(cfg: CodecConfig) -> CodecConfig:
+    """The serving configuration: bf16 compute, the RVQ and residual-stack
+    kernels, and the polynomial snake."""
+    act = "snake_fast" if cfg.activation == "snake" else cfg.activation
+    return dataclasses.replace(
+        cfg,
+        compute_dtype="bfloat16",
+        rvq_backend="pallas",
+        unit_backend="auto",
+        activation=act,
+    )
+
+
+def resolve_device(device=None) -> torch.device:
+    """`None` means CUDA. Raises when CUDA is asked for and not available;
+    there is no silent move to the CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available; pass device='cpu' to run the codec on "
+            "the CPU"
+        )
+    return dev
+
+
+def bundle_from_jax(
+    cfg: CodecConfig, params, rvq, *, device=None
+) -> ModelBundle:
+    """A bundle from the JAX package's parameter/quantizer trees."""
+    dev = resolve_device(device)
+    p, q = weights.from_jax_params(params, rvq, cfg)
+    return ModelBundle(
+        NeuralSpeechCodec(cfg), weights.to_device(p, dev),
+        weights.to_device(q, dev),
+    )
+
+
+def load_model(
+    name: str = "base", *, seed: int = 0, serving: bool = False, device=None,
+) -> ModelBundle:
+    """Build a codec by config name with weights made from `seed`.
+    serving=True applies `serving_config`. device=None means CUDA."""
+    cfg = get_config(name)
+    if serving:
+        cfg = serving_config(cfg)
+    dev = resolve_device(device)
+    params, rvq = weights.init_jax_layout(cfg, seed)
+    return bundle_from_jax(cfg, params, rvq, device=dev)
+
+
+# ---------------------------------------------------------------------------
+# padding
+# ---------------------------------------------------------------------------
+
+
+def _pad_to_hop(wav: np.ndarray, hop: int) -> np.ndarray:
+    pad = (-wav.shape[-1]) % hop
+    if pad:
+        wav = np.pad(wav, [(0, 0)] * (wav.ndim - 1) + [(0, pad)])
+    return wav
+
+
+_MIN_BUCKET_FRAMES = 64
+
+
+def _bucket_frames(frames: int) -> int:
+    return max(_MIN_BUCKET_FRAMES, 1 << (frames - 1).bit_length())
+
+
+def _pad_to_bucket(wav: np.ndarray, hop: int) -> np.ndarray:
+    """Pad to a power-of-two frame count (causal configs only)."""
+    t = wav.shape[-1]
+    pad = _bucket_frames((t + hop - 1) // hop) * hop - t
+    if pad:
+        wav = np.pad(wav, [(0, 0)] * (wav.ndim - 1) + [(0, pad)])
+    return wav
+
+
+def _as_batch(wav: ArrayLike) -> tuple[np.ndarray, bool]:
+    if isinstance(wav, torch.Tensor):
+        wav = wav.detach().cpu().numpy()
+    arr = np.asarray(wav, dtype=np.float32)
+    if arr.ndim == 1:
+        return arr[None], True
+    if arr.ndim == 2:
+        return arr, False
+    raise ValueError(f"expected (T,) or (N, T) waveform, got {arr.shape}")
+
+
+# ---------------------------------------------------------------------------
+# public functions
+# ---------------------------------------------------------------------------
+
+
+def codebook_fingerprint(rvq: dict) -> int:
+    """u32 CRC-32 of the float32 codebooks as loaded (the same value the JAX
+    package computes for the same codebooks). Streams carry it so a stream
+    is never decoded by a same-config model with different codebooks."""
+    cb = rvq["codebooks"].detach().to("cpu", torch.float32).contiguous().numpy()
+    return zlib.crc32(cb.tobytes()) & 0xFFFFFFFF
+
+
+@torch.inference_mode()
+def encode(
+    bundle: ModelBundle, wav: ArrayLike, n_q: Optional[int] = None
+) -> np.ndarray:
+    """Waveform -> codebook indices. (T,) -> (F, n_q); (N, T) -> (N, F, n_q)."""
+    batch, single = _as_batch(wav)
+    t = batch.shape[-1]
+    cfg = bundle.cfg
+    if cfg.causal:
+        batch = _pad_to_bucket(batch, cfg.hop)
+    else:
+        # 'same' padding: trailing zeros reach the final frames' receptive
+        # fields, so pad tightly
+        batch = _pad_to_hop(batch, cfg.hop)
+    x = torch.tensor(batch, device=bundle.device)
+    idx = bundle.model.encode(bundle.params, bundle.rvq, x, n_q=n_q)
+    frames = (t + cfg.hop - 1) // cfg.hop
+    idx = idx.cpu().numpy()[:, :frames]
+    return idx[0] if single else idx
+
+
+@torch.inference_mode()
+def decode(
+    bundle: ModelBundle, indices: ArrayLike, n_q: Optional[int] = None
+) -> np.ndarray:
+    """Codebook indices -> waveform. (F, n_q) -> (F*hop,); batched likewise."""
+    if isinstance(indices, torch.Tensor):
+        indices = indices.detach().cpu().numpy()
+    idx = np.asarray(indices, dtype=np.int32)
+    single = idx.ndim == 2
+    if single:
+        idx = idx[None]
+    frames = idx.shape[1]
+    if bundle.cfg.causal and frames:
+        bucket = _bucket_frames(frames)
+        if bucket != frames:
+            idx = np.pad(idx, ((0, 0), (0, bucket - frames), (0, 0)))
+    x = torch.tensor(idx, device=bundle.device)
+    wav = bundle.model.decode(bundle.params, bundle.rvq, x, n_q=n_q)
+    wav = wav.cpu().numpy()[:, : frames * bundle.cfg.hop]
+    return wav[0] if single else wav
+
+
+def compress(
+    bundle: ModelBundle,
+    wav: ArrayLike,
+    n_q: Optional[int] = None,
+    *,
+    entropy_coding: bool = False,
+) -> bytes:
+    """(T,) waveform -> serialized NSC bitstream (header + index planes).
+    entropy_coding=True arithmetic-codes the planes; decompress
+    auto-detects."""
+    arr, single = _as_batch(wav)
+    if not single:
+        raise ValueError("compress takes a single (T,) waveform")
+    idx = encode(bundle, arr[0], n_q=n_q)
+    return _finalize_stream(bundle, idx, arr.shape[-1], entropy_coding)
+
+
+def _finalize_stream(
+    bundle: ModelBundle, idx: np.ndarray, orig_len: int, entropy_coding: bool
+) -> bytes:
+    """Header + planes for `idx`. With entropy coding, whichever of the
+    coded and the fixed-width stream is smaller is emitted: on near-uniform
+    code usage the adaptive coder's overhead can exceed fixed-width packing,
+    and the header flag tells decompress which one it got."""
+    cfg = bundle.cfg
+
+    def _stream(flags: int) -> bytes:
+        header = bitstream.BitstreamHeader(
+            model_name=cfg.name,
+            bits=cfg.bits_per_codebook,
+            n_q=idx.shape[-1],
+            sample_rate=cfg.sample_rate,
+            hop=cfg.hop,
+            num_frames=idx.shape[0],
+            orig_len=orig_len,
+            flags=flags,
+            fingerprint=codebook_fingerprint(bundle.rvq),
+        )
+        return bitstream.serialize(header, idx)
+
+    raw = _stream(bitstream.FLAG_FINGERPRINT)
+    if not entropy_coding:
+        return raw
+    coded = _stream(bitstream.FLAG_FINGERPRINT | bitstream.FLAG_ENTROPY)
+    return coded if len(coded) < len(raw) else raw
+
+
+def _check_stream_identity(bundle: ModelBundle, header) -> None:
+    """Reject a stream the loaded model cannot faithfully decode: the model
+    identity (name, sample rate, hop, bits) must match, and so must the
+    codebook fingerprint when the stream carries one."""
+    cfg = bundle.cfg
+    if (
+        header.hop != cfg.hop
+        or header.sample_rate != cfg.sample_rate
+        or header.bits != cfg.bits_per_codebook
+        or header.model_name != cfg.name
+    ):
+        raise ValueError(
+            f"bitstream was made by model {header.model_name!r} "
+            f"(sr={header.sample_rate}, hop={header.hop}, bits={header.bits}); "
+            f"loaded model {cfg.name!r} (sr={cfg.sample_rate}, hop={cfg.hop}, "
+            f"bits={cfg.bits_per_codebook}) is incompatible"
+        )
+    if header.flags & bitstream.FLAG_FINGERPRINT:
+        have = codebook_fingerprint(bundle.rvq)
+        if header.fingerprint != have:
+            raise bitstream.BitstreamError(
+                f"codebook fingerprint mismatch: stream was encoded with "
+                f"codebooks {header.fingerprint:#010x}, loaded model has "
+                f"{have:#010x} (same config, different checkpoint?)"
+            )
+
+
+def decompress(
+    bundle: ModelBundle, blob: bytes, n_q: Optional[int] = None
+) -> np.ndarray:
+    """Serialized bitstream -> (orig_len,) waveform."""
+    header, idx = bitstream.deserialize(blob, max_n_q=n_q)
+    _check_stream_identity(bundle, header)
+    wav = decode(bundle, idx)
+    return wav[: header.orig_len]

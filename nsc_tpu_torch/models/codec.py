@@ -1,0 +1,142 @@
+"""The codec model: encoder + RVQ + decoder (counterpart of
+`nsc_tpu/models/codec.py`).
+
+`NeuralSpeechCodec` holds only the config and the kernel options; weights
+live in two dicts passed explicitly (see `nsc_tpu_torch.weights`):
+
+  params = {'encoder': ..., 'decoder': ..., ['proj_in', 'proj_out']}
+  rvq    = {'codebooks': (n_q, K, D) float32}
+
+Public layouts are the JAX package's: waveforms (N, T), indices
+(N, F, n_q) int32, latents (N, F, D). Inside, activations are (N, C, T).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional
+
+import torch
+
+from nsc_tpu_torch.configs import CodecConfig
+from nsc_tpu_torch.models import seanet
+from nsc_tpu_torch.ops import rvq as rvq_ops
+
+Params = Dict[str, Any]
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelOptions:
+    """Which hand-written kernels the model runs. `CodecConfig` keeps the
+    JAX package's fields; the port reads its `unit_backend` and
+    `rvq_backend` only as "serving wants the kernel" (`for_config`)."""
+
+    residual_stack: bool = False
+    rvq: bool = False
+
+    @classmethod
+    def for_config(cls, cfg: CodecConfig) -> "KernelOptions":
+        return cls(
+            residual_stack=cfg.unit_backend != "reference",
+            rvq=cfg.rvq_backend == "pallas",
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class NeuralSpeechCodec:
+    cfg: CodecConfig
+    kernels: Optional[KernelOptions] = None
+
+    def __post_init__(self):
+        if self.cfg.quant != "none":
+            raise NotImplementedError(
+                f"quant={self.cfg.quant!r} is not ported yet"
+            )
+        if self.kernels is None:
+            object.__setattr__(self, "kernels", KernelOptions.for_config(self.cfg))
+
+    # -- inference ---------------------------------------------------------
+
+    def encode(
+        self, params: Params, rvq: rvq_ops.RVQState, wav: torch.Tensor,
+        n_q: Optional[int] = None,
+    ) -> torch.Tensor:
+        """(N, T) or (N, T, 1) waveform -> (N, F, n_q) int32 indices."""
+        return rvq_ops.quantize(
+            rvq, self.latents(params, wav), n_q=n_q, kernel=self.kernels.rvq
+        )
+
+    def latents(self, params: Params, wav: torch.Tensor) -> torch.Tensor:
+        """(N, T) waveform -> (N, F, D) pre-quantization latents (projected
+        into codebook space for factorized configs)."""
+        x = self._shape_wav(wav)
+        z = seanet.apply_encoder(
+            params["encoder"], x, self.cfg,
+            use_kernel=self.kernels.residual_stack,
+        )
+        return self._project_in(params, z.transpose(1, 2))
+
+    def decode(
+        self, params: Params, rvq: rvq_ops.RVQState, indices: torch.Tensor,
+        n_q: Optional[int] = None,
+    ) -> torch.Tensor:
+        """(N, F, n_q) indices -> (N, F*hop) float32 waveform."""
+        z = rvq_ops.dequantize(rvq, indices, n_q=n_q, kernel=self.kernels.rvq)
+        return self._decode_z(params, z)
+
+    def reconstruct(
+        self, params: Params, rvq: rvq_ops.RVQState, wav: torch.Tensor,
+        n_q: Optional[int] = None,
+    ) -> torch.Tensor:
+        """encode -> decode (the serving benchmark path)."""
+        return self.decode(params, rvq, self.encode(params, rvq, wav, n_q), n_q)
+
+    def decode_latents(self, params: Params, z: torch.Tensor) -> torch.Tensor:
+        """(N, F, D) codebook-space latents -> (N, F*hop) waveform, skipping
+        quantization (the infinite-bitrate bound of the autoencoder)."""
+        return self._decode_z(params, z.float())
+
+    # -- helpers -----------------------------------------------------------
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        return DTYPES[self.cfg.compute_dtype]
+
+    @property
+    def factorized(self) -> bool:
+        return self.cfg.codebook_dim != self.cfg.latent_dim
+
+    def _decode_z(self, params: Params, z: torch.Tensor) -> torch.Tensor:
+        z = self._project_out(params, z).to(self.compute_dtype)
+        wav = seanet.apply_decoder(
+            params["decoder"], z.transpose(1, 2), self.cfg,
+            use_kernel=self.kernels.residual_stack,
+        )
+        return wav[:, 0, :].float()
+
+    def _project_in(self, params: Params, z: torch.Tensor) -> torch.Tensor:
+        """latent -> codebook space, in float32 (identity if not factorized)."""
+        if not self.factorized:
+            return z
+        return torch.matmul(z.float(), params["proj_in"].float())
+
+    def _project_out(self, params: Params, zq: torch.Tensor) -> torch.Tensor:
+        if not self.factorized:
+            return zq
+        return torch.matmul(zq.float(), params["proj_out"].float())
+
+    def _shape_wav(self, wav: torch.Tensor) -> torch.Tensor:
+        """(N, T) or (N, T, channels) -> (N, channels, T) in compute dtype."""
+        if wav.dim() == 2:
+            wav = wav[..., None]
+        if wav.dim() != 3 or wav.shape[-1] != self.cfg.channels:
+            raise ValueError(
+                f"expected (N, T) or (N, T, {self.cfg.channels}), got "
+                f"{tuple(wav.shape)}"
+            )
+        return wav.transpose(1, 2).to(self.compute_dtype).contiguous()
+
+    def frames_for_samples(self, t: int) -> int:
+        return (t - 1) // self.cfg.hop + 1

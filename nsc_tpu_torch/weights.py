@@ -1,0 +1,195 @@
+"""Codec weights for the port: conversion from the JAX package's parameter
+tree, and a seeded initialization.
+
+`from_jax_params(params, rvq, cfg)` takes the JAX pytrees as nested dicts of
+arrays (numpy, or anything `np.asarray` takes) in the JAX layout:
+
+  conv            {'v': (K, Cin, Cout), 'g': (Cout,), 'b'} or {'w', 'b'}
+  snake           {'alpha': (C,)}
+  rvq             {'codebooks': (n_q, K, D), ...}
+  proj_in/out     (latent_dim, codebook_dim) / (codebook_dim, latent_dim)
+
+and returns the port's dicts of float32 CPU tensors, with weight-norm
+materialized once (eps 1e-12, `ops.conv.materialize_weight`):
+
+  conv            {'w': (Cout, Cin, K), 'b': (Cout,)}
+  transposed conv {'w': (Cin, Cout, K), 'b': (Cout,)}
+  activation      alpha (C,) or None (elu)
+
+Stages whose residual units the kernel can run also get 'stack', the units
+packed for `kernels.residual_stack` in the config's compute dtype.
+
+`init_jax_layout(cfg, seed)` makes weights with the same distributions as
+the JAX package's init (uniform(-1/sqrt(fan_in), 1/sqrt(fan_in)) convs with
+g = ||v||, alpha = 1, N(0, 1) codebooks, scaled-normal projections) from a
+`torch.Generator`; they differ from the JAX init's numbers.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Tuple
+
+import numpy as np
+import torch
+
+from nsc_tpu_torch.configs import CodecConfig
+from nsc_tpu_torch.kernels import residual_stack as RS
+from nsc_tpu_torch.models import seanet
+from nsc_tpu_torch.models.codec import DTYPES
+from nsc_tpu_torch.ops import conv as C
+from nsc_tpu_torch.ops import rvq as rvq_ops
+
+Tree = Dict[str, Any]
+
+
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32, copy=True))
+
+
+def conv_from_jax(p: Tree) -> Dict[str, torch.Tensor]:
+    """A JAX conv {'v', 'g', 'b'} or {'w', 'b'} -> {'w': (Cout, Cin, K), 'b'}."""
+    w = C.materialize_weight({k: _t(v) for k, v in p.items() if k != "b"})
+    return {"w": w.permute(2, 1, 0).contiguous(), "b": _t(p["b"])}
+
+
+def conv_transpose_from_jax(p: Tree) -> Dict[str, torch.Tensor]:
+    """A JAX transposed conv -> {'w': (Cin, Cout, K), 'b'}."""
+    w = C.materialize_weight({k: _t(v) for k, v in p.items() if k != "b"})
+    return {"w": w.permute(1, 2, 0).contiguous(), "b": _t(p["b"])}
+
+
+def _alpha(p):
+    return None if p is None else _t(p["alpha"])
+
+
+def units_from_jax(units, cfg: CodecConfig, dtype: torch.dtype) -> Tree:
+    """A stage's JAX residual units -> {'units': [...], ['stack': packed]}."""
+    out = [
+        {"act1": _alpha(u["act1"]), "conv1": conv_from_jax(u["conv1"]),
+         "act2": _alpha(u["act2"]), "conv2": conv_from_jax(u["conv2"])}
+        for u in units
+    ]
+    stage = {"units": out}
+    if seanet.stack_supported(cfg, "causal" if cfg.causal else "same"):
+        stage["stack"] = RS.pack_stage(out, dtype)
+    return stage
+
+
+def from_jax_params(params: Tree, rvq: Tree, cfg: CodecConfig) -> Tuple[Tree, Tree]:
+    """JAX parameter/quantizer trees -> the port's (params, rvq)."""
+    dtype = DTYPES[cfg.compute_dtype]
+    enc, dec = params["encoder"], params["decoder"]
+    encoder = {
+        "stem": conv_from_jax(enc["stem"]),
+        "stages": [
+            {**units_from_jax(s["units"], cfg, dtype),
+             "down_act": _alpha(s["down_act"]), "down": conv_from_jax(s["down"])}
+            for s in enc["stages"]
+        ],
+        "final_act": _alpha(enc["final_act"]),
+        "final": conv_from_jax(enc["final"]),
+    }
+    decoder = {
+        "stem": conv_from_jax(dec["stem"]),
+        "stages": [
+            {**units_from_jax(s["units"], cfg, dtype),
+             "up_act": _alpha(s["up_act"]), "up": conv_transpose_from_jax(s["up"])}
+            for s in dec["stages"]
+        ],
+        "final_act": _alpha(dec["final_act"]),
+        "final": conv_from_jax(dec["final"]),
+    }
+    out = {"encoder": encoder, "decoder": decoder}
+    for name in ("proj_in", "proj_out"):
+        if name in params:
+            out[name] = _t(params[name])
+    return out, {"codebooks": _t(rvq["codebooks"])}
+
+
+# ---------------------------------------------------------------------------
+# seeded init (JAX layout, so it goes through the same conversion)
+# ---------------------------------------------------------------------------
+
+
+def _init_conv(g: torch.Generator, k: int, cin: int, cout: int, wn: bool) -> Tree:
+    bound = 1.0 / math.sqrt(cin * k)
+    w = (torch.rand((k, cin, cout), generator=g) * 2 - 1) * bound
+    b = (torch.rand((cout,), generator=g) * 2 - 1) * bound
+    if wn:
+        return {"v": w.numpy(), "g": torch.sqrt((w * w).sum((0, 1))).numpy(),
+                "b": b.numpy()}
+    return {"w": w.numpy(), "b": b.numpy()}
+
+
+def _init_act(cfg: CodecConfig, ch: int):
+    if cfg.activation in ("snake", "snake_fast"):
+        return {"alpha": np.ones((ch,), np.float32)}
+    return None
+
+
+def _init_unit(g, ch: int, cfg: CodecConfig, wn: bool) -> Tree:
+    return {
+        "act1": _init_act(cfg, ch),
+        "conv1": _init_conv(g, cfg.residual_kernel, ch, ch, wn),
+        "act2": _init_act(cfg, ch),
+        "conv2": _init_conv(g, 1, ch, ch, wn),
+    }
+
+
+def init_jax_layout(cfg: CodecConfig, seed: int = 0) -> Tuple[Tree, Tree]:
+    """Random weights in the JAX package's layout, from `seed`."""
+    g = torch.Generator().manual_seed(seed)
+    wn = cfg.norm == "weight_norm"
+    units = lambda ch: [_init_unit(g, ch, cfg, wn) for _ in cfg.dilations]  # noqa: E731
+    enc_stages = []
+    for ch, stride in zip(seanet.stage_widths(cfg), cfg.strides):
+        enc_stages.append({
+            "units": units(ch),
+            "down_act": _init_act(cfg, ch),
+            "down": _init_conv(g, 2 * stride, ch, 2 * ch, wn),
+        })
+    fw = seanet.encoder_final_width(cfg)
+    encoder = {
+        "stem": _init_conv(g, cfg.stem_kernel, cfg.channels, cfg.base_width, wn),
+        "stages": enc_stages,
+        "final_act": _init_act(cfg, fw),
+        "final": _init_conv(g, cfg.last_kernel, fw, cfg.latent_dim, wn),
+    }
+    dec_stages = []
+    for i, stride in enumerate(reversed(cfg.strides)):
+        ch = fw // (2**i)
+        dec_stages.append({
+            "up_act": _init_act(cfg, ch),
+            "up": _init_conv(g, 2 * stride, ch, ch // 2, wn),
+            "units": units(ch // 2),
+        })
+    decoder = {
+        "stem": _init_conv(g, cfg.last_kernel, cfg.latent_dim, fw, wn),
+        "stages": dec_stages,
+        "final_act": _init_act(cfg, cfg.base_width),
+        "final": _init_conv(g, cfg.stem_kernel, cfg.base_width, cfg.channels, wn),
+    }
+    params: Tree = {"encoder": encoder, "decoder": decoder}
+    if cfg.codebook_dim != cfg.latent_dim:
+        params["proj_in"] = (
+            torch.randn((cfg.latent_dim, cfg.codebook_dim), generator=g)
+            / math.sqrt(cfg.latent_dim)
+        ).numpy()
+        params["proj_out"] = (
+            torch.randn((cfg.codebook_dim, cfg.latent_dim), generator=g)
+            / math.sqrt(cfg.codebook_dim)
+        ).numpy()
+    rvq = {k: v.numpy() for k, v in rvq_ops.init_rvq(cfg, g).items()}
+    return params, rvq
+
+
+def to_device(tree, device):
+    """Move every tensor of a nested dict/list tree to `device`."""
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device)
+    if isinstance(tree, dict):
+        return {k: to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(to_device(v, device) for v in tree)
+    return tree

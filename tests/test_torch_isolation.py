@@ -1,0 +1,96 @@
+"""The port stands alone: nothing under nsc_tpu_torch/, and not
+chip_smoke.py, imports JAX or the JAX package; entry points never move to
+the CPU silently; the CPU paths launch no kernel and build nothing."""
+
+import ast
+import os
+
+import pytest
+import torch
+
+from nsc_tpu_torch import api, kernels
+from nsc_tpu_torch.kernels import _build
+from nsc_tpu_torch.kernels import residual_stack as RS
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_FORBIDDEN = {"jax", "jaxlib", "nsc_tpu"}
+
+
+def _port_files():
+    out = [os.path.join(ROOT, "chip_smoke.py")]
+    for dirpath, _, names in os.walk(os.path.join(ROOT, "nsc_tpu_torch")):
+        out += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
+    return sorted(out)
+
+
+def _imported_roots(path):
+    tree = ast.parse(open(path).read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module.split(".")[0]
+        elif isinstance(node, ast.Call) and getattr(node.func, "attr", None) == "import_module":
+            for arg in node.args[:1]:
+                if isinstance(arg, ast.Constant) and isinstance(arg.value, str):
+                    yield arg.value.split(".")[0]
+
+
+def test_port_imports_no_jax_and_no_jax_package():
+    files = _port_files()
+    assert len(files) > 10
+    bad = {
+        os.path.relpath(f, ROOT): sorted(set(_imported_roots(f)) & _FORBIDDEN)
+        for f in files
+    }
+    assert {f: b for f, b in bad.items() if b} == {}
+
+
+def test_load_model_without_cuda_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        api.load_model("tiny_test")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        api.load_model("tiny_test", device="cuda")
+    assert api.load_model("tiny_test", device="cpu").device.type == "cpu"
+
+
+def test_cpu_serving_path_launches_no_kernel_and_builds_nothing(monkeypatch):
+    def no_build():
+        raise AssertionError("the CPU path asked for the CUDA library")
+
+    monkeypatch.setattr(_build, "library", no_build)
+    kernels.reset_launches()
+    bundle = api.load_model("tiny_test", serving=True, device="cpu")
+    assert bundle.model.kernels.residual_stack and bundle.model.kernels.rvq
+    wav = torch.randn(2, 40 * bundle.cfg.hop).numpy() * 0.1
+    idx = api.encode(bundle, wav)
+    out = api.decode(bundle, idx)
+    assert out.shape == (2, 40 * bundle.cfg.hop)
+    assert kernels.LAUNCHES == {"residual_stack": 0, "rvq_quantize": 0, "rvq_dequantize": 0}
+
+
+def test_wrappers_refuse_other_devices():
+    x = torch.empty(1, 8, 16, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        RS.residual_stack(x, {}, (1,), True)
+
+
+def test_chip_smoke_without_cuda_fails_and_prints_no_result(tmp_path):
+    """Without a card the script exits non-zero and prints nothing on
+    stdout (no result line). Run in a directory holding only the script."""
+    import shutil
+    import subprocess
+    import sys
+
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card")
+    script = tmp_path / "chip_smoke.py"
+    shutil.copy(os.path.join(ROOT, "chip_smoke.py"), script)
+    proc = subprocess.run(
+        [sys.executable, str(script)], cwd=tmp_path, capture_output=True,
+        text=True, timeout=120,
+    )
+    assert proc.returncode != 0
+    assert proc.stdout == ""
