@@ -4,20 +4,32 @@
     python3 chip_smoke.py
 
 Serves the `base_fast` codec at full width (weights made from seed 0) on
-64 x 10 s of 16 kHz audio and checks every hand-written kernel of that path
-against its plain PyTorch version. Phases, each printing one JSON line:
+64 x 10 s of 16 kHz audio, trains it at full width (TrainConfig defaults:
+batch 64 x 1 s, GAN with all discriminators) and checks every hand-written
+kernel of both paths against its plain PyTorch version. Phases, each
+printing JSON lines:
 
   1. device   the card's name and power limit; TF32 off for every float32
               reference
   2. build    the kernels, compiled from nsc_tpu_torch/csrc (seconds)
-  3. kernels  each kernel against its plain version at the main path's shapes:
-              residual_stack on all 8 stages (B=64, full T) in bf16 and f32;
-              rvq_quantize / rvq_dequantize at M=32000, 16 x 1024 x 128
-  4. main     load_model("base_fast", serving=True); reconstruct with the
-              launch counters reset just before and read just after; a
-              compress/decompress round trip; serving vs float32 agreement
-  5. timing   reconstruct wall time and real-time factor; each kernel's time
-              beside its plain version's and its bound
+  3. kernels  each kernel against its plain version at the main paths'
+              shapes: residual_stack on all 8 stages (B=64, full T) in bf16
+              and f32; rvq_quantize / rvq_dequantize at M=32000,
+              16 x 1024 x 128; stft_magnitude at the training step's six
+              launch shapes (B=64, T=16000), and the spectral losses and
+              their gradients through the kernel against the plain path
+  4. main     serving: load_model("base_fast", serving=True); reconstruct
+              with the launch counters reset just before and read just
+              after; a compress/decompress round trip; serving vs float32
+              agreement. training: seeded full-width state, step-0 data
+              init of the codebooks, 2 + 5 steps with the counters reset
+              just before the data init and read after the last step;
+              then the entry point (`nsc_tpu_torch.train.loop.main`) for 2
+              steps into a temporary workdir and a resume to step 3
+  5. timing   reconstruct wall time and real-time factor; the train step's
+              time, audio seconds per second, peak memory and split; each
+              kernel's time beside its plain version's, its bound and a
+              PyTorch yardstick where one call computes the same function
 
 then the `kernels` summary line, the card line and, last,
 {"ok": true, "device": {...}}. Any failed check raises and exits non-zero.
@@ -26,6 +38,7 @@ no result.
 """
 
 import json
+import math
 import os
 import re
 import subprocess
@@ -49,10 +62,23 @@ PEAK_BYTES = 3.35e12
 # rvq_quantize: a different index is allowed only where the plain version's
 # top-2 score margin is below 1e-3 (scores are ~1e2; float32 dots of 128
 # terms differ by ~1e-5 with the order). rvq_dequantize: bit-exact.
+# stft_magnitude: float32 sums of up to 2048 products in another order:
+# 1e-4 x max|ref|. Spectral losses through it: values rtol 1e-5; gradients
+# 1e-4 x max|g| for the mel loss and 2e-3 x max|g| for the multi-resolution
+# loss. Its log-magnitude term divides by |X|, so a bin far below its
+# frame's peak turns the float32 error of its sums (~1e-6 of the peak,
+# whatever the order) into a relative error of its gradient: on the H100
+# the kernel's gradient read 7.8e-4 x max|g| from the plain version's, and
+# two plain lowerings of the same loss (matmul DFT and rfft) 2.3e-3 from
+# each other. The script prints that second distance beside the check.
 K1_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2e-2, 1e-3)}
 K2_NEAR_TIE = 1e-3
+K4_TOL = 1e-4
+LOSS_RTOL = 1e-5
+LOSS_GRAD_TOL = {"multi_res_stft": 2e-3, "mel": 1e-4}
 
 BATCH, SECONDS = 64, 10.0
+TRAIN_WARMUP, TRAIN_TIMED = 2, 5
 
 
 def emit(obj) -> None:
@@ -70,6 +96,226 @@ def card_line() -> str:
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
+
+
+def train_smoke(dev, card, events_ms):
+    """Phases 3-5 of the training path: stft_magnitude against its plain
+    version, the full-width training steps with the launch counters, the
+    entry point with a resume, and the timings. Returns the kernels-line
+    entry of stft_magnitude and the training path's launch counts."""
+    import tempfile
+
+    import torch
+
+    from nsc_tpu_torch import kernels
+    from nsc_tpu_torch.configs import TrainConfig, get_config
+    from nsc_tpu_torch.kernels import stft as KS
+    from nsc_tpu_torch.losses import spectral as SP
+    from nsc_tpu_torch.ops import stft as S
+    from nsc_tpu_torch.train import checkpoint as ckpt
+    from nsc_tpu_torch.train import data as data_lib
+    from nsc_tpu_torch.train import loop as L
+    from nsc_tpu_torch.train import train as T
+
+    cfg, tcfg = get_config("base_fast"), TrainConfig()
+    seg = L.segment_length(cfg, tcfg.segment_seconds)
+    source = data_lib.make_source("synthetic", cfg.sample_rate, tcfg.seed)
+    batches = [torch.from_numpy(next(source.batches(tcfg.batch_size, seg))).to(dev)
+               for _ in range(TRAIN_WARMUP + TRAIN_TIMED)]
+    target = batches[0]
+    gen = torch.Generator(device=dev).manual_seed(2)
+    pred = target + 0.05 * torch.randn(target.shape, device=dev, generator=gen)
+
+    # 3. stft_magnitude against its plain version -------------------------
+    # the six launch shapes of a step: five resolutions and the mel STFT,
+    # each on the reconstruction and on the target
+    shapes = [(n, n // 4) for n in tcfg.stft_fft_sizes] + [(tcfg.mel_fft_size, tcfg.mel_fft_size // 4)]
+    k4_err = 0.0
+    with torch.no_grad():
+        for n_fft, hop in shapes:
+            for what, x in (("pred", pred), ("target", target)):
+                got = KS.stft_magnitude(x, n_fft, hop)
+                torch.cuda.synchronize()
+                ref = KS.stft_magnitude_plain(x, n_fft, hop)
+                err = (got - ref).abs().max().item()
+                scale = ref.abs().max().item()
+                emit({"phase": "kernel_check", "kernel": "stft_magnitude", "input": what,
+                      "B": x.shape[0], "T": x.shape[1], "n_fft": n_fft, "hop": hop,
+                      "shape": list(got.shape), "max_abs_err": err, "max_abs_ref": scale,
+                      "max_rel_err": err / scale})
+                check(tuple(got.shape) == tuple(ref.shape), f"K4 n_fft={n_fft}: shape")
+                check(torch.isfinite(got).all().item(), f"K4 n_fft={n_fft}: non-finite output")
+                check(err <= K4_TOL * scale, f"K4 n_fft={n_fft} {what}: max abs err {err}")
+                k4_err = max(k4_err, err)
+                del got, ref
+
+    mrstft = SP.MultiResSTFTConfig(fft_sizes=tcfg.stft_fft_sizes)
+    losses = {
+        "multi_res_stft": lambda p, st: SP.multi_res_stft_loss(p, target, mrstft, stft=st),
+        "mel": lambda p, st: SP.mel_loss(
+            p, target, sample_rate=cfg.sample_rate, n_fft=tcfg.mel_fft_size,
+            hop=tcfg.mel_fft_size // 4, n_mels=tcfg.mel_bins, stft=st),
+    }
+    routes = (("kernel", KS.stft_magnitude), ("plain", KS.stft_magnitude_plain),
+              ("plain_rfft", lambda x, n_fft, hop: S.stft_magnitude(x, n_fft, hop)))
+    for name, fn in losses.items():
+        out = {}
+        for route, st in routes:
+            p = pred.clone().requires_grad_(True)
+            value = fn(p, st)
+            (grad,) = torch.autograd.grad(value, p)
+            out[route] = (value.item(), grad)
+        (vk, gk), (vp, gp), (_, gr) = out["kernel"], out["plain"], out["plain_rfft"]
+        rel = abs(vk - vp) / abs(vp)
+        scale = gp.abs().max()
+        grad_err = ((gk - gp).abs().max() / scale).item()
+        floor = ((gr - gp).abs().max() / scale).item()
+        emit({"phase": "kernel_check", "kernel": "stft_magnitude", "loss": name,
+              "value_kernel": vk, "value_plain": vp, "value_rel_err": rel,
+              "grad_err_over_max": grad_err, "plain_lowerings_grad_diff_over_max": floor})
+        check(rel <= LOSS_RTOL, f"{name} loss through K4: rel err {rel}")
+        check(grad_err <= LOSS_GRAD_TOL[name],
+              f"{name} loss gradient through K4: {grad_err} (plain lowerings differ by {floor})")
+        del out, gk, gp, gr
+
+    # 4. training: the main path ------------------------------------------
+    # PyTorch's default (TF32 convolutions allowed), as a user's process has
+    # it: the train step and the data init turn TF32 off themselves
+    torch.backends.cudnn.allow_tf32 = True
+    tf32 = lambda: (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    tf32_in_step = set()
+    torch.cuda.reset_peak_memory_stats()
+    model, state = T.init_train_state(cfg, tcfg, dev)
+    step_fn = T.make_train_step(model, tcfg)
+    before = {part: [x.detach().clone() for x in T.tree_leaves(state[part])]
+              for part in ("params_g", "params_d")}
+    kernels.reset_launches()
+    L.data_init_codebooks(model, state, tcfg, "synthetic")
+    init_books = state["rvq"]["codebooks"].clone()
+    data_init_launches = dict(kernels.LAUNCHES)
+    marks = ("generator", "discriminator", "updates")
+    walls, event_ms, split = [], [], {m: [] for m in marks}
+    metrics = {}
+    for i, batch in enumerate(batches):
+        timed = i >= TRAIN_WARMUP
+        ev = {m: torch.cuda.Event(enable_timing=True) for m in ("start",) + marks}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ev["start"].record()
+        state, metrics = step_fn(state, batch,
+                                 mark=lambda m: (ev[m].record(), tf32_in_step.add(tf32())))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        values = {k: float(v) for k, v in metrics.items()}
+        emit({"phase": "main", "what": "train_step", "step": i + 1, "timed": timed,
+              "wall_ms": wall * 1e3, **values})
+        check(all(map(math.isfinite, values.values())), f"step {i + 1}: non-finite metric")
+        check(0.0 <= values["rvq/reseed_frac"] <= 1.0, "rvq/reseed_frac out of [0, 1]")
+        if timed:
+            walls.append(wall)
+            event_ms.append(ev["start"].elapsed_time(ev["updates"]))
+            prev = "start"
+            for m in marks:
+                split[m].append(ev[prev].elapsed_time(ev[m]))
+                prev = m
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    n_steps = len(batches)
+    changed = {part: sum(not torch.equal(a, b) for a, b in zip(before[part], T.tree_leaves(state[part])))
+               for part in before}
+    emit({"phase": "main", "what": "training", "config": cfg.name, "batch": tcfg.batch_size,
+          "segment_samples": seg, "steps": n_steps, "launches": launches,
+          "data_init_launches": data_init_launches,
+          "leaves_changed": changed, "leaves": {p: len(v) for p, v in before.items()},
+          "codebooks_moved": not torch.equal(init_books, state["rvq"]["codebooks"]),
+          "tf32_inside_step": sorted(tf32_in_step),
+          "peak_memory_bytes": peak})
+    check(tf32_in_step == {(False, False)}, f"TF32 settings inside the step: {tf32_in_step}")
+    check(tf32() == (True, False), f"TF32 settings after the steps: {tf32()}")
+    for part, leaves in before.items():
+        check(changed[part] == len(leaves), f"{part}: {len(leaves) - changed[part]} leaves unchanged")
+    check(not torch.equal(init_books, state["rvq"]["codebooks"]), "EMA codebooks did not move")
+    init_k2 = cfg.num_quantizers * 3  # per book: 2 Lloyd iterations + the final search
+    expect = {"residual_stack": 0, "rvq_dequantize": 0, "rvq_quantize": init_k2 + n_steps,
+              "stft_magnitude": 12 * n_steps}
+    check(data_init_launches["rvq_quantize"] == init_k2, f"data-init launches {data_init_launches}")
+    check(launches == expect, f"training launch counts {launches}, expected {expect}")
+    del state, before, init_books, metrics
+    torch.cuda.empty_cache()
+
+    # the entry point, with a resume
+    with tempfile.TemporaryDirectory(prefix="nsc_train_") as wd:
+        argv = ["--config", "base_fast", "--data", "synthetic", "--workdir", wd,
+                "--batch-size", "16"]
+        t0 = time.perf_counter()
+        check(L.main(argv + ["--steps", "2"]) == 0, "entry point: 2 steps")
+        train_dir = os.path.join(wd, "train")
+        check(os.path.exists(os.path.join(wd, "metrics.jsonl")), "entry point: no metrics.jsonl")
+        check(ckpt.latest_step(train_dir) == 2, "entry point: no checkpoint at step 2")
+        check(L.main(argv + ["--steps", "3"]) == 0, "entry point: resume to 3")
+        step, trees, _ = ckpt.restore(train_dir)
+        with open(os.path.join(wd, "metrics.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+        resumed = (step == 3 and trees["opt_g"]["count"] == 3 and trees["opt_d"]["count"] == 3
+                   and [r["step"] for r in rows] == [2, 3])
+        emit({"phase": "main", "what": "entry_point", "checkpoints": sorted(os.listdir(train_dir)),
+              "metric_steps": [r["step"] for r in rows], "resumed_to": step,
+              "finite": all(math.isfinite(v) for r in rows for v in r.values()),
+              "seconds": time.perf_counter() - t0})
+        check(resumed, "entry point: the second call did not resume from step 2")
+        del trees
+
+    # 5. timing -------------------------------------------------------------
+    step_s = sum(walls) / len(walls)
+    emit({"phase": "timing", "what": "train_step", "config": cfg.name,
+          "batch": tcfg.batch_size, "segment_seconds": seg / cfg.sample_rate,
+          "wall_ms": step_s * 1e3, "event_ms": sum(event_ms) / len(event_ms),
+          "audio_seconds_per_second": tcfg.batch_size * seg / cfg.sample_rate / step_s,
+          "split_ms": {m: sum(v) / len(v) for m, v in split.items()},
+          "peak_memory_gb": peak / 1e9, "card": card})
+
+    # K4's bound is the least work |STFT| needs: each input sample read once,
+    # each magnitude written once, and per frame the operations of a real
+    # FFT (2.5 n log2 n, half of a complex FFT's 5 n log2 n), the window
+    # (n) and the magnitudes (4 per bin). The O(n^2) DFT that K4 computes
+    # is printed beside it as dft_ops_ms, a yardstick of that algorithm.
+    k4 = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0,
+          "bound_ms": 0.0, "dft_ops_ms": 0.0}
+    with torch.no_grad():
+        for n_fft, hop in shapes:
+            win = S.hann_window(n_fft, dev)
+            b, t = target.shape
+            ms = events_ms(lambda: KS.stft_magnitude(target, n_fft, hop))
+            plain_ms = events_ms(lambda: KS.stft_magnitude_plain(target, n_fft, hop))
+            lib_ms = events_ms(lambda: torch.stft(
+                target, n_fft, hop_length=hop, window=win, center=True, pad_mode="reflect",
+                return_complex=True).abs())
+            frames, bins = 1 + t // hop, n_fft // 2 + 1
+            flops = b * frames * (2.5 * n_fft * math.log2(n_fft) + n_fft + 4 * bins)
+            dft_flops = 4 * b * frames * n_fft * bins
+            nbytes = 4 * (b * t + b * frames * bins + n_fft)
+            bytes_ms, ops_ms = nbytes / PEAK_BYTES * 1e3, flops / PEAK_F32_FLOPS * 1e3
+            dft_ops_ms = dft_flops / PEAK_F32_FLOPS * 1e3
+            emit({"phase": "timing", "kernel": "stft_magnitude", "n_fft": n_fft, "hop": hop,
+                  "B": b, "T": t, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                  "flops": flops, "bytes": nbytes, "bound_ms": max(bytes_ms, ops_ms),
+                  "bound_by": "bytes" if bytes_ms > ops_ms else "operations",
+                  "dft_flops": dft_flops, "dft_ops_ms": dft_ops_ms,
+                  "dft_tflops_achieved": dft_flops / ms / 1e9})
+            # per step: each shape is launched on the reconstruction and the target
+            for key, v in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms),
+                           ("bytes_ms", bytes_ms), ("ops_ms", ops_ms),
+                           ("bound_ms", max(bytes_ms, ops_ms)), ("dft_ops_ms", dft_ops_ms)):
+                k4[key] += 2 * v
+    emit({"phase": "timing", "kernel": "stft_magnitude", "per": "train step (12 launches)",
+          **k4, "card": card})
+    summary = {"name": "stft_magnitude", "route": "cuda", "source": "nsc_tpu_torch/csrc/stft.cu",
+               "replaces": "nsc_tpu/ops/pallas/stft.py:80",
+               "launches": launches["stft_magnitude"], "max_abs_err": k4_err,
+               "ms": k4["ms"], "plain_ms": k4["plain_ms"], "bound_ms": k4["bound_ms"],
+               "bound_by": "bytes" if k4["bytes_ms"] > k4["ops_ms"] else "operations",
+               "library_ms": k4["library_ms"]}
+    return summary, launches
 
 
 def main() -> int:
@@ -106,7 +352,9 @@ def main() -> int:
     ptxas, name = [], "?"
     for ln in _build.build_log.splitlines():
         if "Compiling entry function" in ln:
-            name = re.search(r"(residual_stack|rvq_quantize|rvq_dequantize)_kernel", ln).group(0)
+            name = re.search(
+                r"(residual_stack|rvq_quantize|rvq_dequantize|stft_magnitude)_kernel", ln
+            ).group(0)
             if name == "residual_stack_kernel":
                 name += "<%s,%s>" % ("bf16" if "bfloat16" in ln else "f32",
                                      "snake_fast" if "Lb1E" in ln else "snake")
@@ -214,7 +462,8 @@ def main() -> int:
           "finite": bool(torch.isfinite(out).all().item()), "launches": launches})
     check(tuple(out.shape) == (BATCH, t_len), f"reconstruct shape {tuple(out.shape)}")
     check(torch.isfinite(out).all().item(), "reconstruct output not finite")
-    check(launches == {"residual_stack": 8, "rvq_quantize": 1, "rvq_dequantize": 1},
+    check(launches == {"residual_stack": 8, "rvq_quantize": 1, "rvq_dequantize": 1,
+                       "stft_magnitude": 0},
           f"launch counts {launches}")
 
     one = wav_np[0]
@@ -311,27 +560,40 @@ def main() -> int:
           "dequantize_plain_ms": dq_plain, "dequantize_library_ms": dq_lib,
           "card": card})
 
+    serving_launches = launches
+    del bundle, model, params, rvq, out, wav, books, z, z2d, idx_k, idx_p, deq_k, deq_p
+    torch.cuda.empty_cache()
+    with torch.enable_grad():
+        k4_summary, train_launches = train_smoke(dev, card, events_ms)
+
+    def both(name):
+        return serving_launches[name] + train_launches[name]
+
     summary = {"kernels": [
         {"name": "residual_stack", "route": "cuda",
          "source": "nsc_tpu_torch/csrc/residual_stack.cu",
          "replaces": "nsc_tpu/ops/pallas/residual_stack.py:305",
-         "launches": launches["residual_stack"], "max_abs_err": max(k1_err.values()),
+         "launches": both("residual_stack"), "max_abs_err": max(k1_err.values()),
          "ms": k1["ms"], "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
          "bound_by": "bytes" if k1["bytes_ms"] > k1["ops_ms"] else "operations",
          "library_ms": None},
         {"name": "rvq_quantize", "route": "cuda", "source": "nsc_tpu_torch/csrc/rvq.cu",
          "replaces": "nsc_tpu/ops/pallas/rvq_argmin.py:90",
-         "launches": launches["rvq_quantize"], "max_abs_err": worst_margin,
+         "launches": both("rvq_quantize"), "max_abs_err": worst_margin,
          "ms": q_ms, "plain_ms": q_plain, "bound_ms": max(q_bytes_ms, q_ops_ms),
          "bound_by": "bytes" if q_bytes_ms > q_ops_ms else "operations",
          "library_ms": None},
         {"name": "rvq_dequantize", "route": "cuda", "source": "nsc_tpu_torch/csrc/rvq.cu",
          "replaces": "nsc_tpu/ops/pallas/rvq_argmin.py:147",
-         "launches": launches["rvq_dequantize"], "max_abs_err": deq_err,
+         "launches": both("rvq_dequantize"), "max_abs_err": deq_err,
          "ms": dq_ms, "plain_ms": dq_plain, "bound_ms": max(dq_bytes_ms, dq_ops_ms),
          "bound_by": "bytes" if dq_bytes_ms > dq_ops_ms else "operations",
          "library_ms": dq_lib},
+        k4_summary,
     ]}
+    for entry in summary["kernels"]:
+        entry["launches_by_path"] = {"serving": serving_launches[entry["name"]],
+                                     "training": train_launches[entry["name"]]}
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit(summary)
     print(card, flush=True)

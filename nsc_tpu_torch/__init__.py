@@ -1,5 +1,6 @@
 """nsc_tpu_torch: the neural speech codec in PyTorch, with hand-written CUDA
-kernels for NVIDIA Hopper (sm_90a) on the serving path.
+kernels for NVIDIA Hopper (sm_90a) on the serving and training paths
+(training: `python -m nsc_tpu_torch.train`).
 
 The JAX package `nsc_tpu` is the reference this port is tested against; the
 port imports nothing of it and nothing of JAX. Entry points run on CUDA

@@ -2,6 +2,7 @@
 
 from nsc_tpu_torch.configs.base import (  # noqa: F401
     CodecConfig,
+    TrainConfig,
     get_config,
     list_configs,
     register_config,

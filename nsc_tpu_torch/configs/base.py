@@ -1,10 +1,10 @@
-"""Codec configurations: a frozen config dataclass and a registry of named
-variants.
+"""Codec and training configurations: frozen config dataclasses and a
+registry of named codec variants.
 
 This is the PyTorch port's own copy of the codec architecture configs. Field
 names, defaults and the named variants are identical to the JAX package's, so
 a config name means the same model (and the same bitstream identity) in both.
-Training hyperparameters are not part of it.
+`TrainConfig` is the port's copy of the training hyperparameters.
 
 Fields that name lowerings of the JAX package (`conv_backend`, `conv_stack`,
 `rvq_backend`, `unit_backend`) are kept so the two configs stay identical.
@@ -80,6 +80,70 @@ class CodecConfig:
     def bitrate(self, n_q: int | None = None) -> float:
         n_q = self.num_quantizers if n_q is None else n_q
         return self.frame_rate * n_q * self.bits_per_codebook
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Training hyperparameters (the port's copy of the JAX package's
+    `TrainConfig`: same fields, same defaults).
+
+    The port reads `stft_backend` only as "the loss STFT goes through the
+    STFT-magnitude kernel wrapper" (`nsc_tpu_torch.kernels.stft`), whatever
+    its value: the wrapper launches the CUDA kernel on a card and runs its
+    plain version on CPU tensors. The JAX package's values ("xla",
+    "pallas", "pallas_interpret") choose its own lowerings in the parity
+    tests. Fields the port does not read yet (`full_state_every`,
+    `keep_checkpoints`, `keep_period`, `best_metric`) are kept so the two
+    configs stay identical.
+    """
+
+    batch_size: int = 64
+    segment_seconds: float = 1.0
+    lr_g: float = 3e-4
+    lr_d: float = 3e-4
+    adam_b1: float = 0.5
+    adam_b2: float = 0.9
+    steps: int = 400_000
+    # linear warmup over warmup_steps, then (if lr_decay_steps > 0) cosine
+    # decay to lr * lr_end_factor at lr_decay_steps; both 0 = constant LR
+    warmup_steps: int = 0
+    lr_decay_steps: int = 0
+    lr_end_factor: float = 0.01
+    grad_clip: float = 1.0
+    seed: int = 0
+
+    # loss weights
+    weight_l1_time: float = 0.1
+    weight_mel: float = 15.0
+    weight_stft: float = 2.0
+    weight_commit: float = 1.0
+    weight_adv: float = 1.0
+    weight_fm: float = 2.0
+
+    # GAN schedule and discriminator ensemble
+    use_gan: bool = True
+    disc_start_step: int = 0
+    disc_width_mult: float = 1.0
+    mpd_periods: Tuple[int, ...] = (2, 3, 5, 7, 11)
+    msd_scales: int = 3
+
+    # spectral losses
+    stft_fft_sizes: Tuple[int, ...] = (2048, 1024, 512, 256, 128)
+    mel_fft_size: int = 1024
+    mel_bins: int = 80
+    stft_backend: str = "xla"
+
+    # per-sample random RVQ depth with this probability
+    quantizer_dropout: float = 0.5
+    # step-0 codebook init: "data" (residual sampling + Lloyd) | "random"
+    codebook_init: str = "data"
+
+    checkpoint_every: int = 2000
+    full_state_every: int = 10_000
+    log_every: int = 50
+    keep_checkpoints: int = 3
+    keep_period: int = 0
+    best_metric: str = "loss/mel"
 
 
 _REGISTRY: Dict[str, Callable[[], CodecConfig]] = {}

@@ -1,5 +1,5 @@
-"""Hand-written CUDA kernels of the serving path, with their plain PyTorch
-versions.
+"""Hand-written CUDA kernels of the serving and training paths, with their
+plain PyTorch versions.
 
 Each wrapper takes its plain version only for tensors on the CPU; on a CUDA
 tensor it launches its kernel (built from `nsc_tpu_torch/csrc` on first use)
@@ -7,7 +7,12 @@ or raises. `LAUNCHES` counts kernel launches per wrapper, so a run can show
 that it went through the kernels.
 """
 
-LAUNCHES = {"residual_stack": 0, "rvq_quantize": 0, "rvq_dequantize": 0}
+LAUNCHES = {
+    "residual_stack": 0,
+    "rvq_quantize": 0,
+    "rvq_dequantize": 0,
+    "stft_magnitude": 0,
+}
 
 
 def reset_launches() -> None:

@@ -24,7 +24,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("residual_stack.cu", "rvq.cu")
+SOURCES = ("residual_stack.cu", "rvq.cu", "stft.cu")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 LIB_NAME = "libnsc_kernels.so"
@@ -40,6 +40,8 @@ SIGNATURES = {
     "nsc_rvq_quantize": [_P] * 5 + [_I] * 4 + [_P],
     # idx, cb, out, M, n_q, K, D, stream
     "nsc_rvq_dequantize": [_P] * 3 + [_I] * 4 + [_P],
+    # xpad, win, cosb, sinb, out, B, Tp, n_fft, hop, F, K, Kp, stream
+    "nsc_stft_magnitude": [_P] * 5 + [_I] * 7 + [_P],
 }
 
 _lock = threading.Lock()

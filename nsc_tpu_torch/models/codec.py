@@ -9,12 +9,16 @@ live in two dicts passed explicitly (see `nsc_tpu_torch.weights`):
 
 Public layouts are the JAX package's: waveforms (N, T), indices
 (N, F, n_q) int32, latents (N, F, D). Inside, activations are (N, C, T).
+
+Training (`forward`) takes the training tree instead: the JAX package's
+layout, weight-norm as (v, g) leaves, materialized on every call so the
+gradient reaches v and g (see `nsc_tpu_torch.weights.train_state_from_jax`).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -97,6 +101,30 @@ class NeuralSpeechCodec:
         """(N, F, D) codebook-space latents -> (N, F*hop) waveform, skipping
         quantization (the infinite-bitrate bound of the autoencoder)."""
         return self._decode_z(params, z.float())
+
+    # -- training ----------------------------------------------------------
+
+    def forward(
+        self, tree: Params, rvq: rvq_ops.RVQState, wav: torch.Tensor,
+        *, depth: Optional[torch.Tensor] = None,
+    ) -> Tuple[torch.Tensor, rvq_ops.RVQForward, torch.Tensor]:
+        """The differentiable training pass: encoder -> RVQ forward (straight
+        through, EMA stats) -> decoder, residual units op by op (the stack
+        kernel has no backward). Returns (reconstruction (N, T), RVQ
+        forward, latents (N, F, D) in codebook space)."""
+        z = self.train_latents(tree, wav)
+        fwd = rvq_ops.forward(rvq, z, depth=depth)
+        zq = self._project_out(tree, fwd.quantized).to(self.compute_dtype)
+        dec = seanet.materialize_decoder(tree["decoder"])
+        recon = seanet.apply_decoder(dec, zq.transpose(1, 2), self.cfg)
+        return recon[:, 0, :], fwd, z
+
+    def train_latents(self, tree: Params, wav: torch.Tensor) -> torch.Tensor:
+        """`latents` on the training tree: (N, T) -> (N, F, D) in codebook
+        space, differentiable."""
+        enc = seanet.materialize_encoder(tree["encoder"])
+        z = seanet.apply_encoder(enc, self._shape_wav(wav), self.cfg)
+        return self._project_in(tree, z.transpose(1, 2))
 
     # -- helpers -----------------------------------------------------------
 

@@ -14,6 +14,8 @@ standalone activations between stages stay plain PyTorch ops.
 Params (see `nsc_tpu_torch.weights`): conv {'w': (Cout, Cin, K), 'b'},
 transposed conv {'w': (Cin, Cout, K), 'b'}, activation alpha (C,) or None,
 and per stage 'stack', the units packed for the kernel.
+`materialize_encoder`/`materialize_decoder` make them (without 'stack')
+from a tree of tensors in the JAX package's layout, differentiably.
 """
 
 from __future__ import annotations
@@ -69,6 +71,46 @@ def _unit_stack(
     for unit, dil in zip(stage["units"], cfg.dilations):
         h = _apply_residual_unit(unit, h, dil, cfg, padding)
     return h
+
+
+def _alpha(p):
+    return None if p is None else p["alpha"]
+
+
+def materialize_units(units) -> List[Params]:
+    return [
+        {"act1": _alpha(u["act1"]), "conv1": C.conv_params(u["conv1"]),
+         "act2": _alpha(u["act2"]), "conv2": C.conv_params(u["conv2"])}
+        for u in units
+    ]
+
+
+def materialize_encoder(tree: Params) -> Params:
+    """An encoder tree in the JAX package's layout (tensors) -> the port's."""
+    return {
+        "stem": C.conv_params(tree["stem"]),
+        "stages": [
+            {"units": materialize_units(s["units"]), "down_act": _alpha(s["down_act"]),
+             "down": C.conv_params(s["down"])}
+            for s in tree["stages"]
+        ],
+        "final_act": _alpha(tree["final_act"]),
+        "final": C.conv_params(tree["final"]),
+    }
+
+
+def materialize_decoder(tree: Params) -> Params:
+    """A decoder tree in the JAX package's layout (tensors) -> the port's."""
+    return {
+        "stem": C.conv_params(tree["stem"]),
+        "stages": [
+            {"units": materialize_units(s["units"]), "up_act": _alpha(s["up_act"]),
+             "up": C.conv_transpose_params(s["up"])}
+            for s in tree["stages"]
+        ],
+        "final_act": _alpha(tree["final_act"]),
+        "final": C.conv_params(tree["final"]),
+    }
 
 
 def stage_widths(cfg: CodecConfig) -> List[int]:

@@ -54,6 +54,19 @@ def materialize_weight(params: Params) -> torch.Tensor:
     return v * (g[None, None, :] / norm)
 
 
+def conv_params(p: Params) -> Params:
+    """A conv in the JAX package's layout ({'v', 'g', 'b'} or {'w', 'b'},
+    weight (K, Cin, Cout)) -> {'w': (Cout, Cin, K), 'b'}. Differentiable:
+    training materializes weight-norm on every step through it."""
+    return {"w": materialize_weight(p).permute(2, 1, 0).contiguous(), "b": p["b"]}
+
+
+def conv_transpose_params(p: Params) -> Params:
+    """A transposed conv in the JAX package's layout -> {'w': (Cin, Cout, K),
+    'b'}; the weight-norm is per output channel, as in the JAX package."""
+    return {"w": materialize_weight(p).permute(1, 2, 0).contiguous(), "b": p["b"]}
+
+
 def conv1d(
     x: torch.Tensor, p: Params, *, stride: int = 1, dilation: int = 1,
     padding: str = "causal",

@@ -1,7 +1,10 @@
-"""Residual vector quantizer, inference side (counterpart of
-`nsc_tpu/ops/rvq.py`).
+"""Residual vector quantizer (counterpart of `nsc_tpu/ops/rvq.py`): the
+inference search and sum, and the training half (straight-through forward
+with EMA statistics, EMA codebook update with dead-code reseeding,
+data-driven codebook init, perplexity).
 
-State: {'codebooks': (n_q, K, D) float32}. The index contract is fixed for
+Inference state: {'codebooks': (n_q, K, D) float32}; training adds
+'ema_count' (n_q, K) and 'ema_sum' (n_q, K, D). The index contract is fixed for
 parity with the JAX package: distance = ||c||^2 - 2 r.c in true float32,
 lowest index on ties, books searched in order with the chosen codeword
 subtracted from the residual. Depth is variable: the first n_q books of a
@@ -9,12 +12,17 @@ deeper quantizer give the same indices as a quantizer of depth n_q.
 
 With `kernel=True` quantize and dequantize go through the wrappers of
 `nsc_tpu_torch.kernels.rvq` (the CUDA kernels on a card, their plain
-versions on the CPU); otherwise they run the plain versions directly.
+versions on the CPU); otherwise they run the plain versions directly. The
+training forward and the data init always search through the quantize
+wrapper: the search is the same all-book chain.
+
+Random draws (reseed picks, init permutations) come from a
+`torch.Generator` on the CPU, or are passed in explicitly.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, NamedTuple, Optional
 
 import torch
 
@@ -77,3 +85,220 @@ def argmin_margins(
         margins.append(top2[:, 1] - top2[:, 0])
         r = r - c[torch.argmin(scores, dim=-1)]
     return torch.stack(margins, dim=-1).reshape(*lead, books.shape[0])
+
+
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+
+class RVQForward(NamedTuple):
+    quantized: torch.Tensor     # (N, T, D) straight-through quantized latents
+    indices: torch.Tensor       # (N, T, n_q) int32
+    commit_loss: torch.Tensor   # scalar commitment loss
+    counts: torch.Tensor        # (n_q, K) masked assignment counts
+    sums: torch.Tensor          # (n_q, K, D) masked assigned-residual sums
+    usage: torch.Tensor         # (n_q,) fraction of codes used this batch
+
+
+def init_rvq_train(codebooks: torch.Tensor) -> RVQState:
+    """Training state for `codebooks`: zero EMA counts, EMA sums equal to
+    the codebooks (the JAX package's `init_rvq`)."""
+    cb = codebooks.float()
+    return {
+        "codebooks": cb,
+        "ema_count": torch.zeros(cb.shape[:2], dtype=torch.float32, device=cb.device),
+        "ema_sum": cb.clone(),
+    }
+
+
+def forward(
+    state: RVQState,
+    z: torch.Tensor,
+    *,
+    n_q: Optional[int] = None,
+    depth: Optional[torch.Tensor] = None,
+) -> RVQForward:
+    """Quantize with a straight-through estimator and collect EMA stats.
+
+    z: (N, T, D). `depth`: optional (N,) int tensor of per-sample active
+    book counts (quantizer dropout); books q >= depth[i] are left out of
+    sample i's output sum and EMA stats, but the residual chain is the
+    full-depth chain, so the indices of the active books are those a
+    shallower encode gives (the prefix property).
+
+    The nearest-code search of all books is one call of the quantize
+    wrapper (the CUDA kernel on a card). Counts, sums and the output sum
+    follow the JAX scan book by book in float32.
+    """
+    books = _books(state, n_q).float()
+    num_books, k, d = books.shape
+    n, t, _ = z.shape
+    m = n * t
+    zf = z.reshape(m, d).float()
+    r = zf.detach().contiguous()
+    idx = K.quantize(books.detach().contiguous(), r).long()  # (M, n_q)
+
+    if depth is None:
+        mask = torch.ones(num_books, m, dtype=torch.float32, device=z.device)
+    else:
+        q_ids = torch.arange(num_books, device=z.device)[:, None]
+        per_sample = (q_ids < depth.to(z.device)[None, :]).float()  # (n_q, N)
+        mask = torch.repeat_interleave(per_sample, t, dim=1)  # (n_q, M)
+
+    acc = torch.zeros_like(r)
+    counts, sums, usage = [], [], []
+    for q in range(num_books):
+        cb = books[q].detach()
+        iq = idx[:, q]
+        quant = cb[iq]
+        mq = mask[q]
+        cnt = torch.zeros(k, dtype=torch.float32, device=z.device).index_add_(0, iq, mq)
+        sm = torch.zeros(k, d, dtype=torch.float32, device=z.device).index_add_(
+            0, iq, r * mq[:, None]
+        )
+        acc = acc + quant * mq[:, None]
+        r = r - quant
+        counts.append(cnt)
+        sums.append(sm)
+        usage.append(torch.mean((cnt > 0).float()))
+
+    zq = acc.reshape(n, t, d)
+    commit = torch.mean(torch.square(z.float() - zq))
+    zq_ste = z + (zq - z.float()).to(z.dtype).detach()
+    indices = idx.to(torch.int32).reshape(n, t, num_books)
+    return RVQForward(
+        zq_ste, indices, commit, torch.stack(counts), torch.stack(sums),
+        torch.stack(usage),
+    )
+
+
+def init_codebooks_from_data(
+    state: RVQState,
+    z: torch.Tensor,
+    *,
+    kmeans_iters: int = 2,
+    generator: Optional[torch.Generator] = None,
+    picks: Optional[torch.Tensor] = None,
+) -> RVQState:
+    """Data-driven codebook init: book q starts from K points of the
+    residual pool left after books < q (a permutation of the pool, wrapping
+    only when K exceeds it), then `kmeans_iters` Lloyd iterations in
+    float32; empty clusters keep their point. EMA counts start at
+    max(M/K, 8) for every code.
+
+    z: (..., D) pre-quantization latents. The starting points are
+    `picks` (n_q, K) pool indices when given, else drawn from `generator`
+    (a CPU `torch.Generator`).
+    """
+    books = state["codebooks"]
+    n_q, k, d = books.shape
+    pool = z.reshape(-1, d).float().detach().contiguous()
+    m = pool.shape[0]
+    if picks is None:
+        if generator is None:
+            raise ValueError("init_codebooks_from_data needs a generator or picks")
+        wrap = torch.arange(k) % max(m, 1)
+        picks = torch.stack(
+            [torch.randperm(m, generator=generator)[wrap] for _ in range(n_q)]
+        )
+    picks = picks.long().to(pool.device)
+
+    def nearest(residual, cb):
+        return K.quantize(cb[None].contiguous(), residual)[:, 0].long()
+
+    residual = pool
+    new_books = []
+    for q in range(n_q):
+        cb = residual[picks[q]]
+        for _ in range(kmeans_iters):
+            idx = nearest(residual, cb)
+            counts = torch.zeros(k, device=pool.device).index_add_(
+                0, idx, torch.ones(m, device=pool.device)
+            )
+            sums = torch.zeros(k, d, device=pool.device).index_add_(0, idx, residual)
+            cb = torch.where(
+                counts[:, None] > 0, sums / torch.clamp(counts[:, None], min=1.0), cb
+            )
+        idx = nearest(residual, cb)
+        residual = (residual - cb[idx]).contiguous()
+        new_books.append(cb)
+    new_books = torch.stack(new_books)
+    count0 = torch.full((n_q, k), max(m / k, 8.0), dtype=torch.float32, device=pool.device)
+    return {
+        "codebooks": new_books,
+        "ema_count": count0,
+        "ema_sum": new_books * count0[..., None],
+    }
+
+
+def sample_reseed_candidates(
+    pool: torch.Tensor,
+    n_q: int,
+    k: int,
+    *,
+    generator: Optional[torch.Generator] = None,
+    picks: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """(n_q, K, D) random vectors of the (M, D) pool for dead-code
+    reseeding: `picks` (n_q, K) pool indices when given, else uniform draws
+    from `generator` (a CPU `torch.Generator`)."""
+    if picks is None:
+        picks = torch.randint(0, pool.shape[0], (n_q, k), generator=generator)
+    return pool[picks.long().to(pool.device)]
+
+
+def ema_update(
+    state: RVQState,
+    counts: torch.Tensor,
+    sums: torch.Tensor,
+    *,
+    decay: float = 0.99,
+    eps: float = 1e-5,
+    dead_threshold: float = 2.0,
+    reseed_candidates: Optional[torch.Tensor] = None,
+):
+    """Fold one batch's stats into the EMA codebooks: Laplace-smoothed
+    cluster sizes; codes whose EMA count falls below `dead_threshold` are
+    reseeded from `reseed_candidates` (n_q, K, D) with their count reset to
+    a grace value, min(thr / decay**20, 4 * thr), so a fresh code is not
+    reseeded again on the next step.
+
+    Returns (new state, reseed fraction (scalar tensor)).
+    """
+    n_used = counts.shape[0]
+    ema_count = state["ema_count"]
+    ema_sum = state["ema_sum"]
+    new_count = decay * ema_count[:n_used] + (1.0 - decay) * counts
+    new_sum = decay * ema_sum[:n_used] + (1.0 - decay) * sums
+
+    total = torch.sum(new_count, dim=-1, keepdim=True)
+    k = new_count.shape[-1]
+    smoothed = (new_count + eps) / (total + k * eps) * total
+    new_cb = new_sum / smoothed[..., None]
+
+    reseed_frac = torch.zeros((), dtype=torch.float32, device=counts.device)
+    if reseed_candidates is not None:
+        dead = (new_count < dead_threshold)[..., None]
+        reseed_frac = torch.mean(dead.float())
+        grace = min(dead_threshold / decay**20, 4.0 * dead_threshold)
+        new_cb = torch.where(dead, reseed_candidates, new_cb)
+        new_sum = torch.where(dead, reseed_candidates * grace, new_sum)
+        new_count = torch.where(dead[..., 0], torch.full_like(new_count, grace), new_count)
+
+    def put(full, part):
+        return part if part.shape[0] == full.shape[0] else torch.cat([part, full[n_used:]])
+
+    out = {
+        "codebooks": put(state["codebooks"], new_cb),
+        "ema_count": put(ema_count, new_count),
+        "ema_sum": put(ema_sum, new_sum),
+    }
+    return out, reseed_frac
+
+
+def codebook_perplexity(counts: torch.Tensor) -> torch.Tensor:
+    """exp(entropy) of the batch assignment distribution, per book."""
+    p = counts / torch.clamp(torch.sum(counts, dim=-1, keepdim=True), min=1e-9)
+    ent = -torch.sum(torch.where(p > 0, p * torch.log(p), torch.zeros_like(p)), dim=-1)
+    return torch.exp(ent)

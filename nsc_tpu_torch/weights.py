@@ -19,6 +19,10 @@ materialized once (eps 1e-12, `ops.conv.materialize_weight`):
 Stages whose residual units the kernel can run also get 'stack', the units
 packed for `kernels.residual_stack` in the config's compute dtype.
 
+`train_state_from_jax` / `train_state_to_jax` carry the training trees
+(weight-norm kept as (v, g) leaves, the whole RVQ state) between the two
+packages.
+
 `init_jax_layout(cfg, seed)` makes weights with the same distributions as
 the JAX package's init (uniform(-1/sqrt(fan_in), 1/sqrt(fan_in)) convs with
 g = ||v||, alpha = 1, N(0, 1) codebooks, scaled-normal projections) from a
@@ -44,67 +48,99 @@ Tree = Dict[str, Any]
 
 
 def _t(a) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):
+        return a.detach().to("cpu", torch.float32).clone()
     return torch.from_numpy(np.array(a, dtype=np.float32, copy=True))
+
+
+def tree_map(fn, tree):
+    """Apply `fn` to every leaf of a nested dict/list/tuple tree; None
+    leaves (elu activations) stay None."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v) for v in tree)
+    return None if tree is None else fn(tree)
+
+
+def to_tensors(tree):
+    """Arrays (numpy, or anything `np.asarray` takes) -> float32 CPU tensors."""
+    return tree_map(_t, tree)
+
+
+def to_numpy(tree):
+    """Tensors -> numpy arrays (the JAX package's layout when the tree is a
+    training tree)."""
+    return tree_map(
+        lambda x: x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else x, tree
+    )
 
 
 def conv_from_jax(p: Tree) -> Dict[str, torch.Tensor]:
     """A JAX conv {'v', 'g', 'b'} or {'w', 'b'} -> {'w': (Cout, Cin, K), 'b'}."""
-    w = C.materialize_weight({k: _t(v) for k, v in p.items() if k != "b"})
-    return {"w": w.permute(2, 1, 0).contiguous(), "b": _t(p["b"])}
+    return C.conv_params(to_tensors(p))
 
 
 def conv_transpose_from_jax(p: Tree) -> Dict[str, torch.Tensor]:
     """A JAX transposed conv -> {'w': (Cin, Cout, K), 'b'}."""
-    w = C.materialize_weight({k: _t(v) for k, v in p.items() if k != "b"})
-    return {"w": w.permute(1, 2, 0).contiguous(), "b": _t(p["b"])}
+    return C.conv_transpose_params(to_tensors(p))
 
 
-def _alpha(p):
-    return None if p is None else _t(p["alpha"])
+def _add_stack(stage: Tree, cfg: CodecConfig, dtype: torch.dtype) -> Tree:
+    if seanet.stack_supported(cfg, "causal" if cfg.causal else "same"):
+        stage["stack"] = RS.pack_stage(stage["units"], dtype)
+    return stage
 
 
 def units_from_jax(units, cfg: CodecConfig, dtype: torch.dtype) -> Tree:
     """A stage's JAX residual units -> {'units': [...], ['stack': packed]}."""
-    out = [
-        {"act1": _alpha(u["act1"]), "conv1": conv_from_jax(u["conv1"]),
-         "act2": _alpha(u["act2"]), "conv2": conv_from_jax(u["conv2"])}
-        for u in units
-    ]
-    stage = {"units": out}
-    if seanet.stack_supported(cfg, "causal" if cfg.causal else "same"):
-        stage["stack"] = RS.pack_stage(out, dtype)
-    return stage
+    return _add_stack({"units": seanet.materialize_units(to_tensors(units))}, cfg, dtype)
 
 
 def from_jax_params(params: Tree, rvq: Tree, cfg: CodecConfig) -> Tuple[Tree, Tree]:
     """JAX parameter/quantizer trees -> the port's (params, rvq)."""
     dtype = DTYPES[cfg.compute_dtype]
-    enc, dec = params["encoder"], params["decoder"]
-    encoder = {
-        "stem": conv_from_jax(enc["stem"]),
-        "stages": [
-            {**units_from_jax(s["units"], cfg, dtype),
-             "down_act": _alpha(s["down_act"]), "down": conv_from_jax(s["down"])}
-            for s in enc["stages"]
-        ],
-        "final_act": _alpha(enc["final_act"]),
-        "final": conv_from_jax(enc["final"]),
+    tree = to_tensors(params)
+    out = {
+        "encoder": seanet.materialize_encoder(tree["encoder"]),
+        "decoder": seanet.materialize_decoder(tree["decoder"]),
     }
-    decoder = {
-        "stem": conv_from_jax(dec["stem"]),
-        "stages": [
-            {**units_from_jax(s["units"], cfg, dtype),
-             "up_act": _alpha(s["up_act"]), "up": conv_transpose_from_jax(s["up"])}
-            for s in dec["stages"]
-        ],
-        "final_act": _alpha(dec["final_act"]),
-        "final": conv_from_jax(dec["final"]),
-    }
-    out = {"encoder": encoder, "decoder": decoder}
+    for part in ("encoder", "decoder"):
+        for stage in out[part]["stages"]:
+            _add_stack(stage, cfg, dtype)
     for name in ("proj_in", "proj_out"):
-        if name in params:
-            out[name] = _t(params[name])
+        if name in tree:
+            out[name] = tree[name]
     return out, {"codebooks": _t(rvq["codebooks"])}
+
+
+# ---------------------------------------------------------------------------
+# training trees
+# ---------------------------------------------------------------------------
+
+
+def train_state_from_jax(params_g: Tree, params_d: Tree, rvq: Tree) -> Tree:
+    """The JAX package's training trees -> the port's, as float32 CPU
+    tensors in the same layout: weight-norm stays (v, g) leaves (the codec
+    and the discriminators materialize it on every call), and the RVQ state
+    is whole (codebooks, ema_count, ema_sum; missing EMA stats start as the
+    JAX package's `init_rvq` makes them)."""
+    rvq_t = to_tensors(rvq)
+    if "ema_count" not in rvq_t:
+        rvq_t = rvq_ops.init_rvq_train(rvq_t["codebooks"])
+    return {
+        "params_g": to_tensors(params_g),
+        "params_d": to_tensors(params_d),
+        "rvq": rvq_t,
+    }
+
+
+def train_state_to_jax(state: Tree) -> Tree:
+    """The inverse of `train_state_from_jax` for the parameter and RVQ trees
+    (and any optimizer moments beside them): numpy arrays in the JAX
+    package's layout."""
+    return {k: to_numpy(v) for k, v in state.items() if k in (
+        "params_g", "params_d", "rvq", "opt_g", "opt_d")}
 
 
 # ---------------------------------------------------------------------------
@@ -186,10 +222,4 @@ def init_jax_layout(cfg: CodecConfig, seed: int = 0) -> Tuple[Tree, Tree]:
 
 def to_device(tree, device):
     """Move every tensor of a nested dict/list tree to `device`."""
-    if isinstance(tree, torch.Tensor):
-        return tree.to(device)
-    if isinstance(tree, dict):
-        return {k: to_device(v, device) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(to_device(v, device) for v in tree)
-    return tree
+    return tree_map(lambda x: x.to(device) if isinstance(x, torch.Tensor) else x, tree)

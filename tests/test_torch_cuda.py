@@ -13,6 +13,7 @@ import torch
 
 from nsc_tpu_torch.kernels import residual_stack as RS
 from nsc_tpu_torch.kernels import rvq as KR
+from nsc_tpu_torch.kernels import stft as KS
 
 pytestmark = pytest.mark.cuda
 
@@ -82,3 +83,57 @@ def test_rvq_kernels_match_plain_with_ties(dev):
     assert torch.equal(idx, KR.quantize_plain(books, z))
     assert idx[0, 0].item() == 7
     assert torch.equal(KR.dequantize(books, idx), KR.dequantize_plain(books, idx))
+
+
+# the training step's STFT launches: five resolutions at hop n_fft/4 (the
+# mel STFT is the n_fft 1024 shape), on B=64 x 1 s
+@pytest.mark.parametrize("n_fft", [2048, 1024, 512, 256, 128])
+def test_stft_kernel_matches_plain_at_slice_shapes(dev, n_fft):
+    g = torch.Generator(device=dev).manual_seed(n_fft)
+    x = torch.randn(64, 16000, device=dev, generator=g) * 0.3
+    got = KS.stft_magnitude(x, n_fft, n_fft // 4)
+    torch.cuda.synchronize()
+    ref = KS.stft_magnitude_plain(x, n_fft, n_fft // 4)
+    assert got.shape == ref.shape == (64, 1 + 16000 // (n_fft // 4), n_fft // 2 + 1)
+    assert (got - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
+
+
+def test_stft_function_gradient_matches_plain(dev):
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn(4, 5000, device=dev, generator=g) * 0.3
+    w = torch.rand(4, 1 + 5000 // 128, 257, device=dev, generator=g)
+    grads = []
+    for fn in (KS.stft_magnitude, KS.stft_magnitude_plain):
+        xx = x.clone().requires_grad_(True)
+        (fn(xx, 512, 128) * w).sum().backward()
+        grads.append(xx.grad)
+    assert (grads[0] - grads[1]).abs().max().item() <= 1e-4 * grads[1].abs().max().item()
+
+
+def test_stft_wrapper_rejects_bad_inputs(dev):
+    x = torch.randn(2, 3000, device=dev)
+    with pytest.raises(ValueError):
+        KS.stft_magnitude(x.double(), 256, 64)
+    with pytest.raises(ValueError):
+        KS.stft_magnitude(x[:, ::2], 256, 64)
+    with pytest.raises(ValueError):
+        KS.stft_magnitude(x[:, :100], 256, 64)  # shorter than the reflect pad
+
+
+def test_full_width_train_step_launches_the_kernels(dev):
+    """One base_fast step at the TrainConfig defaults (batch 64 x 1 s, GAN
+    with every discriminator): finite metrics, K4 x12 and K2 x1."""
+    from nsc_tpu_torch import kernels
+    from nsc_tpu_torch.configs import TrainConfig, get_config
+    from nsc_tpu_torch.train import train as T
+
+    cfg, tcfg = get_config("base_fast"), TrainConfig()
+    model, state = T.init_train_state(cfg, tcfg, dev)
+    step = T.make_train_step(model, tcfg)
+    batch = torch.randn(64, 16000, device=dev) * 0.1
+    kernels.reset_launches()
+    state, metrics = step(state, batch)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES == {"residual_stack": 0, "rvq_quantize": 1, "rvq_dequantize": 0,
+                                "stft_magnitude": 12}
+    assert all(torch.isfinite(v).item() for v in metrics.values())

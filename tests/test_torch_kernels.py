@@ -173,4 +173,6 @@ def test_cpu_wrappers_do_not_count_launches():
     cfg, units = _units(8, (1,), "snake_fast", seed=0)
     stage = W.units_from_jax(units, cfg, torch.float32)
     RS.residual_stack(torch.randn(1, 8, 50), stage["stack"], (1,), True)
-    assert kernels.LAUNCHES == {"residual_stack": 0, "rvq_quantize": 0, "rvq_dequantize": 0}
+    assert kernels.LAUNCHES == {
+        "residual_stack": 0, "rvq_quantize": 0, "rvq_dequantize": 0, "stft_magnitude": 0,
+    }
