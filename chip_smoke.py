@@ -4,32 +4,43 @@
     python3 chip_smoke.py
 
 Serves the `base_fast` codec at full width (weights made from seed 0) on
-64 x 10 s of 16 kHz audio, trains it at full width (TrainConfig defaults:
-batch 64 x 1 s, GAN with all discriminators) and checks every hand-written
-kernel of both paths against its plain PyTorch version. Phases, each
-printing JSON lines:
+64 x 10 s of 16 kHz audio through its three serving paths (unit_backend
+"auto": K1; "pallas_ct_fused": K5; "pallas_fused": K6), trains it at full
+width (TrainConfig defaults: batch 64 x 1 s, GAN with all discriminators)
+and checks every hand-written kernel of those paths against its plain
+PyTorch version. TF32 stays at PyTorch's defaults for the whole process, as
+in a user's process: the codec's inference methods, the train step and
+every plain version compared here run their float32 work under
+`float32_numerics()` themselves. Phases, each printing JSON lines:
 
-  1. device   the card's name and power limit; TF32 off for every float32
-              reference
+  1. device   the card's name and power limit
   2. build    the kernels, compiled from nsc_tpu_torch/csrc (seconds)
   3. kernels  each kernel against its plain version at the main paths'
-              shapes: residual_stack on all 8 stages (B=64, full T) in bf16
-              and f32; rvq_quantize / rvq_dequantize at M=32000,
-              16 x 1024 x 128; stft_magnitude at the training step's six
-              launch shapes (B=64, T=16000), and the spectral losses and
-              their gradients through the kernel against the plain path
-  4. main     serving: load_model("base_fast", serving=True); reconstruct
-              with the launch counters reset just before and read just
-              after; a compress/decompress round trip; serving vs float32
-              agreement. training: seeded full-width state, step-0 data
-              init of the codebooks, 2 + 5 steps with the counters reset
-              just before the data init and read after the last step;
-              then the entry point (`nsc_tpu_torch.train.loop.main`) for 2
-              steps into a temporary workdir and a resume to step 3
-  5. timing   reconstruct wall time and real-time factor; the train step's
-              time, audio seconds per second, peak memory and split; each
-              kernel's time beside its plain version's, its bound and a
-              PyTorch yardstick where one call computes the same function
+              shapes: residual_stack (K1) and residual_stack_cl (K6) on all
+              8 stages (B=64, full T) in bf16 and f32; fused_stage (K5) on
+              all 8 stages with their real heads (strides 2/4/5 in) and
+              tails (5/4/2 out) in bf16 and f32; rvq_quantize /
+              rvq_dequantize at M=32000, 16 x 1024 x 128; stft_magnitude at
+              the training step's six launch shapes (B=64, T=16000), the
+              spectral losses and their gradients through the kernel
+              against the plain path, and the multi-resolution gradient of
+              the kernel, the float32 matmul-DFT path and the float32 rfft
+              path against a float64 matmul-DFT gradient
+  4. main     serving: for each serving path, reconstruct with the launch
+              counters reset just before and read just after; a
+              compress/decompress round trip ("auto"); index agreement and
+              decode-only divergence of every serving path against the
+              float32 path, and of the two opt-in paths against "auto".
+              training: seeded full-width state, step-0 data init of the
+              codebooks, 2 + 5 steps with the counters reset just before
+              the data init and read after the last step; then the entry
+              point (`nsc_tpu_torch.train.loop.main`) for 2 steps into a
+              temporary workdir and a resume to step 3
+  5. timing   reconstruct wall time and real-time factor of each serving
+              path; the train step's time, audio seconds per second, peak
+              memory and split; each kernel's time beside its plain
+              version's, its bound and a PyTorch yardstick where one call
+              computes the same function
 
 then the `kernels` summary line, the card line and, last,
 {"ok": true, "device": {...}}. Any failed check raises and exits non-zero.
@@ -58,7 +69,9 @@ PEAK_BYTES = 3.35e12
 # 1e-5 x max|ref|. bfloat16: a float32 sum that lands on the other side of
 # a bf16 rounding boundary flips one ulp (2^-7 relative) and the flip
 # propagates through later units, so 2e-2 x max|ref| (a few ulps at the
-# largest values) on the max and 1e-3 x max|ref| on the mean.
+# largest values) on the max and 1e-3 x max|ref| on the mean. K5 and K6 run
+# the same unit chain (K5 adds a head or tail whose float32 sums differ the
+# same way), so they take K1's tolerances.
 # rvq_quantize: a different index is allowed only where the plain version's
 # top-2 score margin is below 1e-3 (scores are ~1e2; float32 dots of 128
 # terms differ by ~1e-5 with the order). rvq_dequantize: bit-exact.
@@ -76,8 +89,20 @@ K2_NEAR_TIE = 1e-3
 K4_TOL = 1e-4
 LOSS_RTOL = 1e-5
 LOSS_GRAD_TOL = {"multi_res_stft": 2e-3, "mel": 1e-4}
+# The multi-resolution gradient through K4 against a float64 reference
+# (the plain matmul-DFT path in float64: float64 input, window and basis).
+# K4's backward is the float32 plain path's, so K4 must be no farther from
+# float64 than that path (ratio <= 1.25), and at most a fixed 3e-3 x
+# max|g64|. Readings on the H100 (two runs): K4 2.342e-3, float32 matmul-DFT
+# 2.343e-3, float32 rfft 4.197e-3 x max|g64|.
+K4_F64_GRAD_TOL = 3e-3
+K4_F64_RATIO = 1.25
 
 BATCH, SECONDS = 64, 10.0
+# (path, unit_backend, the route of its residual units)
+SERVING_PATHS = (("serving", "auto", "residual_stack"),
+                 ("serving_fused_boundary", "pallas_ct_fused", "fused_stage"),
+                 ("serving_channels_last", "pallas_fused", "residual_stack_cl"))
 TRAIN_WARMUP, TRAIN_TIMED = 2, 5
 
 
@@ -112,6 +137,7 @@ def train_smoke(dev, card, events_ms):
     from nsc_tpu_torch.kernels import stft as KS
     from nsc_tpu_torch.losses import spectral as SP
     from nsc_tpu_torch.ops import stft as S
+    from nsc_tpu_torch.ops.precision import float32_numerics
     from nsc_tpu_torch.train import checkpoint as ckpt
     from nsc_tpu_torch.train import data as data_lib
     from nsc_tpu_torch.train import loop as L
@@ -136,7 +162,8 @@ def train_smoke(dev, card, events_ms):
             for what, x in (("pred", pred), ("target", target)):
                 got = KS.stft_magnitude(x, n_fft, hop)
                 torch.cuda.synchronize()
-                ref = KS.stft_magnitude_plain(x, n_fft, hop)
+                with float32_numerics():
+                    ref = KS.stft_magnitude_plain(x, n_fft, hop)
                 err = (got - ref).abs().max().item()
                 scale = ref.abs().max().item()
                 emit({"phase": "kernel_check", "kernel": "stft_magnitude", "input": what,
@@ -158,24 +185,44 @@ def train_smoke(dev, card, events_ms):
     }
     routes = (("kernel", KS.stft_magnitude), ("plain", KS.stft_magnitude_plain),
               ("plain_rfft", lambda x, n_fft, hop: S.stft_magnitude(x, n_fft, hop)))
+
+    def value_and_grad(fn, p, st):
+        p = p.clone().requires_grad_(True)
+        value = fn(p, st)
+        (grad,) = torch.autograd.grad(value, p)
+        return value.item(), grad
+
     for name, fn in losses.items():
-        out = {}
-        for route, st in routes:
-            p = pred.clone().requires_grad_(True)
-            value = fn(p, st)
-            (grad,) = torch.autograd.grad(value, p)
-            out[route] = (value.item(), grad)
+        with float32_numerics():
+            out = {route: value_and_grad(fn, pred, st) for route, st in routes}
         (vk, gk), (vp, gp), (_, gr) = out["kernel"], out["plain"], out["plain_rfft"]
         rel = abs(vk - vp) / abs(vp)
         scale = gp.abs().max()
         grad_err = ((gk - gp).abs().max() / scale).item()
         floor = ((gr - gp).abs().max() / scale).item()
-        emit({"phase": "kernel_check", "kernel": "stft_magnitude", "loss": name,
-              "value_kernel": vk, "value_plain": vp, "value_rel_err": rel,
-              "grad_err_over_max": grad_err, "plain_lowerings_grad_diff_over_max": floor})
+        rec = {"phase": "kernel_check", "kernel": "stft_magnitude", "loss": name,
+               "value_kernel": vk, "value_plain": vp, "value_rel_err": rel,
+               "grad_err_over_max": grad_err, "plain_lowerings_grad_diff_over_max": floor}
+        if name == "multi_res_stft":
+            # the float64 matmul-DFT path (float64 input, window and basis)
+            # as the reference for the three float32 gradients
+            _, g64 = value_and_grad(fn, pred.double(), KS.stft_magnitude_plain)
+            s64 = g64.abs().max()
+            rec["grad_dist_to_float64_over_max"] = f64_dist = {
+                route: ((g.double() - g64).abs().max() / s64).item()
+                for route, (_, g) in out.items()}
+            rec["kernel_over_plain_float64_dist"] = f64_dist["kernel"] / f64_dist["plain"]
+            del g64
+        emit(rec)
         check(rel <= LOSS_RTOL, f"{name} loss through K4: rel err {rel}")
         check(grad_err <= LOSS_GRAD_TOL[name],
               f"{name} loss gradient through K4: {grad_err} (plain lowerings differ by {floor})")
+        if name == "multi_res_stft":
+            check(f64_dist["kernel"] <= K4_F64_GRAD_TOL,
+                  f"{name} gradient through K4 vs float64: {f64_dist['kernel']}")
+            check(f64_dist["kernel"] <= K4_F64_RATIO * f64_dist["plain"],
+                  f"{name} gradient through K4 farther from float64 than the float32 plain "
+                  f"path: {f64_dist}")
         del out, gk, gp, gr
 
     # 4. training: the main path ------------------------------------------
@@ -236,8 +283,8 @@ def train_smoke(dev, card, events_ms):
         check(changed[part] == len(leaves), f"{part}: {len(leaves) - changed[part]} leaves unchanged")
     check(not torch.equal(init_books, state["rvq"]["codebooks"]), "EMA codebooks did not move")
     init_k2 = cfg.num_quantizers * 3  # per book: 2 Lloyd iterations + the final search
-    expect = {"residual_stack": 0, "rvq_dequantize": 0, "rvq_quantize": init_k2 + n_steps,
-              "stft_magnitude": 12 * n_steps}
+    expect = dict.fromkeys(kernels.LAUNCHES, 0)
+    expect.update({"rvq_quantize": init_k2 + n_steps, "stft_magnitude": 12 * n_steps})
     check(data_init_launches["rvq_quantize"] == init_k2, f"data-init launches {data_init_launches}")
     check(launches == expect, f"training launch counts {launches}, expected {expect}")
     del state, before, init_books, metrics
@@ -326,25 +373,30 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import dataclasses
+
     import numpy as np
 
-    from nsc_tpu_torch import api, bitstream, kernels
+    from nsc_tpu_torch import api, bitstream, kernels, weights
     from nsc_tpu_torch.kernels import _build
+    from nsc_tpu_torch.kernels import fused_stage as FS
     from nsc_tpu_torch.kernels import residual_stack as RS
     from nsc_tpu_torch.kernels import rvq as KR
+    from nsc_tpu_torch.models import seanet
     from nsc_tpu_torch.ops import rvq as rvq_ops
+    from nsc_tpu_torch.ops.precision import float32_numerics
 
     torch.set_grad_enabled(False)
     dev = torch.device("cuda", 0)
 
     # 1. device -------------------------------------------------------------
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     card = card_line()
     print(card, flush=True)
     emit({"phase": "device", "card": card, "kind": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "torch": torch.__version__,
-          "cuda": torch.version.cuda})
+          "cuda": torch.version.cuda,
+          "tf32": {"cudnn": torch.backends.cudnn.allow_tf32,
+                   "matmul": torch.backends.cuda.matmul.allow_tf32}})
 
     # 2. build --------------------------------------------------------------
     _build.library()
@@ -353,9 +405,10 @@ def main() -> int:
     for ln in _build.build_log.splitlines():
         if "Compiling entry function" in ln:
             name = re.search(
-                r"(residual_stack|rvq_quantize|rvq_dequantize|stft_magnitude)_kernel", ln
+                r"(residual_stack_cl|residual_stack|fused_stage|rvq_quantize|rvq_dequantize"
+                r"|stft_magnitude)_kernel", ln
             ).group(0)
-            if name == "residual_stack_kernel":
+            if name in ("residual_stack_kernel", "residual_stack_cl_kernel", "fused_stage_kernel"):
                 name += "<%s,%s>" % ("bf16" if "bfloat16" in ln else "f32",
                                      "snake_fast" if "Lb1E" in ln else "snake")
         elif "Used" in ln and "registers" in ln:
@@ -376,59 +429,110 @@ def main() -> int:
     # the model, its inputs, and the 8 stage shapes of the main path
     bundle = api.load_model("base_fast", serving=True, device=dev)
     cfg, model, params, rvq = bundle.cfg, bundle.model, bundle.params, bundle.rvq
+    # the opt-in serving paths as a user selects them: the serving config
+    # with another unit_backend, the same seed-0 weights
+    bundles = {"serving": bundle}
+    for path, backend, route in SERVING_PATHS[1:]:
+        c = dataclasses.replace(cfg, unit_backend=backend)
+        bundles[path] = api.bundle_from_jax(c, *weights.init_jax_layout(c, 0), device=dev)
+        check(bundles[path].model.kernels.units == route, f"{path}: route {bundles[path].model.kernels}")
     t_len = int(SECONDS * cfg.sample_rate)
     wav_np = np.random.RandomState(0).randn(BATCH, t_len).astype(np.float32) * 0.1
     wav = torch.from_numpy(wav_np).to(dev)
-    stages = []  # (name, stage params, T)
+    # per stage: name, part, index, the units' (C, T), K5's input (C_in, T_in)
+    stages = []
     t = t_len
-    for i, (st, s) in enumerate(zip(params["encoder"]["stages"], cfg.strides)):
-        stages.append((f"enc{i}", st, t))
+    for i, s in enumerate(cfg.strides):
+        c = seanet.stage_widths(cfg)[i]
+        inp = (c, t) if i == 0 else stages[-1]["units_ct"]
+        stages.append({"name": f"enc{i}", "part": "encoder", "i": i, "units_ct": (c, t), "in_ct": inp})
         t //= s
-    for i, (st, s) in enumerate(zip(params["decoder"]["stages"], reversed(cfg.strides))):
+    for i, s in enumerate(reversed(cfg.strides)):
         t *= s
-        stages.append((f"dec{i}", st, t))
+        c = seanet.encoder_final_width(cfg) // 2 ** (i + 1)
+        stages.append({"name": f"dec{i}", "part": "decoder", "i": i, "units_ct": (c, t), "in_ct": (c, t)})
     fast = cfg.activation == "snake_fast"
     dil = tuple(cfg.dilations)
 
+    def stage_params(path, st):
+        return bundles[path].params[st["part"]]["stages"][st["i"]]
+
+    # K5's packed stages in float32 (head and tail weights too) for the
+    # float32 checks; the bf16 ones are the serving bundle's own
+    fused_f32 = {}
+    for part in ("encoder", "decoder"):
+        copies = [dict(st) for st in params[part]["stages"]]
+        seanet.pack_stages(part, copies, "fused_stage", torch.float32)
+        fused_f32[part] = [st["fused"] for st in copies]
+
     # 3. kernels against their plain versions -------------------------------
     gen = torch.Generator(device=dev).manual_seed(1)
-    k1_err = {}
-    for name, st, t in stages:
-        c = st["stack"]["w1"].shape[-1]
+
+    def compare(kernel, st, dname, got, ref):
+        err = (got.float() - ref.float()).abs()
+        scale = ref.float().abs().max().item()
+        first = err[..., :64] if kernel != "residual_stack_cl" else err[:, :64]
+        rec = {"phase": "kernel_check", "kernel": kernel, "stage": st["name"], "B": BATCH,
+               "in_shape": list(got.shape), "dtype": dname,
+               "max_abs_err": err.max().item(), "mean_abs_err": err.mean().item(),
+               "max_abs_ref": scale, "max_rel_err": err.max().item() / max(scale, 1e-30),
+               "first_tile_max_abs_err": first.max().item(),
+               "frac_differ": (got != ref).float().mean().item()}
+        tol_max, tol_mean = K1_TOL[dname]
+        emit(rec)
+        what = f"{kernel} {st['name']} {dname}"
+        check(tuple(got.shape) == tuple(ref.shape), f"{what}: shape {tuple(got.shape)}")
+        check(torch.isfinite(got).all().item(), f"{what}: non-finite output")
+        check(rec["max_abs_err"] <= tol_max * max(1.0, scale),
+              f"{what}: max abs err {rec['max_abs_err']}")
+        check(rec["mean_abs_err"] <= tol_mean * max(1.0, scale),
+              f"{what}: mean abs err {rec['mean_abs_err']}")
+        return rec["max_abs_err"]
+
+    stage_err = {"residual_stack": 0.0, "residual_stack_cl": 0.0, "fused_stage": 0.0}
+    for st in stages:
+        c, t = st["units_ct"]
+        c_in, t_in = st["in_ct"]
         x32 = torch.randn(BATCH, c, t, device=dev, generator=gen) * 0.5
+        xh32 = (torch.randn(BATCH, c_in, t_in, device=dev, generator=gen) * 0.5
+                if (c_in, t_in) != (c, t) else x32)
         for dtype in (torch.float32, torch.bfloat16):
             dname = str(dtype).split(".")[-1]
-            packed = RS.pack_stage(st["units"], dtype)
             x = x32.to(dtype)
+            # K1 (B, C, T), weights in x's dtype
+            packed = RS.pack_stage(stage_params("serving", st)["units"], dtype)
             got = RS.residual_stack(x, packed, dil, fast)
             torch.cuda.synchronize()
-            ref = RS.residual_stack_plain(x, packed, dil, fast)
-            err = (got.float() - ref.float()).abs()
-            scale = ref.float().abs().max().item()
-            rec = {"phase": "kernel_check", "kernel": "residual_stack", "stage": name,
-                   "B": BATCH, "C": c, "T": t, "dtype": dname,
-                   "max_abs_err": err.max().item(), "mean_abs_err": err.mean().item(),
-                   "max_abs_ref": scale, "max_rel_err": err.max().item() / max(scale, 1e-30),
-                   "first_tile_max_abs_err": err[..., :64].max().item(),
-                   "frac_differ": (got != ref).float().mean().item()}
-            tol_max, tol_mean = K1_TOL[dname]
-            emit(rec)
-            check(torch.isfinite(got).all().item(), f"K1 {name} {dname}: non-finite output")
-            check(rec["max_abs_err"] <= tol_max * max(1.0, scale),
-                  f"K1 {name} {dname}: max abs err {rec['max_abs_err']}")
-            check(rec["mean_abs_err"] <= tol_mean * max(1.0, scale),
-                  f"K1 {name} {dname}: mean abs err {rec['mean_abs_err']}")
+            err = compare("residual_stack", st, dname, got, RS.residual_stack_plain(x, packed, dil, fast))
+            # K6 (B, T, C), float32 weights
+            xt = x.transpose(1, 2).contiguous()
+            p6 = stage_params("serving_channels_last", st)["stack_cl"]
+            got = RS.residual_stack_cl(xt, p6, dil, fast)
+            torch.cuda.synchronize()
+            err6 = compare("residual_stack_cl", st, dname, got,
+                           RS.residual_stack_cl_plain(xt, p6, dil, fast))
+            del got, xt
+            # K5 with the stage's real head or tail
+            xh = xh32.to(dtype)
+            p5 = (stage_params("serving_fused_boundary", st)["fused"] if dtype == torch.bfloat16
+                  else fused_f32[st["part"]][st["i"]])
+            got = FS.fused_stage(xh, p5, dil, fast)
+            torch.cuda.synchronize()
+            err5 = compare("fused_stage", st, dname, got, FS.fused_stage_plain(xh, p5, dil, fast))
             if dtype == torch.bfloat16:
-                k1_err[name] = rec["max_abs_err"]
-            del got, ref, err, x
-        del x32
+                for kernel, e in (("residual_stack", err), ("residual_stack_cl", err6),
+                                  ("fused_stage", err5)):
+                    stage_err[kernel] = max(stage_err[kernel], e)
+            del got, x, xh
+        del x32, xh32
 
     books = rvq["codebooks"].contiguous()
     z = model.latents(params, wav)  # the main path's own latents
     z2d = z.reshape(-1, z.shape[-1]).float().contiguous()
     idx_k = KR.quantize(books, z2d)
     torch.cuda.synchronize()
-    idx_p = KR.quantize_plain(books, z2d)
+    with float32_numerics():
+        idx_p = KR.quantize_plain(books, z2d)
     diff = idx_k != idx_p
     bad_frames = diff.any(dim=1).nonzero().flatten()
     near_ties, worst_margin = 0, 0.0
@@ -447,24 +551,32 @@ def main() -> int:
           "K2: an index differs where the plain version's margin is not a near-tie")
     deq_k = KR.dequantize(books, idx_p)
     torch.cuda.synchronize()
-    deq_p = KR.dequantize_plain(books, idx_p)
+    with float32_numerics():
+        deq_p = KR.dequantize_plain(books, idx_p)
     deq_err = (deq_k - deq_p).abs().max().item()
     emit({"phase": "kernel_check", "kernel": "rvq_dequantize", "M": idx_p.shape[0],
           "bit_exact": bool(torch.equal(deq_k, deq_p)), "max_abs_err": deq_err})
     check(torch.equal(deq_k, deq_p), "K3: not bit-exact against its plain version")
 
     # 4. main path ----------------------------------------------------------
-    kernels.reset_launches()
-    out = model.reconstruct(params, rvq, wav)
-    torch.cuda.synchronize()
-    launches = dict(kernels.LAUNCHES)
-    emit({"phase": "main", "what": "reconstruct", "shape": list(out.shape),
-          "finite": bool(torch.isfinite(out).all().item()), "launches": launches})
-    check(tuple(out.shape) == (BATCH, t_len), f"reconstruct shape {tuple(out.shape)}")
-    check(torch.isfinite(out).all().item(), "reconstruct output not finite")
-    check(launches == {"residual_stack": 8, "rvq_quantize": 1, "rvq_dequantize": 1,
-                       "stft_magnitude": 0},
-          f"launch counts {launches}")
+    # each serving path once, the counters read around its reconstruct
+    serving_launches = {}
+    for path, backend, route in SERVING_PATHS:
+        b = bundles[path]
+        kernels.reset_launches()
+        out = b.model.reconstruct(b.params, b.rvq, wav)
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        emit({"phase": "main", "what": "reconstruct", "path": path, "unit_backend": backend,
+              "shape": list(out.shape), "finite": bool(torch.isfinite(out).all().item()),
+              "launches": launches})
+        check(tuple(out.shape) == (BATCH, t_len), f"{path}: reconstruct shape {tuple(out.shape)}")
+        check(torch.isfinite(out).all().item(), f"{path}: reconstruct output not finite")
+        expect = dict.fromkeys(kernels.LAUNCHES, 0)
+        expect.update({route: 8, "rvq_quantize": 1, "rvq_dequantize": 1})
+        check(launches == expect, f"{path}: launch counts {launches}, expected {expect}")
+        serving_launches[path] = launches
+        del out
 
     one = wav_np[0]
     idx_one = api.encode(bundle, one)
@@ -481,62 +593,124 @@ def main() -> int:
     emit({"phase": "main", "what": "compress_roundtrip", "frames": int(idx_one.shape[0]),
           "n_q": int(idx_one.shape[1]), **rt})
 
+    # drift, reported and not gated: each serving path against the float32
+    # path (PyTorch's default TF32 settings: the codec turns TF32 off itself)
+    # and the opt-in paths against "auto"
     f32 = api.load_model("base_fast", serving=False, device=dev)
-    idx_s = model.encode(params, rvq, wav)
     idx_f = f32.model.encode(f32.params, f32.rvq, wav)
-    dec_s = model.decode(params, rvq, idx_f)
     dec_f = f32.model.decode(f32.params, f32.rvq, idx_f)
     lat_f = f32.model.latents(f32.params, wav)
     margins = rvq_ops.argmin_margins(f32.rvq, lat_f).flatten()
-    ref_rms = dec_f.pow(2).mean().sqrt().item()
-    emit({"phase": "main", "what": "serving_vs_float32",
-          "index_agreement": (idx_s == idx_f).float().mean().item(),
-          "decode_only_max_abs": (dec_s - dec_f).abs().max().item(),
-          "decode_only_rel_rms": ((dec_s - dec_f).pow(2).mean().sqrt().item()
-                                  / max(ref_rms, 1e-12)),
-          "float32_argmin_margin_percentiles": {
-              p: torch.quantile(margins.double(), p / 100).item()
-              for p in (0, 1, 5, 50)}})
-    del f32, idx_s, idx_f, dec_s, dec_f, lat_f
+
+    def drift(idx_a, idx_b, dec_a, dec_b):
+        ref_rms = dec_b.pow(2).mean().sqrt().item()
+        return {"index_agreement": (idx_a == idx_b).float().mean().item(),
+                "decode_only_max_abs": (dec_a - dec_b).abs().max().item(),
+                "decode_only_rel_rms": ((dec_a - dec_b).pow(2).mean().sqrt().item()
+                                        / max(ref_rms, 1e-12))}
+
+    idx_auto = model.encode(params, rvq, wav)
+    dec_auto = model.decode(params, rvq, idx_f)
+    for path, backend, _ in SERVING_PATHS:
+        b = bundles[path]
+        idx_s = b.model.encode(b.params, b.rvq, wav) if path != "serving" else idx_auto
+        dec_s = b.model.decode(b.params, b.rvq, idx_f) if path != "serving" else dec_auto
+        rec = {"phase": "main", "what": "serving_vs_float32", "path": path,
+               **drift(idx_s, idx_f, dec_s, dec_f)}
+        if path == "serving":
+            rec["float32_argmin_margin_percentiles"] = {
+                p: torch.quantile(margins.double(), p / 100).item() for p in (0, 1, 5, 50)}
+        else:
+            rec["vs_auto"] = drift(idx_s, idx_auto, dec_s, dec_auto)
+        emit(rec)
+        del idx_s, dec_s
+    del f32, idx_f, dec_f, lat_f, idx_auto, dec_auto
 
     # 5. timing -------------------------------------------------------------
-    def recon():
-        return model.reconstruct(params, rvq, wav)
+    rtf = {}
+    for path, backend, _ in SERVING_PATHS:
+        b = bundles[path]
 
-    recon()
-    torch.cuda.synchronize()
-    reps = 3
-    t0 = time.perf_counter()
-    for _ in range(reps):
+        def recon():
+            return b.model.reconstruct(b.params, b.rvq, wav)
+
         recon()
-    torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) / reps
-    ev_ms = events_ms(recon, reps=reps)
-    emit({"phase": "timing", "what": "reconstruct", "batch": BATCH, "seconds": SECONDS,
-          "wall_ms": wall * 1e3, "event_ms": ev_ms, "rtf": BATCH * SECONDS / wall,
-          "card": card})
+        torch.cuda.synchronize()
+        reps = 3
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            recon()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / reps
+        ev_ms = events_ms(recon, reps=reps)
+        rtf[path] = BATCH * SECONDS / wall
+        emit({"phase": "timing", "what": "reconstruct", "path": path, "unit_backend": backend,
+              "batch": BATCH, "seconds": SECONDS, "wall_ms": wall * 1e3, "event_ms": ev_ms,
+              "rtf": rtf[path], "card": card})
 
-    k1 = {"ms": 0.0, "plain_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0, "bound_ms": 0.0}
-    for name, st, t in stages:
-        p = st["stack"]
-        c = p["w1"].shape[-1]
+    def add(acc, ms, plain_ms, bytes_ms, ops_ms):
+        for key, v in (("ms", ms), ("plain_ms", plain_ms), ("bytes_ms", bytes_ms),
+                       ("ops_ms", ops_ms), ("bound_ms", max(bytes_ms, ops_ms))):
+            acc[key] += v
+
+    def nbytes(*tensors):
+        return sum(v.numel() * v.element_size() for v in tensors)
+
+    timing = {k: dict.fromkeys(("ms", "plain_ms", "bytes_ms", "ops_ms", "bound_ms"), 0.0)
+              for k in ("residual_stack", "residual_stack_cl", "fused_stage")}
+    for st in stages:
+        c, t = st["units_ct"]
+        unit_flops = 2 * BATCH * t * len(dil) * 4 * c * c
         x = (torch.randn(BATCH, c, t, device=dev, generator=gen) * 0.5).to(torch.bfloat16)
+        # K1: bf16 products on the tensor cores' rate
+        p = stage_params("serving", st)["stack"]
         ms = events_ms(lambda: RS.residual_stack(x, p, dil, fast))
         plain_ms = events_ms(lambda: RS.residual_stack_plain(x, p, dil, fast), reps=3)
-        nbytes = 2 * x.numel() * x.element_size() + sum(
-            v.numel() * v.element_size() for v in p.values())
-        flops = 2 * BATCH * t * len(dil) * 4 * c * c
-        bytes_ms, ops_ms = nbytes / PEAK_BYTES * 1e3, flops / PEAK_BF16_FLOPS * 1e3
-        emit({"phase": "timing", "kernel": "residual_stack", "stage": name, "C": c, "T": t,
-              "ms": ms, "plain_ms": plain_ms, "bytes": nbytes, "flops": flops,
-              "bound_ms": max(bytes_ms, ops_ms),
-              "bound_by": "bytes" if bytes_ms > ops_ms else "operations"})
-        k1["ms"] += ms
-        k1["plain_ms"] += plain_ms
-        k1["bytes_ms"] += bytes_ms
-        k1["ops_ms"] += ops_ms
-        k1["bound_ms"] += max(bytes_ms, ops_ms)
-        del x
+        b_ms = (2 * nbytes(x) + nbytes(*p.values())) / PEAK_BYTES * 1e3
+        o_ms = unit_flops / PEAK_BF16_FLOPS * 1e3
+        emit({"phase": "timing", "kernel": "residual_stack", "stage": st["name"], "C": c, "T": t,
+              "ms": ms, "plain_ms": plain_ms, "flops": unit_flops, "bound_ms": max(b_ms, o_ms),
+              "bound_by": "bytes" if b_ms > o_ms else "operations"})
+        add(timing["residual_stack"], ms, plain_ms, b_ms, o_ms)
+        # K6: float32 weights, so the products run at the float32 rate
+        xt = x.transpose(1, 2).contiguous()
+        p = stage_params("serving_channels_last", st)["stack_cl"]
+        ms = events_ms(lambda: RS.residual_stack_cl(xt, p, dil, fast))
+        plain_ms = events_ms(lambda: RS.residual_stack_cl_plain(xt, p, dil, fast), reps=3)
+        b_ms = (2 * nbytes(xt) + nbytes(*p.values())) / PEAK_BYTES * 1e3
+        o_ms = unit_flops / PEAK_F32_FLOPS * 1e3
+        emit({"phase": "timing", "kernel": "residual_stack_cl", "stage": st["name"], "C": c,
+              "T": t, "ms": ms, "plain_ms": plain_ms, "flops": unit_flops,
+              "bound_ms": max(b_ms, o_ms), "bound_by": "bytes" if b_ms > o_ms else "operations"})
+        add(timing["residual_stack_cl"], ms, plain_ms, b_ms, o_ms)
+        del xt
+        # K5: units at the float32 rate, head and tail (weights in bf16) at
+        # the bf16 rate; bytes are the stage's input, output and weights
+        c_in, t_in = st["in_ct"]
+        xh = x if (c_in, t_in) == (c, t) else (
+            torch.randn(BATCH, c_in, t_in, device=dev, generator=gen) * 0.5).to(torch.bfloat16)
+        p = stage_params("serving_fused_boundary", st)["fused"]
+        ms = events_ms(lambda: FS.fused_stage(xh, p, dil, fast))
+        out = FS.fused_stage(xh, p, dil, fast)
+        plain_ms = events_ms(lambda: FS.fused_stage_plain(xh, p, dil, fast), reps=3)
+        edge_flops = 0
+        if "head" in p:
+            edge_flops += 2 * BATCH * t * p["head"]["w"].numel()
+        if "tail" in p:
+            edge_flops += 2 * BATCH * t * p["tail"]["w"].numel()
+        weight_bytes = nbytes(*p["units"].values()) + sum(
+            nbytes(*p[k].values()) for k in ("head", "tail") if k in p)
+        b_ms = (nbytes(xh) + nbytes(out) + weight_bytes) / PEAK_BYTES * 1e3
+        o_ms = (unit_flops / PEAK_F32_FLOPS + edge_flops / PEAK_BF16_FLOPS) * 1e3
+        emit({"phase": "timing", "kernel": "fused_stage", "stage": st["name"],
+              "in_shape": list(xh.shape), "out_shape": list(out.shape), "ms": ms,
+              "plain_ms": plain_ms, "unit_flops": unit_flops, "edge_flops": edge_flops,
+              "bound_ms": max(b_ms, o_ms), "bound_by": "bytes" if b_ms > o_ms else "operations"})
+        add(timing["fused_stage"], ms, plain_ms, b_ms, o_ms)
+        del x, xh, out
+    for kernel, acc in timing.items():
+        emit({"phase": "timing", "kernel": kernel, "per": "reconstruct (8 launches)", **acc,
+              "card": card})
 
     n_q, k, d = books.shape
     m = z2d.shape[0]
@@ -560,41 +734,45 @@ def main() -> int:
           "dequantize_plain_ms": dq_plain, "dequantize_library_ms": dq_lib,
           "card": card})
 
-    serving_launches = launches
-    del bundle, model, params, rvq, out, wav, books, z, z2d, idx_k, idx_p, deq_k, deq_p
+    del bundle, bundles, model, params, rvq, wav, books, z, z2d, idx_k, idx_p, deq_k, deq_p
     torch.cuda.empty_cache()
     with torch.enable_grad():
         k4_summary, train_launches = train_smoke(dev, card, events_ms)
 
-    def both(name):
-        return serving_launches[name] + train_launches[name]
+    by_path = {**serving_launches, "training": train_launches}
+
+    def stage_entry(kernel, source, replaces):
+        acc = timing[kernel]
+        return {"name": kernel, "route": "cuda", "source": source, "replaces": replaces,
+                "max_abs_err": stage_err[kernel], "ms": acc["ms"], "plain_ms": acc["plain_ms"],
+                "bound_ms": acc["bound_ms"],
+                "bound_by": "bytes" if acc["bytes_ms"] > acc["ops_ms"] else "operations",
+                "library_ms": None}
 
     summary = {"kernels": [
-        {"name": "residual_stack", "route": "cuda",
-         "source": "nsc_tpu_torch/csrc/residual_stack.cu",
-         "replaces": "nsc_tpu/ops/pallas/residual_stack.py:305",
-         "launches": both("residual_stack"), "max_abs_err": max(k1_err.values()),
-         "ms": k1["ms"], "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
-         "bound_by": "bytes" if k1["bytes_ms"] > k1["ops_ms"] else "operations",
-         "library_ms": None},
+        stage_entry("residual_stack", "nsc_tpu_torch/csrc/residual_stack.cu",
+                    "nsc_tpu/ops/pallas/residual_stack.py:305"),
         {"name": "rvq_quantize", "route": "cuda", "source": "nsc_tpu_torch/csrc/rvq.cu",
-         "replaces": "nsc_tpu/ops/pallas/rvq_argmin.py:90",
-         "launches": both("rvq_quantize"), "max_abs_err": worst_margin,
+         "replaces": "nsc_tpu/ops/pallas/rvq_argmin.py:90", "max_abs_err": worst_margin,
          "ms": q_ms, "plain_ms": q_plain, "bound_ms": max(q_bytes_ms, q_ops_ms),
          "bound_by": "bytes" if q_bytes_ms > q_ops_ms else "operations",
          "library_ms": None},
         {"name": "rvq_dequantize", "route": "cuda", "source": "nsc_tpu_torch/csrc/rvq.cu",
-         "replaces": "nsc_tpu/ops/pallas/rvq_argmin.py:147",
-         "launches": both("rvq_dequantize"), "max_abs_err": deq_err,
+         "replaces": "nsc_tpu/ops/pallas/rvq_argmin.py:147", "max_abs_err": deq_err,
          "ms": dq_ms, "plain_ms": dq_plain, "bound_ms": max(dq_bytes_ms, dq_ops_ms),
          "bound_by": "bytes" if dq_bytes_ms > dq_ops_ms else "operations",
          "library_ms": dq_lib},
         k4_summary,
+        stage_entry("fused_stage", "nsc_tpu_torch/csrc/fused_stage.cu",
+                    "nsc_tpu/ops/pallas/residual_stack.py:513"),
+        stage_entry("residual_stack_cl", "nsc_tpu_torch/csrc/residual_stack_cl.cu",
+                    "nsc_tpu/ops/pallas/residual_stack.py:121"),
     ]}
     for entry in summary["kernels"]:
-        entry["launches_by_path"] = {"serving": serving_launches[entry["name"]],
-                                     "training": train_launches[entry["name"]]}
-    emit({"phase": "total", "seconds": time.perf_counter() - t_start})
+        entry["launches_by_path"] = {path: n[entry["name"]] for path, n in by_path.items()}
+        entry["launches"] = sum(entry["launches_by_path"].values())
+    emit({"phase": "total", "seconds": time.perf_counter() - t_start,
+          "rtf": rtf})
     emit(summary)
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,9 +8,10 @@ a config name means the same model (and the same bitstream identity) in both.
 
 Fields that name lowerings of the JAX package (`conv_backend`, `conv_stack`,
 `rvq_backend`, `unit_backend`) are kept so the two configs stay identical.
-The port reads `unit_backend` and `rvq_backend` only as "serving wants the
-kernel"; which CUDA kernel runs is decided by
-`nsc_tpu_torch.models.codec.KernelOptions`.
+`nsc_tpu_torch.models.codec.KernelOptions.for_config` reads `unit_backend`
+as the route of the residual units, under the JAX package's gates ("auto"/
+"pallas_ct": K1, "pallas_fused": K6, "pallas_ct_fused": K5, otherwise op
+by op), and `rvq_backend == "pallas"` as the RVQ kernels.
 """
 
 from __future__ import annotations
@@ -58,8 +59,8 @@ class CodecConfig:
     param_dtype: str = "float32"
     conv_backend: str = "reference"
     conv_stack: int = 16
-    rvq_backend: str = "xla"        # "pallas" = serving wants the RVQ kernels
-    unit_backend: str = "reference"  # "auto"/"pallas_ct" = wants the stack kernel
+    rvq_backend: str = "xla"        # "pallas" = the RVQ kernels (K2, K3)
+    unit_backend: str = "reference"  # route of the residual units: see KernelOptions
     quant: str = "none"
 
     @property

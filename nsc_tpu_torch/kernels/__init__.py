@@ -12,6 +12,8 @@ LAUNCHES = {
     "rvq_quantize": 0,
     "rvq_dequantize": 0,
     "stft_magnitude": 0,
+    "residual_stack_cl": 0,
+    "fused_stage": 0,
 }
 
 

@@ -24,7 +24,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("residual_stack.cu", "rvq.cu", "stft.cu")
+SOURCES = ("residual_stack.cu", "rvq.cu", "stft.cu", "residual_stack_cl.cu", "fused_stage.cu")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 LIB_NAME = "libnsc_kernels.so"
@@ -42,6 +42,11 @@ SIGNATURES = {
     "nsc_rvq_dequantize": [_P] * 3 + [_I] * 4 + [_P],
     # xpad, win, cosb, sinb, out, B, Tp, n_fft, hop, F, K, Kp, stream
     "nsc_stft_magnitude": [_P] * 5 + [_I] * 7 + [_P],
+    # as nsc_residual_stack, x and out (B, T, C), float32 weights
+    "nsc_residual_stack_cl": [_P] * 9 + [_I] * 6 + [_P],
+    # x, out, hw, hb, ha, w1, b1, a1, w2, b2, a2, ta, tw, tb, dilations,
+    # B, Cin, Cmid, Cout, Tin, U, s_head, s_tail, is_bf16, fast, stream
+    "nsc_fused_stage": [_P] * 15 + [_I] * 10 + [_P],
 }
 
 _lock = threading.Lock()

@@ -7,7 +7,8 @@ through `stft`, by default `nsc_tpu_torch.kernels.stft.stft_magnitude`: the
 CUDA kernel on a card (its backward through the plain version), the plain
 version on CPU tensors. Nothing moves to another path by itself; a caller
 that holds the kernel against its plain version on the card passes
-`stft=stft_magnitude_plain`.
+`stft=stft_magnitude_plain`. The multi-resolution loss computes in float32,
+or in float64 for float64 inputs (a reference for its float32 gradient).
 """
 
 from __future__ import annotations
@@ -38,11 +39,12 @@ def multi_res_stft_loss(
 ) -> torch.Tensor:
     """(N, T) waveforms -> scalar: mean over resolutions of (spectral
     convergence + log-magnitude L1), each averaged over the batch."""
-    total = pred.new_zeros((), dtype=torch.float32)
+    dt = torch.float64 if pred.dtype == torch.float64 else torch.float32
+    total = pred.new_zeros((), dtype=dt)
     for n_fft in cfg.fft_sizes:
         hop = n_fft // cfg.hop_divisor
-        p = stft(pred.float().contiguous(), n_fft, hop)
-        t = stft(target.float().contiguous(), n_fft, hop)
+        p = stft(pred.to(dt).contiguous(), n_fft, hop)
+        t = stft(target.to(dt).contiguous(), n_fft, hop)
         sc = torch.linalg.norm(t - p, dim=(-2, -1)) / (
             torch.linalg.norm(t, dim=(-2, -1)) + eps
         )

@@ -25,6 +25,7 @@ import torch
 from nsc_tpu_torch.configs import CodecConfig
 from nsc_tpu_torch.models import seanet
 from nsc_tpu_torch.ops import rvq as rvq_ops
+from nsc_tpu_torch.ops.precision import float32_numerics
 
 Params = Dict[str, Any]
 
@@ -33,19 +34,28 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 @dataclasses.dataclass(frozen=True)
 class KernelOptions:
-    """Which hand-written kernels the model runs. `CodecConfig` keeps the
-    JAX package's fields; the port reads its `unit_backend` and
-    `rvq_backend` only as "serving wants the kernel" (`for_config`)."""
+    """Which hand-written kernels the inference methods run.
 
-    residual_stack: bool = False
+    units: the route of the SEANet stages' residual units (`seanet.
+      UNIT_ROUTES`): "residual_stack" (K1), "residual_stack_cl" (K6),
+      "fused_stage" (K5, boundary convs fused in) or "reference" (op by op).
+    rvq: K2/K3 for the RVQ search and sum.
+
+    `for_config` selects them from the config's `unit_backend` and
+    `rvq_backend` under the JAX package's gates (`seanet.unit_route`);
+    `CodecConfig` itself keeps the JAX package's fields only. The weights
+    carry only what the selected route runs (`weights.from_jax_params`)."""
+
+    units: str = "reference"
     rvq: bool = False
+
+    def __post_init__(self):
+        if self.units not in seanet.UNIT_ROUTES:
+            raise ValueError(f"units must be one of {seanet.UNIT_ROUTES}, got {self.units!r}")
 
     @classmethod
     def for_config(cls, cfg: CodecConfig) -> "KernelOptions":
-        return cls(
-            residual_stack=cfg.unit_backend != "reference",
-            rvq=cfg.rvq_backend == "pallas",
-        )
+        return cls(units=seanet.unit_route(cfg), rvq=cfg.rvq_backend == "pallas")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,7 +72,12 @@ class NeuralSpeechCodec:
             object.__setattr__(self, "kernels", KernelOptions.for_config(self.cfg))
 
     # -- inference ---------------------------------------------------------
+    # Each inference method runs under `float32_numerics()`: the float32
+    # convs and matmuls (all of the float32 path; the projections and the
+    # RVQ's float32 parts of the bf16 path) are true float32 whatever the
+    # caller's TF32 settings, which come back after the call.
 
+    @float32_numerics()
     def encode(
         self, params: Params, rvq: rvq_ops.RVQState, wav: torch.Tensor,
         n_q: Optional[int] = None,
@@ -72,16 +87,17 @@ class NeuralSpeechCodec:
             rvq, self.latents(params, wav), n_q=n_q, kernel=self.kernels.rvq
         )
 
+    @float32_numerics()
     def latents(self, params: Params, wav: torch.Tensor) -> torch.Tensor:
         """(N, T) waveform -> (N, F, D) pre-quantization latents (projected
         into codebook space for factorized configs)."""
         x = self._shape_wav(wav)
         z = seanet.apply_encoder(
-            params["encoder"], x, self.cfg,
-            use_kernel=self.kernels.residual_stack,
+            params["encoder"], x, self.cfg, units=self.kernels.units
         )
         return self._project_in(params, z.transpose(1, 2))
 
+    @float32_numerics()
     def decode(
         self, params: Params, rvq: rvq_ops.RVQState, indices: torch.Tensor,
         n_q: Optional[int] = None,
@@ -90,6 +106,7 @@ class NeuralSpeechCodec:
         z = rvq_ops.dequantize(rvq, indices, n_q=n_q, kernel=self.kernels.rvq)
         return self._decode_z(params, z)
 
+    @float32_numerics()
     def reconstruct(
         self, params: Params, rvq: rvq_ops.RVQState, wav: torch.Tensor,
         n_q: Optional[int] = None,
@@ -97,6 +114,7 @@ class NeuralSpeechCodec:
         """encode -> decode (the serving benchmark path)."""
         return self.decode(params, rvq, self.encode(params, rvq, wav, n_q), n_q)
 
+    @float32_numerics()
     def decode_latents(self, params: Params, z: torch.Tensor) -> torch.Tensor:
         """(N, F, D) codebook-space latents -> (N, F*hop) waveform, skipping
         quantization (the infinite-bitrate bound of the autoencoder)."""
@@ -139,8 +157,7 @@ class NeuralSpeechCodec:
     def _decode_z(self, params: Params, z: torch.Tensor) -> torch.Tensor:
         z = self._project_out(params, z).to(self.compute_dtype)
         wav = seanet.apply_decoder(
-            params["decoder"], z.transpose(1, 2), self.cfg,
-            use_kernel=self.kernels.residual_stack,
+            params["decoder"], z.transpose(1, 2), self.cfg, units=self.kernels.units
         )
         return wav[:, 0, :].float()
 

@@ -10,7 +10,9 @@ Two ways to the DFT, as in the JAX package:
 The periodic Hann window, the DFT basis and the mel filterbank are built in
 numpy float64 and cast to float32 once, exactly as the JAX package builds
 them, so both packages multiply by the same float32 numbers (a basis made
-with torch.float32 `cos` would differ in its last bits).
+with torch.float32 `cos` would differ in its last bits). `stft_magnitude`
+of a float64 signal uses the float64 window and basis, unrounded: a
+reference for the float32 path.
 
 All functions work on the last axis (time) and broadcast over leading axes.
 """
@@ -26,13 +28,15 @@ import torch.nn.functional as F
 
 
 @functools.lru_cache(maxsize=32)
-def _hann_window_np(n: int) -> np.ndarray:
-    return (0.5 - 0.5 * np.cos(2.0 * np.pi * np.arange(n) / n)).astype(np.float32)
+def _hann_window_np(n: int, dtype=np.float32) -> np.ndarray:
+    return (0.5 - 0.5 * np.cos(2.0 * np.pi * np.arange(n) / n)).astype(dtype)
 
 
-def hann_window(n: int, device=None) -> torch.Tensor:
-    """Periodic Hann window of length n, float32."""
-    return torch.from_numpy(_hann_window_np(n)).to(device)
+def hann_window(n: int, device=None, dtype=torch.float32) -> torch.Tensor:
+    """Periodic Hann window of length n, float32 (float64 for a float64
+    dtype)."""
+    np_dtype = np.float64 if dtype == torch.float64 else np.float32
+    return torch.from_numpy(_hann_window_np(n, np_dtype)).to(device)
 
 
 def num_frames(length: int, n_fft: int, hop: int, center: bool) -> int:
@@ -66,16 +70,17 @@ def frame_signal(
 
 
 @functools.lru_cache(maxsize=32)
-def _dft_basis_np(n_fft: int):
-    """Real/imaginary rfft basis, (n_fft, n_fft//2+1) float32 each."""
+def _dft_basis_np(n_fft: int, dtype=np.float32):
+    """Real/imaginary rfft basis, (n_fft, n_fft//2+1) each, in `dtype`."""
     k = np.arange(n_fft // 2 + 1)
     n = np.arange(n_fft)
     ang = -2.0 * np.pi * np.outer(n, k) / n_fft
-    return np.cos(ang).astype(np.float32), np.sin(ang).astype(np.float32)
+    return np.cos(ang).astype(dtype), np.sin(ang).astype(dtype)
 
 
-def dft_basis(n_fft: int, device=None):
-    c, s = _dft_basis_np(n_fft)
+def dft_basis(n_fft: int, device=None, dtype=torch.float32):
+    """The basis in float32 (float64 for a float64 dtype) on `device`."""
+    c, s = _dft_basis_np(n_fft, np.float64 if dtype == torch.float64 else np.float32)
     return torch.from_numpy(c).to(device), torch.from_numpy(s).to(device)
 
 
@@ -90,12 +95,13 @@ def stft_magnitude(
     eps: float = 1e-8,
 ) -> torch.Tensor:
     """|STFT| = sqrt(re^2 + im^2 + eps), (..., T) -> (..., frames,
-    n_fft//2+1) float32."""
+    n_fft//2+1), float32 (float64 for a float64 x)."""
+    dt = torch.float64 if x.dtype == torch.float64 else torch.float32
     if window is None:
-        window = hann_window(n_fft, x.device)
+        window = hann_window(n_fft, x.device, dt)
     frames = frame_signal(x, n_fft, hop, center=center) * window
     if use_matmul_dft:
-        cos_b, sin_b = dft_basis(n_fft, x.device)
+        cos_b, sin_b = dft_basis(n_fft, x.device, dt)
         re = torch.matmul(frames, cos_b)
         im = torch.matmul(frames, sin_b)
     else:

@@ -28,10 +28,10 @@ import torch
 from nsc_tpu_torch.api import resolve_device
 from nsc_tpu_torch.configs import CodecConfig, TrainConfig, get_config
 from nsc_tpu_torch.ops import rvq as rvq_ops
+from nsc_tpu_torch.ops.precision import float32_numerics
 from nsc_tpu_torch.train import checkpoint as ckpt
 from nsc_tpu_torch.train import data as data_lib
 from nsc_tpu_torch.train.train import (
-    float32_numerics,
     init_train_state,
     make_train_step,
     model_for,

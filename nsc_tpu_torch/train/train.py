@@ -34,7 +34,6 @@ uninterrupted one would; tests pass JAX's own draws in explicitly.
 
 from __future__ import annotations
 
-import contextlib
 import math
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -48,6 +47,7 @@ from nsc_tpu_torch.losses import spectral
 from nsc_tpu_torch.models import discriminators as disc
 from nsc_tpu_torch.models.codec import KernelOptions, NeuralSpeechCodec
 from nsc_tpu_torch.ops import rvq as rvq_ops
+from nsc_tpu_torch.ops.precision import float32_numerics
 
 TrainState = Dict[str, Any]
 
@@ -193,19 +193,6 @@ def state_from_trees(trees: TrainState, device, step: int = 0) -> TrainState:
                 "nu": weights.tree_map(lambda x: x.to(device, torch.float32), trees[name]["nu"]),
             }
     return state
-
-
-@contextlib.contextmanager
-def float32_numerics():
-    """TF32 off for cuDNN convolutions and cuBLAS matmuls inside the block;
-    the previous settings come back after it."""
-    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
 
 
 def step_generator(seed: int, step: int) -> torch.Generator:

@@ -16,8 +16,11 @@ materialized once (eps 1e-12, `ops.conv.materialize_weight`):
   transposed conv {'w': (Cin, Cout, K), 'b': (Cout,)}
   activation      alpha (C,) or None (elu)
 
-Stages whose residual units the kernel can run also get 'stack', the units
-packed for `kernels.residual_stack` in the config's compute dtype.
+Each stage also gets its units packed for the kernel route that
+`KernelOptions.for_config(cfg)` selects from `cfg.unit_backend`, and only
+for that one (`seanet.pack_stages`): 'stack' for K1 (compute dtype),
+'stack_cl' for K6 (float32 units) or 'fused' for K5 (float32 units, with a
+head or tail in the compute dtype).
 
 `train_state_from_jax` / `train_state_to_jax` carry the training trees
 (weight-norm kept as (v, g) leaves, the whole RVQ state) between the two
@@ -38,9 +41,8 @@ import numpy as np
 import torch
 
 from nsc_tpu_torch.configs import CodecConfig
-from nsc_tpu_torch.kernels import residual_stack as RS
 from nsc_tpu_torch.models import seanet
-from nsc_tpu_torch.models.codec import DTYPES
+from nsc_tpu_torch.models.codec import DTYPES, KernelOptions
 from nsc_tpu_torch.ops import conv as C
 from nsc_tpu_torch.ops import rvq as rvq_ops
 
@@ -86,15 +88,11 @@ def conv_transpose_from_jax(p: Tree) -> Dict[str, torch.Tensor]:
     return C.conv_transpose_params(to_tensors(p))
 
 
-def _add_stack(stage: Tree, cfg: CodecConfig, dtype: torch.dtype) -> Tree:
-    if seanet.stack_supported(cfg, "causal" if cfg.causal else "same"):
-        stage["stack"] = RS.pack_stage(stage["units"], dtype)
-    return stage
-
-
-def units_from_jax(units, cfg: CodecConfig, dtype: torch.dtype) -> Tree:
-    """A stage's JAX residual units -> {'units': [...], ['stack': packed]}."""
-    return _add_stack({"units": seanet.materialize_units(to_tensors(units))}, cfg, dtype)
+def units_from_jax(units) -> list:
+    """A stage's JAX residual units -> the port's materialized units. The
+    route packs them (`seanet.pack_stages`, `kernels.residual_stack.pack_stage`,
+    `kernels.fused_stage.pack`)."""
+    return seanet.materialize_units(to_tensors(units))
 
 
 def from_jax_params(params: Tree, rvq: Tree, cfg: CodecConfig) -> Tuple[Tree, Tree]:
@@ -105,9 +103,9 @@ def from_jax_params(params: Tree, rvq: Tree, cfg: CodecConfig) -> Tuple[Tree, Tr
         "encoder": seanet.materialize_encoder(tree["encoder"]),
         "decoder": seanet.materialize_decoder(tree["decoder"]),
     }
+    route = KernelOptions.for_config(cfg).units
     for part in ("encoder", "decoder"):
-        for stage in out[part]["stages"]:
-            _add_stack(stage, cfg, dtype)
+        seanet.pack_stages(part, out[part]["stages"], route, dtype)
     for name in ("proj_in", "proj_out"):
         if name in tree:
             out[name] = tree[name]

@@ -108,7 +108,7 @@ def test_compress_byte_identical(f32, entropy):
 @pytest.mark.parametrize("name", CONFIGS)
 def test_serving_bf16_within_tolerance(name):
     jb, pb = _pair(name, serving=True)
-    assert pb.cfg.compute_dtype == "bfloat16" and pb.model.kernels.residual_stack
+    assert pb.cfg.compute_dtype == "bfloat16" and pb.model.kernels.units == "residual_stack"
     wav = _wav(jb.cfg, seed=1)
     idx_j, idx_p = JA.encode(jb, wav), PA.encode(pb, wav)
     assert (idx_j == idx_p).mean() >= 0.95
@@ -162,3 +162,36 @@ def test_depth_truncation_matches_jax():
         PA.decompress(pb, PB.truncate(PA.compress(pb, wav), 1)),
         JA.decompress(jb, blob), rtol=1e-3, atol=1e-4,
     )
+
+
+@pytest.mark.parametrize("method", ["encode", "latents", "decode", "reconstruct", "decode_latents"])
+def test_inference_methods_turn_tf32_off_and_restore_it(method, monkeypatch):
+    """Inside every inference method both TF32 flags read False (PyTorch
+    allows TF32 convolutions by default); the caller's values come back."""
+    from nsc_tpu_torch.models import seanet as PS
+
+    flags = lambda: (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    seen = []
+    for name in ("apply_encoder", "apply_decoder"):
+        real = getattr(PS, name)
+        monkeypatch.setattr(PS, name, lambda *a, _f=real, **k: (seen.append(flags()), _f(*a, **k))[1])
+    pb = PA.load_model("tiny_test", device="cpu")
+    m = pb.model
+    wav = torch.from_numpy(_wav(pb.cfg, n=1, frames=4))
+    idx = m.encode(pb.params, pb.rvq, wav)
+    args = {
+        "encode": (pb.rvq, wav), "latents": (wav,), "decode": (pb.rvq, idx),
+        "reconstruct": (pb.rvq, wav),
+        "decode_latents": (torch.zeros(1, 4, pb.cfg.codebook_dim),),
+    }[method]
+    saved = flags()
+    try:
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+        seen.clear()
+        with torch.inference_mode():
+            getattr(m, method)(pb.params, *args)
+        after = flags()
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    assert seen and set(seen) == {(False, False)}
+    assert after == (True, True)

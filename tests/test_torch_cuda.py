@@ -11,6 +11,7 @@ This file imports torch and the port only.
 import pytest
 import torch
 
+from nsc_tpu_torch.kernels import fused_stage as FS
 from nsc_tpu_torch.kernels import residual_stack as RS
 from nsc_tpu_torch.kernels import rvq as KR
 from nsc_tpu_torch.kernels import stft as KS
@@ -22,14 +23,12 @@ pytestmark = pytest.mark.cuda
 def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
 
 
-def _stage(c, units, dtype, dev, bias):
+def _units(c, units, dev, bias):
     g = torch.Generator(device=dev).manual_seed(c)
-    us = [
+    return [
         {"conv1": {"w": torch.randn(c, c, 3, device=dev, generator=g) / (3 * c) ** 0.5,
                    "b": bias * torch.randn(c, device=dev, generator=g)},
          "conv2": {"w": torch.randn(c, c, 1, device=dev, generator=g) / c ** 0.5,
@@ -38,7 +37,10 @@ def _stage(c, units, dtype, dev, bias):
          "act2": 1 + 0.3 * torch.rand(c, device=dev, generator=g)}
         for _ in range(units)
     ]
-    return RS.pack_stage(us, dtype)
+
+
+def _stage(c, units, dtype, dev, bias):
+    return RS.pack_stage(_units(c, units, dev, bias), dtype)
 
 
 # (dtype, max abs err / max|ref|): float32 differs only in summation order;
@@ -70,6 +72,124 @@ def test_residual_stack_rejects_bad_inputs(dev):
         RS.residual_stack(x, p, (1, 3, 9), True)
     with pytest.raises(ValueError):
         RS.residual_stack(x.to(torch.bfloat16)[..., ::2], p, (1, 3, 9), True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("fast", [True, False])
+@pytest.mark.parametrize("c,t,dil", [(32, 3001, (1, 3, 9)), (8, 777, (1, 3, 9, 27, 81)),
+                                     (256, 700, (2, 5, 13))])
+def test_residual_stack_cl_kernel_matches_plain(dev, dtype, fast, c, t, dil):
+    """K6 on (B, T, C) with float32 weights: ragged T, a non-zero bias, a
+    halo wider than 128 (dilations up to 81)."""
+    p = _stage(c, len(dil), torch.float32, dev, bias=0.5)
+    x = (torch.randn(2, t, c, device=dev) * 0.5).to(dtype)
+    got = RS.residual_stack_cl(x, p, dil, fast)
+    torch.cuda.synchronize()
+    ref = RS.residual_stack_cl_plain(x, p, dil, fast)
+    err = (got.float() - ref.float()).abs()
+    scale = max(1.0, ref.float().abs().max().item())
+    assert err[:, :64].max().item() <= _TOL[dtype] * scale
+    assert err.max().item() <= _TOL[dtype] * scale
+
+
+def _boundary(dev, c_act, c_out, s, transposed, dtype):
+    g = torch.Generator(device=dev).manual_seed(s)
+    alpha = 1 + 0.3 * torch.rand(c_act, device=dev, generator=g)
+    shape = (c_act, c_out, 2 * s) if transposed else (c_out, c_act, 2 * s)
+    conv = {"w": torch.randn(*shape, device=dev, generator=g) / (2 * s * c_act) ** 0.5,
+            "b": 0.3 * torch.randn(c_out, device=dev, generator=g)}
+    pack = FS.pack_tail if transposed else FS.pack_head
+    return pack(alpha, conv, dtype)
+
+
+# (head stride, tail stride, C_in, C_mid, C_out): the serving path's strides
+# at small widths, and a stage with neither
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("fast", [True, False])
+@pytest.mark.parametrize("sh,stl,c_in,c_mid,c_out", [
+    (2, 0, 16, 32, 32), (4, 0, 32, 64, 64), (5, 0, 64, 128, 128),
+    (0, 5, 64, 64, 32), (0, 4, 32, 32, 16), (0, 2, 16, 16, 8), (0, 0, 32, 32, 32),
+])
+def test_fused_stage_kernel_matches_plain(dev, dtype, fast, sh, stl, c_in, c_mid, c_out):
+    dil = (1, 3, 9)
+    p = FS.pack(_units(c_mid, len(dil), dev, bias=0.5),
+                _boundary(dev, c_in, c_mid, sh, False, dtype) if sh else None,
+                _boundary(dev, c_mid, c_out, stl, True, dtype) if stl else None)
+    t_in = 2999 if sh else 1001
+    x = (torch.randn(2, c_in, t_in, device=dev) * 0.5).to(dtype)
+    got = FS.fused_stage(x, p, dil, fast)
+    torch.cuda.synchronize()
+    ref = FS.fused_stage_plain(x, p, dil, fast)
+    assert got.shape == ref.shape
+    err = (got.float() - ref.float()).abs()
+    scale = max(1.0, ref.float().abs().max().item())
+    assert err[..., :64].max().item() <= _TOL[dtype] * scale
+    assert err.max().item() <= _TOL[dtype] * scale
+
+
+def test_stage_kernels_reject_bad_inputs(dev):
+    p = _stage(32, 3, torch.float32, dev, bias=0.1)
+    x = torch.randn(2, 100, 32, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        RS.residual_stack_cl(x, RS.pack_stage(_units(32, 3, dev, 0.1), torch.bfloat16),
+                             (1, 3, 9), True)  # bf16 weights
+    with pytest.raises(ValueError):
+        RS.residual_stack_cl(x[:, ::2], p, (1, 3, 9), True)  # not contiguous
+    with pytest.raises(ValueError):
+        RS.residual_stack_cl(torch.randn(2, 100, 30, device=dev), p, (1, 3, 9), True)
+    head = _boundary(dev, 16, 32, 2, False, torch.bfloat16)
+    fp = FS.pack(_units(32, 3, dev, 0.1), head, None)
+    xh = torch.randn(2, 16, 100, device=dev)
+    with pytest.raises(ValueError):
+        FS.fused_stage(xh, fp, (1, 3, 9), True)  # float32 x, bf16 head weights
+    with pytest.raises(ValueError):
+        FS.fused_stage(xh.to(torch.bfloat16)[:, :8].contiguous(), fp, (1, 3, 9), True)  # C_in 8 != 16
+    with pytest.raises(ValueError):
+        FS.fused_stage(torch.randn(2, 16, 100, device=dev),
+                       FS.pack(_units(32, 3, dev, 0.1), None, None), (1, 3, 9), True)
+
+
+@pytest.mark.parametrize("backend,key", [("pallas_ct_fused", "fused_stage"),
+                                         ("pallas_fused", "residual_stack_cl")])
+def test_opt_in_serving_paths_launch_their_kernels(dev, backend, key):
+    """reconstruct on `small` (widths 16-256 pass the bf16 gate): the stage
+    kernel x8, K2 and K3 once, K1 never."""
+    import dataclasses
+
+    from nsc_tpu_torch import api, kernels, weights
+
+    cfg = dataclasses.replace(api.serving_config(api.get_config("small")), unit_backend=backend)
+    b = api.bundle_from_jax(cfg, *weights.init_jax_layout(cfg, 0), device=dev)
+    wav = torch.randn(2, 64 * cfg.hop, device=dev) * 0.1
+    kernels.reset_launches()
+    out = b.model.reconstruct(b.params, b.rvq, wav)
+    torch.cuda.synchronize()
+    want = dict.fromkeys(kernels.LAUNCHES, 0)
+    want.update({key: 8, "rvq_quantize": 1, "rvq_dequantize": 1})
+    assert kernels.LAUNCHES == want
+    assert out.shape == wav.shape and torch.isfinite(out).all()
+
+
+def test_float32_path_ignores_callers_tf32(dev):
+    """With both TF32 flags on (cuDNN's is PyTorch's default), the float32
+    path gives the indices and the waveform bits of a TF32-off run."""
+    import numpy as np
+
+    from nsc_tpu_torch import api
+
+    b = api.load_model("base_fast", serving=False, device=dev)
+    wav = np.random.RandomState(0).randn(2, 3 * 16000).astype(np.float32) * 0.1
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    runs = {}
+    try:
+        for on in (True, False):
+            torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = on
+            idx = api.encode(b, wav)
+            runs[on] = (idx, api.decode(b, idx))
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    np.testing.assert_array_equal(runs[True][0], runs[False][0])
+    np.testing.assert_array_equal(runs[True][1], runs[False][1])
 
 
 def test_rvq_kernels_match_plain_with_ties(dev):
@@ -135,5 +255,5 @@ def test_full_width_train_step_launches_the_kernels(dev):
     state, metrics = step(state, batch)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES == {"residual_stack": 0, "rvq_quantize": 1, "rvq_dequantize": 0,
-                                "stft_magnitude": 12}
+                                "stft_magnitude": 12, "residual_stack_cl": 0, "fused_stage": 0}
     assert all(torch.isfinite(v).item() for v in metrics.values())

@@ -63,13 +63,14 @@ def test_cpu_serving_path_launches_no_kernel_and_builds_nothing(monkeypatch):
     monkeypatch.setattr(_build, "library", no_build)
     kernels.reset_launches()
     bundle = api.load_model("tiny_test", serving=True, device="cpu")
-    assert bundle.model.kernels.residual_stack and bundle.model.kernels.rvq
+    assert bundle.model.kernels.units == "residual_stack" and bundle.model.kernels.rvq
     wav = torch.randn(2, 40 * bundle.cfg.hop).numpy() * 0.1
     idx = api.encode(bundle, wav)
     out = api.decode(bundle, idx)
     assert out.shape == (2, 40 * bundle.cfg.hop)
     assert kernels.LAUNCHES == {
         "residual_stack": 0, "rvq_quantize": 0, "rvq_dequantize": 0, "stft_magnitude": 0,
+        "residual_stack_cl": 0, "fused_stage": 0,
     }
 
 

@@ -65,9 +65,9 @@ def test_residual_stack_plain_matches_pallas(dtype, act, c, t, dilations):
         interpret=True, fast_act=(act == "snake_fast"), tile_t=512,
     )
     ref = np.asarray(ref.astype(jnp.float32))
-    stage = W.units_from_jax(units, cfg, tdt)
+    packed = RS.pack_stage(W.units_from_jax(units), tdt)
     got = RS.residual_stack(
-        torch.from_numpy(x).to(tdt), stage["stack"], dilations, act == "snake_fast"
+        torch.from_numpy(x).to(tdt), packed, dilations, act == "snake_fast"
     ).float().numpy()
     err = np.abs(got - ref)
     scale = np.abs(ref).max()
@@ -92,9 +92,9 @@ def test_residual_stack_plain_matches_op_by_op_reference(act):
     for u, d in zip(units, dilations):
         h = JS._apply_residual_unit(jax.tree.map(jnp.asarray, u), h, d, cfg, "causal")
     ref = np.asarray(h).transpose(0, 2, 1)
-    stage = W.units_from_jax(units, cfg, torch.float32)
+    packed = RS.pack_stage(W.units_from_jax(units), torch.float32)
     got = RS.residual_stack(
-        torch.from_numpy(x.transpose(0, 2, 1).copy()), stage["stack"], dilations,
+        torch.from_numpy(x.transpose(0, 2, 1).copy()), packed, dilations,
         act == "snake_fast",
     ).numpy()
     np.testing.assert_allclose(got[..., :32], ref[..., :32], rtol=2e-5, atol=2e-5)
@@ -171,8 +171,9 @@ def test_cpu_wrappers_do_not_count_launches():
     z = torch.randn(10, 8)
     KR.dequantize(books, KR.quantize(books, z))
     cfg, units = _units(8, (1,), "snake_fast", seed=0)
-    stage = W.units_from_jax(units, cfg, torch.float32)
-    RS.residual_stack(torch.randn(1, 8, 50), stage["stack"], (1,), True)
+    packed = RS.pack_stage(W.units_from_jax(units), torch.float32)
+    RS.residual_stack(torch.randn(1, 8, 50), packed, (1,), True)
     assert kernels.LAUNCHES == {
         "residual_stack": 0, "rvq_quantize": 0, "rvq_dequantize": 0, "stft_magnitude": 0,
+        "residual_stack_cl": 0, "fused_stage": 0,
     }

@@ -16,6 +16,7 @@ relative on the latents, which moves a score (~1e1..1e2) by ~1e-4 at most,
 so a flip above that margin is a fault, not rounding.
 """
 
+import dataclasses
 import os
 
 import jax
@@ -69,7 +70,8 @@ def test_port_configs_equal_jax_configs():
 def test_from_jax_params_every_config(name):
     cfg = PCFG.get_config(name)
     params, rvq = _tree(get_config(name), seed=len(name))
-    pp, pq = W.from_jax_params(params, rvq, cfg)
+    # the K1 route, so each stage carries its packed units where K1 runs them
+    pp, pq = W.from_jax_params(params, rvq, dataclasses.replace(cfg, unit_backend="auto"))
     n = 0
     for path, jc, pc in _convs(params, pp):
         want = np.asarray(JC.materialize_weight({k: jnp.asarray(v) for k, v in jc.items()}))
