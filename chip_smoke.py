@@ -14,7 +14,12 @@ every plain version compared here run their float32 work under
 `float32_numerics()` themselves. Phases, each printing JSON lines:
 
   1. device   the card's name and power limit
-  2. build    the kernels, compiled from nsc_tpu_torch/csrc (seconds)
+  2. build    the kernels, compiled from nsc_tpu_torch/csrc (seconds), with
+              ptxas's registers and spills per kernel (no stage kernel may
+              spill) and the HMMA (tensor-core) instructions of each stage
+              kernel's instantiation, counted with `cuobjdump -sass`: above
+              0 in the bf16 snake_fast (tensor-core) instantiations of K1,
+              K5 and K6, exactly 0 in every float32 one (no TF32)
   3. kernels  each kernel against its plain version at the main paths'
               shapes: residual_stack (K1) and residual_stack_cl (K6) on all
               8 stages (B=64, full T) in bf16 and f32; fused_stage (K5) on
@@ -40,7 +45,8 @@ every plain version compared here run their float32 work under
               path; the train step's time, audio seconds per second, peak
               memory and split; each kernel's time beside its plain
               version's, its bound and a PyTorch yardstick where one call
-              computes the same function
+              computes the same function; K4's backward (the plain
+              recompute the loss runs through it) beside its forward
 
 then the `kernels` summary line, the card line and, last,
 {"ok": true, "device": {...}}. Any failed check raises and exits non-zero.
@@ -58,7 +64,12 @@ import time
 
 # Published H100 SXM peaks at the 700 W limit (NVIDIA data sheet), used for
 # the bound of each kernel: dense bf16 tensor-core rate, float32 rate outside
-# the tensor cores, HBM3 bandwidth.
+# the tensor cores, HBM3 bandwidth. A stage kernel's bound is the larger of
+# bytes / PEAK_BYTES and its operations at the bf16 rate: K1's bf16 products
+# unit_flops / PEAK_BF16_FLOPS; K5's and K6's float32-weight products, each
+# float32-exact as three bf16 MMAs (bf16 planes hi + mid + lo of the weight),
+# 3 x unit_flops / PEAK_BF16_FLOPS, plus K5's head and tail (bf16 weights)
+# edge_flops / PEAK_BF16_FLOPS.
 PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
@@ -121,6 +132,41 @@ def card_line() -> str:
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
+
+
+STAGE_KERNELS = ("residual_stack_cl", "residual_stack", "fused_stage")
+
+
+def kernel_label(symbol: str) -> str:
+    """A readable name for a kernel symbol (mangled, or ptxas's line): the
+    stage kernels as name<dtype,activation[,tc]>."""
+    m = re.search(r"(residual_stack_cl|residual_stack|fused_stage|rvq_quantize|rvq_dequantize"
+                  r"|stft_magnitude)(_tc)?_kernel", symbol)
+    if m is None:
+        return symbol
+    if m.group(1) not in STAGE_KERNELS:
+        return m.group(1)
+    if m.group(2):
+        return f"{m.group(1)}<bf16,snake_fast,tc>"
+    return "%s<%s,%s>" % (m.group(1), "bf16" if "bfloat16" in symbol else "f32",
+                          "snake_fast" if "Lb1E" in symbol else "snake")
+
+
+def hmma_counts(lib_path: str, cuda_bin: str) -> dict:
+    """HMMA instructions in each stage-kernel instantiation of the built
+    library, from `cuobjdump -sass`."""
+    out = subprocess.run([os.path.join(cuda_bin, "cuobjdump"), "-sass", lib_path],
+                         capture_output=True, text=True, check=True, timeout=300).stdout
+    counts, label = {}, None
+    for ln in out.splitlines():
+        if "Function :" in ln:
+            label = kernel_label(ln.split("Function :", 1)[1].strip())
+            label = label if label.startswith(STAGE_KERNELS) else None
+            if label is not None:
+                counts.setdefault(label, 0)
+        elif label is not None and re.search(r"\bHMMA\b", ln):
+            counts[label] += 1
+    return counts
 
 
 def train_smoke(dev, card, events_ms):
@@ -326,12 +372,26 @@ def train_smoke(dev, card, events_ms):
     # FFT (2.5 n log2 n, half of a complex FFT's 5 n log2 n), the window
     # (n) and the magnitudes (4 per bin). The O(n^2) DFT that K4 computes
     # is printed beside it as dft_ops_ms, a yardstick of that algorithm.
+    # K4's backward, as the loss runs it: the plain matmul-DFT path
+    # recomputed and differentiated (`kernels/stft.py::_STFTMagnitude`),
+    # once per shape and step (only the reconstruction's magnitudes take a
+    # gradient), under the train step's float32 numerics.
+    def k4_backward(x, n_fft, hop, grad):
+        with torch.enable_grad(), float32_numerics():
+            xx = x.detach().requires_grad_(True)
+            y = KS.stft_magnitude_plain(xx, n_fft, hop)
+            return torch.autograd.grad(y, xx, grad)
+
     k4 = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0,
-          "bound_ms": 0.0, "dft_ops_ms": 0.0}
+          "bound_ms": 0.0, "dft_ops_ms": 0.0, "backward_ms": 0.0}
     with torch.no_grad():
         for n_fft, hop in shapes:
             win = S.hann_window(n_fft, dev)
             b, t = target.shape
+            grad = torch.rand(b, 1 + t // hop, n_fft // 2 + 1, device=dev, generator=gen)
+            bwd_ms = events_ms(lambda: k4_backward(pred, n_fft, hop, grad), reps=3)
+            k4["backward_ms"] += bwd_ms
+            del grad
             ms = events_ms(lambda: KS.stft_magnitude(target, n_fft, hop))
             plain_ms = events_ms(lambda: KS.stft_magnitude_plain(target, n_fft, hop))
             lib_ms = events_ms(lambda: torch.stft(
@@ -344,7 +404,8 @@ def train_smoke(dev, card, events_ms):
             bytes_ms, ops_ms = nbytes / PEAK_BYTES * 1e3, flops / PEAK_F32_FLOPS * 1e3
             dft_ops_ms = dft_flops / PEAK_F32_FLOPS * 1e3
             emit({"phase": "timing", "kernel": "stft_magnitude", "n_fft": n_fft, "hop": hop,
-                  "B": b, "T": t, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                  "B": b, "T": t, "ms": ms, "backward_ms": bwd_ms, "plain_ms": plain_ms,
+                  "library_ms": lib_ms,
                   "flops": flops, "bytes": nbytes, "bound_ms": max(bytes_ms, ops_ms),
                   "bound_by": "bytes" if bytes_ms > ops_ms else "operations",
                   "dft_flops": dft_flops, "dft_ops_ms": dft_ops_ms,
@@ -354,8 +415,8 @@ def train_smoke(dev, card, events_ms):
                            ("bytes_ms", bytes_ms), ("ops_ms", ops_ms),
                            ("bound_ms", max(bytes_ms, ops_ms)), ("dft_ops_ms", dft_ops_ms)):
                 k4[key] += 2 * v
-    emit({"phase": "timing", "kernel": "stft_magnitude", "per": "train step (12 launches)",
-          **k4, "card": card})
+    emit({"phase": "timing", "kernel": "stft_magnitude",
+          "per": "train step (12 forward launches, 6 backward recomputes)", **k4, "card": card})
     summary = {"name": "stft_magnitude", "route": "cuda", "source": "nsc_tpu_torch/csrc/stft.cu",
                "replaces": "nsc_tpu/ops/pallas/stft.py:80",
                "launches": launches["stft_magnitude"], "max_abs_err": k4_err,
@@ -400,20 +461,30 @@ def main() -> int:
 
     # 2. build --------------------------------------------------------------
     _build.library()
-    # ptxas's resource line (registers, shared memory) per compiled kernel
-    ptxas, name = [], "?"
+    # ptxas's resource lines (registers, shared memory, spills) per compiled
+    # kernel, and the HMMA instructions of each stage-kernel instantiation
+    ptxas, spills, name = [], {}, "?"
     for ln in _build.build_log.splitlines():
         if "Compiling entry function" in ln:
-            name = re.search(
-                r"(residual_stack_cl|residual_stack|fused_stage|rvq_quantize|rvq_dequantize"
-                r"|stft_magnitude)_kernel", ln
-            ).group(0)
-            if name in ("residual_stack_kernel", "residual_stack_cl_kernel", "fused_stage_kernel"):
-                name += "<%s,%s>" % ("bf16" if "bfloat16" in ln else "f32",
-                                     "snake_fast" if "Lb1E" in ln else "snake")
+            name = kernel_label(ln)
+        elif "spill stores" in ln:
+            spills[name] = [int(v) for v in re.findall(r"(\d+) bytes spill", ln)]
         elif "Used" in ln and "registers" in ln:
             ptxas.append(f"{name}: {ln.split(': ', 1)[-1]}")
-    emit({"phase": "build", "seconds": round(_build.build_seconds, 3), "ptxas": ptxas})
+    hmma = hmma_counts(_build.library()._name, os.path.dirname(_build.nvcc()))
+    emit({"phase": "build", "seconds": round(_build.build_seconds, 3), "ptxas": ptxas,
+          "spills": spills, "hmma": hmma})
+    for label, (stores, loads) in spills.items():
+        if label.startswith(STAGE_KERNELS):
+            check(stores == 0 and loads == 0, f"ptxas: {label} spills registers")
+    for label, n in hmma.items():
+        if "<f32" in label:
+            check(n == 0, f"{label}: {n} HMMA in a float32 instantiation")
+        elif label.endswith(",tc>"):
+            check(n > 0, f"{label}: no HMMA in a tensor-core instantiation")
+    for kernel in STAGE_KERNELS:
+        check(hmma.get(f"{kernel}<bf16,snake_fast,tc>", 0) > 0,
+              f"{kernel}: no tensor-core instantiation in the library")
 
     def events_ms(fn, reps=5):
         fn()
@@ -457,13 +528,15 @@ def main() -> int:
     def stage_params(path, st):
         return bundles[path].params[st["part"]]["stages"][st["i"]]
 
-    # K5's packed stages in float32 (head and tail weights too) for the
-    # float32 checks; the bf16 ones are the serving bundle's own
-    fused_f32 = {}
-    for part in ("encoder", "decoder"):
-        copies = [dict(st) for st in params[part]["stages"]]
-        seanet.pack_stages(part, copies, "fused_stage", torch.float32)
-        fused_f32[part] = [st["fused"] for st in copies]
+    # K6's and K5's packed stages in float32 (K5's head and tail weights
+    # too, the unit weights without planes) for the float32 checks; the bf16
+    # ones are the serving bundles' own
+    packed_f32 = {}
+    for route, key in (("residual_stack_cl", "stack_cl"), ("fused_stage", "fused")):
+        for part in ("encoder", "decoder"):
+            copies = [dict(st) for st in params[part]["stages"]]
+            seanet.pack_stages(part, copies, route, torch.float32, fast)
+            packed_f32[key, part] = [st[key] for st in copies]
 
     # 3. kernels against their plain versions -------------------------------
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -506,7 +579,8 @@ def main() -> int:
             err = compare("residual_stack", st, dname, got, RS.residual_stack_plain(x, packed, dil, fast))
             # K6 (B, T, C), float32 weights
             xt = x.transpose(1, 2).contiguous()
-            p6 = stage_params("serving_channels_last", st)["stack_cl"]
+            p6 = (stage_params("serving_channels_last", st)["stack_cl"] if dtype == torch.bfloat16
+                  else packed_f32["stack_cl", st["part"]][st["i"]])
             got = RS.residual_stack_cl(xt, p6, dil, fast)
             torch.cuda.synchronize()
             err6 = compare("residual_stack_cl", st, dname, got,
@@ -515,7 +589,7 @@ def main() -> int:
             # K5 with the stage's real head or tail
             xh = xh32.to(dtype)
             p5 = (stage_params("serving_fused_boundary", st)["fused"] if dtype == torch.bfloat16
-                  else fused_f32[st["part"]][st["i"]])
+                  else packed_f32["fused", st["part"]][st["i"]])
             got = FS.fused_stage(xh, p5, dil, fast)
             torch.cuda.synchronize()
             err5 = compare("fused_stage", st, dname, got, FS.fused_stage_plain(xh, p5, dil, fast))
@@ -672,20 +746,23 @@ def main() -> int:
               "ms": ms, "plain_ms": plain_ms, "flops": unit_flops, "bound_ms": max(b_ms, o_ms),
               "bound_by": "bytes" if b_ms > o_ms else "operations"})
         add(timing["residual_stack"], ms, plain_ms, b_ms, o_ms)
-        # K6: float32 weights, so the products run at the float32 rate
+        # K6: float32 weights, each product float32-exact as three bf16
+        # MMAs (the kernel reads the weights' bf16 planes): 3 x unit_flops
+        # at the bf16 rate
         xt = x.transpose(1, 2).contiguous()
         p = stage_params("serving_channels_last", st)["stack_cl"]
         ms = events_ms(lambda: RS.residual_stack_cl(xt, p, dil, fast))
         plain_ms = events_ms(lambda: RS.residual_stack_cl_plain(xt, p, dil, fast), reps=3)
         b_ms = (2 * nbytes(xt) + nbytes(*p.values())) / PEAK_BYTES * 1e3
-        o_ms = unit_flops / PEAK_F32_FLOPS * 1e3
+        o_ms = 3 * unit_flops / PEAK_BF16_FLOPS * 1e3
         emit({"phase": "timing", "kernel": "residual_stack_cl", "stage": st["name"], "C": c,
               "T": t, "ms": ms, "plain_ms": plain_ms, "flops": unit_flops,
               "bound_ms": max(b_ms, o_ms), "bound_by": "bytes" if b_ms > o_ms else "operations"})
         add(timing["residual_stack_cl"], ms, plain_ms, b_ms, o_ms)
         del xt
-        # K5: units at the float32 rate, head and tail (weights in bf16) at
-        # the bf16 rate; bytes are the stage's input, output and weights
+        # K5: units as K6 (3 x unit_flops), head and tail (weights in bf16)
+        # one MMA per product, all at the bf16 rate; bytes are the stage's
+        # input, output and the weights the kernel reads
         c_in, t_in = st["in_ct"]
         xh = x if (c_in, t_in) == (c, t) else (
             torch.randn(BATCH, c_in, t_in, device=dev, generator=gen) * 0.5).to(torch.bfloat16)
@@ -701,7 +778,7 @@ def main() -> int:
         weight_bytes = nbytes(*p["units"].values()) + sum(
             nbytes(*p[k].values()) for k in ("head", "tail") if k in p)
         b_ms = (nbytes(xh) + nbytes(out) + weight_bytes) / PEAK_BYTES * 1e3
-        o_ms = (unit_flops / PEAK_F32_FLOPS + edge_flops / PEAK_BF16_FLOPS) * 1e3
+        o_ms = (3 * unit_flops + edge_flops) / PEAK_BF16_FLOPS * 1e3
         emit({"phase": "timing", "kernel": "fused_stage", "stage": st["name"],
               "in_shape": list(xh.shape), "out_shape": list(out.shape), "ms": ms,
               "plain_ms": plain_ms, "unit_flops": unit_flops, "edge_flops": edge_flops,

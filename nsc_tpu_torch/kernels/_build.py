@@ -42,11 +42,18 @@ SIGNATURES = {
     "nsc_rvq_dequantize": [_P] * 3 + [_I] * 4 + [_P],
     # xpad, win, cosb, sinb, out, B, Tp, n_fft, hop, F, K, Kp, stream
     "nsc_stft_magnitude": [_P] * 5 + [_I] * 7 + [_P],
-    # as nsc_residual_stack, x and out (B, T, C), float32 weights
-    "nsc_residual_stack_cl": [_P] * 9 + [_I] * 6 + [_P],
-    # x, out, hw, hb, ha, w1, b1, a1, w2, b2, a2, ta, tw, tb, dilations,
-    # B, Cin, Cmid, Cout, Tin, U, s_head, s_tail, is_bf16, fast, stream
-    "nsc_fused_stage": [_P] * 15 + [_I] * 10 + [_P],
+    # x, out, w1, b1, a1, w2, b2, a2, w1p, w2p (bf16 planes or null),
+    # dilations, B, C, T, U, is_bf16, fast, stream; x and out (B, T, C),
+    # float32 weights
+    "nsc_residual_stack_cl": [_P] * 11 + [_I] * 6 + [_P],
+    # x, out, hw, hb, ha, w1, b1, a1, w2, b2, a2, w1p, w2p, ta, tw, tb,
+    # dilations, B, Cin, Cmid, Cout, Tin, U, s_head, s_tail, is_bf16, fast,
+    # stream
+    "nsc_fused_stage": [_P] * 17 + [_I] * 10 + [_P],
+    # C, halo, is_bf16, fast, planes, plan (2 long long: tile, bytes)
+    "nsc_stack_plan": [_I] * 5 + [_P],
+    # Cin, Cmid, Cout, s_head, s_tail, units' halo, is_bf16, fast, plan
+    "nsc_fused_stage_plan": [_I] * 8 + [_P],
 }
 
 _lock = threading.Lock()

@@ -26,11 +26,17 @@ and alphas are float32. The JAX function's phase decomposition of the
 head's input and de-interleave of the tail's output are layout steps for
 the TPU's compiler: the function is the same without them.
 
-Packed (`pack`): {"units": pack_stage(units, float32),
+Packed (`pack`): {"units": pack_stage(units, float32, planes),
   "head": {"w": (2S, C_in, C_mid), "b": (C_mid,), "alpha": (C_in,)},
   "tail": {"w": (S, 2, C_mid, C_out) with w[p, j] = conv tap S*j + p,
            "b": (C_out,), "alpha": (C_mid,)}}; "head"/"tail" only where
-the stage has them.
+the stage has them. The chain is a static rule (`tensor_cores`): bf16 x
+with snake_fast where C_mid and C_out are multiples of 16 in [16, 256] and
+C_in a multiple of 16 runs the tensor-core chain, which reads the units'
+weights as bf16 planes; every other case runs the SIMT chain, which reads
+them in float32. `pack` takes the compute dtype and activation and stores
+the units' weights in the one form their chain reads. `stage_plan` restates
+the kernel's shared-memory planning (`nsc_fused_stage_plan`).
 """
 
 from __future__ import annotations
@@ -70,8 +76,23 @@ def pack_tail(alpha: torch.Tensor, conv_t: dict, dtype: torch.dtype) -> Packed:
     }
 
 
-def pack(units: Sequence[dict], head: Optional[Packed], tail: Optional[Packed]) -> Packed:
-    p = {"units": RS.pack_stage(units, torch.float32)}
+def dims(c_mid: int, head: Optional[Packed], tail: Optional[Packed]):
+    """(C_out, s_head, s_tail) of a stage from its packed head and tail."""
+    s_head = head["w"].shape[0] // 2 if head is not None else 0
+    s_tail, c_out = (tail["w"].shape[0], tail["w"].shape[-1]) if tail is not None else (0, c_mid)
+    return c_out, s_head, s_tail
+
+
+def pack(units: Sequence[dict], head: Optional[Packed], tail: Optional[Packed],
+         dtype: torch.dtype = torch.float32, fast: bool = False) -> Packed:
+    """The stage's operands for a run in compute dtype `dtype` with snake
+    (`fast` False) or snake_fast: the units' float32 weights as bf16 planes
+    where that run takes the tensor-core chain, else as they are."""
+    c_mid = units[0]["conv1"]["w"].shape[0]
+    c_in = head["w"].shape[1] if head is not None else c_mid
+    c_out, s_head, s_tail = dims(c_mid, head, tail)
+    planes = tensor_cores(dtype, fast, c_in, c_mid, c_out, s_head, s_tail)
+    p = {"units": RS.pack_stage(units, torch.float32, planes)}
     if head is not None:
         p["head"] = head
     if tail is not None:
@@ -105,20 +126,56 @@ def fused_stage_plain(
     return h
 
 
+HEAD_MI, TAIL_MI, EDGE_KC = 2, 1, 64  # the tensor-core head's and tail's tiling
+SLAB_BUDGET, MAX_SLAB_CHANNELS = 16384, 8  # the SIMT head's sample slab
+
+
+def tensor_cores(dtype: torch.dtype, fast: bool, c_in: int, c_mid: int, c_out: int,
+                 s_head: int, s_tail: int) -> bool:
+    """Whether the stage takes the tensor-core instantiation."""
+    return (RS.tensor_cores(dtype, fast, c_mid, *((c_out,) if s_tail else ()))
+            and (not s_head or c_in % 16 == 0))
+
+
+def stage_plan(c_in: int, c_mid: int, c_out: int, s_head: int, s_tail: int, halo: int,
+               dtype: torch.dtype, fast: bool):
+    """(tile, shared-memory bytes) of a K5 launch, as the kernel plans it;
+    `halo` is the units' sum(2d). Tile 0 if it does not fit."""
+    halo += 1 if s_tail else 0
+    if tensor_cores(dtype, fast, c_in, c_mid, c_out, s_head, s_tail):
+        wbuf = RS.tc_wbuf_bytes(3, RS.units_kc(3, c_mid), c_mid)
+        slab = stage = 0
+        if s_head:
+            wbuf = max(wbuf, RS.tc_wbuf_bytes(1, EDGE_KC, c_mid))
+            group = next(g for g in (64, 32, 16) if c_in % g == 0)
+            slab = s_head * (RS.tc_rows(c_mid, HEAD_MI) + 1) * group * 2
+        if s_tail:
+            wbuf = max(wbuf, RS.tc_wbuf_bytes(1, EDGE_KC, c_out))
+            stage = s_tail * RS.tc_rows(c_out, TAIL_MI) * (c_out + 8) * 2
+        extra = wbuf + max(slab, stage) + RS.tc_consts_bytes(c_mid)
+        tile = RS.tc_pick_tile(c_mid, halo, extra)
+        return tile, 4 * c_mid * (tile + halo) + extra
+    elem = RS.act_bytes(dtype, fast)
+    extra = RS.SIMT_KC * max(c_mid, c_out) * 4
+    if s_head:
+        nc = RS.THREADS // (c_mid // 4) * 8
+        per_channel = (s_head * nc + s_head) * 4
+        extra += min(max(SLAB_BUDGET // per_channel, 1), MAX_SLAB_CHANNELS) * per_channel
+    tile = RS.pick_tile(c_mid, halo, elem, extra)
+    return tile, c_mid * (tile + halo) * elem + extra
+
+
 def _launch(x: torch.Tensor, p: Packed, dilations: Sequence[int], fast: bool):
     from nsc_tpu_torch.kernels import _build
 
     RS.check_x(x)
     b, c_in, t_in = x.shape
     units, head, tail = p["units"], p.get("head"), p.get("tail")
-    c_mid = units["w1"].shape[-1]
+    c_mid = units["b1"].shape[-1]
     RS.check_supported(c_mid, dilations)
-    RS.check_tensors(RS.units_spec(len(dilations), c_mid, torch.float32), units, x.device)
     f32 = torch.float32
-    s_head = s_tail = 0
-    c_out = c_mid
+    c_out, s_head, s_tail = dims(c_mid, head, tail)
     if head is not None:
-        s_head = head["w"].shape[0] // 2
         if s_head < 1:
             raise ValueError(f"head weight must be (2S, C_in, C_mid), got {tuple(head['w'].shape)}")
         RS.check_tensors({"w": ((2 * s_head, c_in, c_mid), x.dtype), "b": ((c_mid,), f32),
@@ -126,12 +183,17 @@ def _launch(x: torch.Tensor, p: Packed, dilations: Sequence[int], fast: bool):
     elif c_in != c_mid:
         raise ValueError(f"without a head x must have the units' {c_mid} channels, got {c_in}")
     if tail is not None:
-        s_tail, c_out = tail["w"].shape[0], tail["w"].shape[-1]
         if s_tail < 1:
             raise ValueError(f"tail weight must be (S, 2, C_mid, C_out), got {tuple(tail['w'].shape)}")
         RS.check_width(c_out)
         RS.check_tensors({"w": ((s_tail, 2, c_mid, c_out), x.dtype), "b": ((c_out,), f32),
                           "alpha": ((c_mid,), f32)}, tail, x.device)
+    planes = tensor_cores(x.dtype, fast, c_in, c_mid, c_out, s_head, s_tail)
+    if planes:
+        RS.check_planes(units, "nsc_fused_stage")
+    RS.check_tensors(RS.units_spec(len(dilations), c_mid, f32, planes), units, x.device)
+    RS.check_plan(stage_plan(c_in, c_mid, c_out, s_head, s_tail, sum(2 * d for d in dilations),
+                             x.dtype, fast)[0], "nsc_fused_stage")
     t_u = -(-t_in // max(s_head, 1))
     out = torch.empty(b, c_out, t_u * max(s_tail, 1), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
@@ -144,7 +206,7 @@ def _launch(x: torch.Tensor, p: Packed, dilations: Sequence[int], fast: bool):
     err = _build.library().nsc_fused_stage(
         x.data_ptr(), out.data_ptr(),
         ptr(head, "w"), ptr(head, "b"), ptr(head, "alpha"),
-        *RS.unit_pointers(units),
+        *RS.unit_pointers(units), *RS.plane_pointers(units, planes),
         ptr(tail, "alpha"), ptr(tail, "w"), ptr(tail, "b"),
         ctypes.cast(dil, ctypes.c_void_p),
         b, c_in, c_mid, c_out, t_in, len(dilations), s_head, s_tail,

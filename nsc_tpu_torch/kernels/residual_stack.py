@@ -31,10 +31,22 @@ two rounding points:
     under "highest" matmul precision, which its tests use; the TPU's
     default dot precision would round the weights to bf16.
 
-Parameters are packed per stage by `pack_stage`: w1 (U, 3, Cin, Cout) and
-w2 (U, Cin, Cout) in the weight dtype; b1, a1, b2, a2 (U, C) float32.
+Parameters are packed per stage by `pack_stage`: b1, a1, b2, a2 (U, C)
+float32, and either w1 (U, 3, Cin, Cout) and w2 (U, Cin, Cout) in the
+weight dtype or, for float32 weights that feed the tensor cores
+(`planes=True`, which the packer's caller takes from `tensor_cores`), w1p
+(3, U, 3, Cin, Cout) and w2p (3, U, Cin, Cout): each weight split into three
+bf16 planes hi + mid + lo == w (`split_planes`), which the plain versions
+sum back to w exactly (`unit_weights`).
 The plain versions run their float32 convolutions under
 `float32_numerics()` (no TF32), as the kernels' sums are true float32.
+
+Which chain a launch runs is a static rule (`tensor_cores`): bf16 x with
+snake_fast at widths C % 16 == 0, 16 <= C <= 256 runs the tensor-core chain
+(bf16 weights: one MMA per product; float32 weights: three, one per plane),
+every other case the SIMT chain. `stack_plan` restates the kernels'
+shared-memory planning (`nsc_stack_plan`, which a card test holds it to),
+so a shape that cannot fit raises before launch.
 """
 
 from __future__ import annotations
@@ -52,10 +64,32 @@ from nsc_tpu_torch.ops.precision import float32_numerics
 Packed = Dict[str, torch.Tensor]
 
 
-def pack_stage(units: Sequence[dict], dtype: torch.dtype) -> Packed:
+def split_planes(w: torch.Tensor) -> torch.Tensor:
+    """float32 w -> (3, *w.shape) bf16 planes hi, mid, lo with hi + mid + lo
+    == w exactly in float32. Each plane keeps the top 8 significant bits of
+    what the planes before it left (truncation, so hi never overflows), and
+    a bf16 x bf16 product is exact in float32, so three MMAs into one
+    float32 sum give a * w exactly, up to the order of the sum. Exact for
+    w == 0 and every |w| >= 2^-110; below that, residual bits under bf16's
+    smallest subnormal (2^-133) are lost."""
+    w = w.float().contiguous()
+
+    def trunc(v):
+        return (v.view(torch.int32) & -65536).view(torch.float32)
+
+    hi = trunc(w)
+    rest = w - hi
+    mid = trunc(rest)
+    return torch.stack([hi, mid, rest - mid]).to(torch.bfloat16).contiguous()
+
+
+def pack_stage(units: Sequence[dict], dtype: torch.dtype, planes: bool = False) -> Packed:
     """Stack a stage's residual-unit params (port layout: conv weights
-    (Cout, Cin, K)) into the kernels' layout, weights in `dtype`."""
-    return {
+    (Cout, Cin, K)) into the kernels' layout, weights in `dtype`; with
+    `planes` (float32 weights only) the weights are stored as their bf16
+    planes w1p and w2p, which the tensor-core chain of K5 and K6 reads, in
+    place of w1 and w2."""
+    p = {
         "w1": torch.stack([u["conv1"]["w"].permute(2, 1, 0) for u in units])
         .to(dtype).contiguous(),
         "b1": torch.stack([u["conv1"]["b"] for u in units]).float().contiguous(),
@@ -65,6 +99,19 @@ def pack_stage(units: Sequence[dict], dtype: torch.dtype) -> Packed:
         "b2": torch.stack([u["conv2"]["b"] for u in units]).float().contiguous(),
         "a2": torch.stack([u["act2"] for u in units]).float().contiguous(),
     }
+    if planes:
+        if dtype != torch.float32:
+            raise ValueError("weight planes split float32 weights only")
+        p["w1p"], p["w2p"] = split_planes(p.pop("w1")), split_planes(p.pop("w2"))
+    return p
+
+
+def unit_weights(p: Packed):
+    """(w1, w2) of packed units in float32: the weights, or the exact sum of
+    their planes."""
+    if "w1p" in p:
+        return tuple((q[0].float() + q[1].float()) + q[2].float() for q in (p["w1p"], p["w2p"]))
+    return p["w1"].float(), p["w2"].float()
 
 
 def act(x: torch.Tensor, alpha: torch.Tensor, fast: bool, divide: bool = False) -> torch.Tensor:
@@ -88,7 +135,7 @@ def unit_chain_plain(
     dtype's values, products in float32): the plain body of K1, K5 and K6.
     Run it under `float32_numerics()`."""
     dt = x.dtype
-    w1, w2 = p["w1"].float(), p["w2"].float()
+    w1, w2 = unit_weights(p)
     h = x
     for u, d in enumerate(dilations):
         a = act(h, p["a1"][u], fast, divide).float()
@@ -124,6 +171,94 @@ def residual_stack_cl_plain(
 MAX_UNITS = 8
 MAX_CHANNELS = 1024
 
+# Shared-memory planning, as `csrc/stage_units.cuh` does it: a block of
+# THREADS threads. The SIMT chain's time tile is the largest multiple of 32
+# (at most 1024) that fits first within TWO_BLOCKS (two blocks per SM), then
+# within MAX_SMEM, beside the weight stages; the tensor-core chain's is
+# `tc_pick_tile`.
+MAX_SMEM = 232448
+TWO_BLOCKS = 112 * 1024
+THREADS, WARPS = 256, 8
+SIMT_KC = 16  # SIMT chain: float32 weight rows staged per step
+TC_NJ = 4     # tensor-core chain: n8 tiles per warp, at most
+TC_MI_UNITS = 4
+
+
+def tensor_cores(dtype: torch.dtype, fast: bool, *widths: int) -> bool:
+    """The static rule: bf16 x with snake_fast runs the tensor-core chain
+    when every width (the units' C, and K5's C_out) is a multiple of 16 in
+    [16, 256]; everything else runs the SIMT chain."""
+    return (dtype == torch.bfloat16 and fast
+            and all(16 <= w <= 256 and w % 16 == 0 for w in widths))
+
+
+def units_kc(planes: int, c: int) -> int:
+    """Tensor-core weight rows per pipeline stage (`units_kc` in the header)."""
+    return 16 if planes == 3 and c > 128 else 32
+
+
+def tc_rows(n: int, mi: int) -> int:
+    """Rows of one output chunk of the tensor-core tiling of width n."""
+    wn = -(-(n // 8) // TC_NJ)
+    return WARPS // wn * 16 * mi
+
+
+def tc_wbuf_bytes(planes: int, kc: int, n: int) -> int:
+    return 2 * planes * kc * (n + 8) * 2
+
+
+def tc_consts_bytes(c: int) -> int:
+    """The tensor-core chain's per-unit constants: 6 floats per channel."""
+    return 6 * 4 * c
+
+
+def pick_tile(c: int, halo: int, elem_bytes: int, extra: int) -> int:
+    """The time tile (`pick_tile` in the header); 0 if nothing fits."""
+    last = 0
+    for budget in (TWO_BLOCKS, MAX_SMEM):
+        if budget <= extra:
+            continue
+        last = (budget - extra) // (c * elem_bytes) - halo
+        if last >= 32:
+            return 1024 if last > 1024 else last // 32 * 32
+    return last if last >= 1 else 0
+
+
+def tc_pick_tile(c: int, halo: int, extra: int) -> int:
+    """The time tile of a tensor-core kernel (`tc_pick_tile` in the header):
+    one block per SM, so the whole MAX_SMEM, at most 1024 + halo rows, cut
+    to 2 + a multiple of the units' chunk rows where that wastes fewer
+    computed rows per output; 0 if nothing fits."""
+    if extra >= MAX_SMEM:
+        return 0
+    rows = min((MAX_SMEM - extra) // (4 * c), 1024 + halo)
+    if rows - halo < 1:
+        return 0
+    mt = tc_rows(c, TC_MI_UNITS)
+    aligned = (rows - 2) // mt * mt + 2
+    cost_rows = -(-(rows - 2) // mt) * mt
+    if aligned - halo >= 1 and (aligned - halo) * cost_rows > (rows - halo) * (aligned - 2):
+        rows = aligned
+    return rows - halo
+
+
+def act_bytes(dtype: torch.dtype, fast: bool) -> int:
+    """Bytes of one element of the stream plus one of the activations."""
+    return dtype.itemsize + (dtype.itemsize if fast else 4)
+
+
+def stack_plan(c: int, halo: int, dtype: torch.dtype, fast: bool, planes: int):
+    """(tile, shared-memory bytes) of a K1 (planes=1) or K6 (planes=3)
+    launch; tile 0 if it does not fit."""
+    if tensor_cores(dtype, fast, c):
+        extra = tc_wbuf_bytes(planes, units_kc(planes, c), c) + tc_consts_bytes(c)
+        tile = tc_pick_tile(c, halo, extra)
+        return tile, 4 * c * (tile + halo) + extra
+    extra = SIMT_KC * c * 4
+    elem = act_bytes(dtype, fast)
+    tile = pick_tile(c, halo, elem, extra)
+    return tile, c * (tile + halo) * elem + extra
+
 
 def check_supported(c: int, dilations: Sequence[int]) -> None:
     """Raise on a stage the CUDA kernels cannot take."""
@@ -142,10 +277,18 @@ def check_width(c: int) -> None:
         )
 
 
+def check_plan(tile: int, what: str) -> None:
+    if tile < 1:
+        raise ValueError(f"{what}: the stage does not fit one block's {MAX_SMEM} bytes "
+                         f"of shared memory")
+
+
 def check_tensors(want: dict, p: Packed, device: torch.device) -> None:
     """Each p[name] must have want[name] = (shape, dtype) and be contiguous
     on `device`."""
     for name, (shape, dtype) in want.items():
+        if name not in p:
+            raise ValueError(f"{name}: missing from the packed weights")
         ten = p[name]
         if tuple(ten.shape) != tuple(shape) or ten.dtype != dtype:
             raise ValueError(
@@ -162,18 +305,31 @@ def check_x(x: torch.Tensor) -> None:
         raise ValueError(f"x must be a contiguous 3-d tensor, got {tuple(x.shape)}")
 
 
-def units_spec(u: int, c: int, wdtype: torch.dtype) -> dict:
+def units_spec(u: int, c: int, wdtype: torch.dtype, planes: bool = False) -> dict:
     """The packed units' shapes and dtypes (see `pack_stage`)."""
     f32 = torch.float32
-    return {
-        "w1": ((u, 3, c, c), wdtype), "w2": ((u, c, c), wdtype),
-        "b1": ((u, c), f32), "a1": ((u, c), f32),
-        "b2": ((u, c), f32), "a2": ((u, c), f32),
-    }
+    if planes:
+        spec = {"w1p": ((3, u, 3, c, c), torch.bfloat16), "w2p": ((3, u, c, c), torch.bfloat16)}
+    else:
+        spec = {"w1": ((u, 3, c, c), wdtype), "w2": ((u, c, c), wdtype)}
+    spec.update({"b1": ((u, c), f32), "a1": ((u, c), f32), "b2": ((u, c), f32), "a2": ((u, c), f32)})
+    return spec
+
+
+def check_planes(p: Packed, what: str) -> None:
+    if "w1p" not in p or "w2p" not in p:
+        raise ValueError(f"{what}: bf16 x with snake_fast runs the tensor-core chain, which "
+                         f"needs the weight planes (pack_stage(..., planes=True))")
+
+
+def plane_pointers(p: Packed, on: bool) -> list:
+    return [p["w1p"].data_ptr(), p["w2p"].data_ptr()] if on else [None, None]
 
 
 def unit_pointers(p: Packed) -> list:
-    return [p[k].data_ptr() for k in ("w1", "b1", "a1", "w2", "b2", "a2")]
+    """The units' pointers in the C entry points' order; null for weights
+    stored as planes."""
+    return [p[k].data_ptr() if k in p else None for k in ("w1", "b1", "a1", "w2", "b2", "a2")]
 
 
 def dilation_array(dilations: Sequence[int]):
@@ -190,13 +346,22 @@ def _launch(entry: str, counter: str, x: torch.Tensor, p: Packed,
     check_x(x)
     b, c, t = (x.shape[0], x.shape[2], x.shape[1]) if channels_last else x.shape
     check_supported(c, dilations)
-    check_tensors(units_spec(len(dilations), c, wdtype), p, x.device)
+    # K6's tensor-core chain reads the float32 weights' bf16 planes
+    planes = channels_last and tensor_cores(x.dtype, fast, c)
+    if planes:
+        check_planes(p, entry)
+        if x.data_ptr() % 16:
+            raise ValueError(f"{entry}: x must be 16-byte aligned")
+    check_tensors(units_spec(len(dilations), c, wdtype, planes), p, x.device)
+    check_plan(stack_plan(c, sum(2 * d for d in dilations), x.dtype, fast,
+                          3 if channels_last else 1)[0], entry)
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
     dil = dilation_array(dilations)
+    extra = plane_pointers(p, planes) if channels_last else []
     err = getattr(_build.library(), entry)(
-        x.data_ptr(), out.data_ptr(), *unit_pointers(p),
+        x.data_ptr(), out.data_ptr(), *unit_pointers(p), *extra,
         ctypes.cast(dil, ctypes.c_void_p),
         b, c, t, len(dilations), int(x.dtype == torch.bfloat16), int(fast),
         torch.cuda.current_stream(x.device).cuda_stream,

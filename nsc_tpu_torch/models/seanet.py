@@ -101,17 +101,23 @@ def unit_route(cfg: CodecConfig) -> str:
     return "reference"
 
 
-def pack_stages(part: str, stages: List[Params], route: str, dtype: torch.dtype) -> None:
+def pack_stages(part: str, stages: List[Params], route: str, dtype: torch.dtype,
+                fast: bool) -> None:
     """Add to each stage of `part` ("encoder" or "decoder") the packed
-    weights its route runs: K1's units in `dtype`, K6's in float32, or K5's
-    float32 units with, in the encoder after stage 0, a head made from the
-    previous stage's down_act/down and, in the decoder before the last
-    stage, a tail made from the next stage's up_act/up (in `dtype`)."""
+    weights its route runs in compute dtype `dtype` with snake_fast (`fast`)
+    or snake: K1's units in `dtype`; K6's float32 units; or K5's float32
+    units with, in the encoder after stage 0, a head made from the previous
+    stage's down_act/down and, in the decoder before the last stage, a tail
+    made from the next stage's up_act/up (in `dtype`). K6's and K5's unit
+    weights are stored as bf16 planes where the run takes the tensor-core
+    chain (`RS.tensor_cores`, `FS.tensor_cores`)."""
     for i, stage in enumerate(stages):
         if route == "residual_stack":
             stage["stack"] = RS.pack_stage(stage["units"], dtype)
         elif route == "residual_stack_cl":
-            stage["stack_cl"] = RS.pack_stage(stage["units"], torch.float32)
+            c = stage["units"][0]["conv1"]["w"].shape[0]
+            stage["stack_cl"] = RS.pack_stage(stage["units"], torch.float32,
+                                              planes=RS.tensor_cores(dtype, fast, c))
         elif route == "fused_stage":
             head = tail = None
             if part == "encoder" and i > 0:
@@ -120,7 +126,7 @@ def pack_stages(part: str, stages: List[Params], route: str, dtype: torch.dtype)
             if part == "decoder" and i + 1 < len(stages):
                 nxt = stages[i + 1]
                 tail = FS.pack_tail(nxt["up_act"], nxt["up"], dtype)
-            stage["fused"] = FS.pack(stage["units"], head, tail)
+            stage["fused"] = FS.pack(stage["units"], head, tail, dtype, fast)
 
 
 def _apply_residual_unit(

@@ -20,7 +20,8 @@ Each stage also gets its units packed for the kernel route that
 `KernelOptions.for_config(cfg)` selects from `cfg.unit_backend`, and only
 for that one (`seanet.pack_stages`): 'stack' for K1 (compute dtype),
 'stack_cl' for K6 (float32 units) or 'fused' for K5 (float32 units, with a
-head or tail in the compute dtype).
+head or tail in the compute dtype); K6's and K5's unit weights are stored
+as bf16 planes where the config's run takes the tensor-core chain.
 
 `train_state_from_jax` / `train_state_to_jax` carry the training trees
 (weight-norm kept as (v, g) leaves, the whole RVQ state) between the two
@@ -105,7 +106,8 @@ def from_jax_params(params: Tree, rvq: Tree, cfg: CodecConfig) -> Tuple[Tree, Tr
     }
     route = KernelOptions.for_config(cfg).units
     for part in ("encoder", "decoder"):
-        seanet.pack_stages(part, out[part]["stages"], route, dtype)
+        seanet.pack_stages(part, out[part]["stages"], route, dtype,
+                           cfg.activation == "snake_fast")
     for name in ("proj_in", "proj_out"):
         if name in tree:
             out[name] = tree[name]

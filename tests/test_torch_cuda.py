@@ -8,13 +8,18 @@ run them without the JAX conftest:
 This file imports torch and the port only.
 """
 
+import ctypes
+
 import pytest
 import torch
 
+from nsc_tpu_torch.configs import get_config
+from nsc_tpu_torch.kernels import _build
 from nsc_tpu_torch.kernels import fused_stage as FS
 from nsc_tpu_torch.kernels import residual_stack as RS
 from nsc_tpu_torch.kernels import rvq as KR
 from nsc_tpu_torch.kernels import stft as KS
+from torch_stage_shapes import PLANNER_REJECTS, SHIPPED, stage_shapes
 
 pytestmark = pytest.mark.cuda
 
@@ -39,8 +44,8 @@ def _units(c, units, dev, bias):
     ]
 
 
-def _stage(c, units, dtype, dev, bias):
-    return RS.pack_stage(_units(c, units, dev, bias), dtype)
+def _stage(c, units, dtype, dev, bias, planes=False):
+    return RS.pack_stage(_units(c, units, dev, bias), dtype, planes)
 
 
 # (dtype, max abs err / max|ref|): float32 differs only in summation order;
@@ -48,14 +53,24 @@ def _stage(c, units, dtype, dev, bias):
 _TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 
 
+# (C, T, dilations, B): the tensor-core chain (bf16 snake_fast) at every
+# base_fast width with dilations up to (1, 3, 9, 27, 81), T not a
+# multiple of the tile, B = 1; widths that are not a multiple of 16 (12, 40)
+# take the SIMT chain, as do float32 and snake
+STACK_CASES = [(32, 3001, (1, 3, 9), 2), (12, 77, (1, 3), 2), (256, 700, (2, 5, 13), 2),
+               (64, 2999, (1, 3, 9), 1), (128, 1500, (1, 3, 9, 27), 2),
+               (256, 1001, (1, 3, 9), 1), (32, 2500, (1, 3, 9, 27, 81), 1),
+               (40, 999, (1, 3, 9), 2)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("fast", [True, False])
-@pytest.mark.parametrize("c,t,dil", [(32, 3001, (1, 3, 9)), (12, 77, (1, 3)), (256, 700, (2, 5, 13))])
-def test_residual_stack_kernel_matches_plain(dev, dtype, fast, c, t, dil):
+@pytest.mark.parametrize("c,t,dil,b", STACK_CASES)
+def test_residual_stack_kernel_matches_plain(dev, dtype, fast, c, t, dil, b):
     """Ragged T, a non-zero bias (so a stale halo would show in the first
     tile), several widths and dilation sets."""
     p = _stage(c, len(dil), dtype, dev, bias=0.5)
-    x = (torch.randn(2, c, t, device=dev) * 0.5).to(dtype)
+    x = (torch.randn(b, c, t, device=dev) * 0.5).to(dtype)
     got = RS.residual_stack(x, p, dil, fast)
     torch.cuda.synchronize()
     ref = RS.residual_stack_plain(x, p, dil, fast)
@@ -76,13 +91,15 @@ def test_residual_stack_rejects_bad_inputs(dev):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("fast", [True, False])
-@pytest.mark.parametrize("c,t,dil", [(32, 3001, (1, 3, 9)), (8, 777, (1, 3, 9, 27, 81)),
-                                     (256, 700, (2, 5, 13))])
-def test_residual_stack_cl_kernel_matches_plain(dev, dtype, fast, c, t, dil):
-    """K6 on (B, T, C) with float32 weights: ragged T, a non-zero bias, a
-    halo wider than 128 (dilations up to 81)."""
-    p = _stage(c, len(dil), torch.float32, dev, bias=0.5)
-    x = (torch.randn(2, t, c, device=dev) * 0.5).to(dtype)
+@pytest.mark.parametrize("c,t,dil,b", [(32, 3001, (1, 3, 9), 2), (8, 777, (1, 3, 9, 27, 81), 2),
+                                       (256, 700, (2, 5, 13), 2)] + STACK_CASES[3:])
+def test_residual_stack_cl_kernel_matches_plain(dev, dtype, fast, c, t, dil, b):
+    """K6 on (B, T, C) with float32 weights (as bf16 planes where its
+    tensor-core chain reads them): ragged T, a non-zero bias, a halo wider
+    than 128 (dilations up to 81)."""
+    p = _stage(c, len(dil), torch.float32, dev, bias=0.5,
+               planes=RS.tensor_cores(dtype, fast, c))
+    x = (torch.randn(b, t, c, device=dev) * 0.5).to(dtype)
     got = RS.residual_stack_cl(x, p, dil, fast)
     torch.cuda.synchronize()
     ref = RS.residual_stack_cl_plain(x, p, dil, fast)
@@ -106,15 +123,21 @@ def _boundary(dev, c_act, c_out, s, transposed, dtype):
 # at small widths, and a stage with neither
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("fast", [True, False])
+# and base_fast's own boundary shapes (strides 2, 4, 5 in and 5, 4, 2 out)
+# at full width; (0, 2, 16, 16, 8) and (0, 0, 24, 24, 24) take the SIMT
+# chain in bf16 (C_out 8, C_mid 24: not multiples of 16)
 @pytest.mark.parametrize("sh,stl,c_in,c_mid,c_out", [
     (2, 0, 16, 32, 32), (4, 0, 32, 64, 64), (5, 0, 64, 128, 128),
     (0, 5, 64, 64, 32), (0, 4, 32, 32, 16), (0, 2, 16, 16, 8), (0, 0, 32, 32, 32),
+    (2, 0, 32, 64, 64), (5, 0, 128, 256, 256), (0, 5, 256, 256, 128), (0, 4, 128, 128, 64),
+    (0, 2, 64, 64, 32), (0, 0, 24, 24, 24),
 ])
 def test_fused_stage_kernel_matches_plain(dev, dtype, fast, sh, stl, c_in, c_mid, c_out):
     dil = (1, 3, 9)
     p = FS.pack(_units(c_mid, len(dil), dev, bias=0.5),
                 _boundary(dev, c_in, c_mid, sh, False, dtype) if sh else None,
-                _boundary(dev, c_mid, c_out, stl, True, dtype) if stl else None)
+                _boundary(dev, c_mid, c_out, stl, True, dtype) if stl else None,
+                dtype, fast)
     t_in = 2999 if sh else 1001
     x = (torch.randn(2, c_in, t_in, device=dev) * 0.5).to(dtype)
     got = FS.fused_stage(x, p, dil, fast)
@@ -125,6 +148,62 @@ def test_fused_stage_kernel_matches_plain(dev, dtype, fast, sh, stl, c_in, c_mid
     scale = max(1.0, ref.float().abs().max().item())
     assert err[..., :64].max().item() <= _TOL[dtype] * scale
     assert err.max().item() <= _TOL[dtype] * scale
+
+
+def test_tensor_core_chain_needs_the_weight_planes(dev):
+    """Each chain reads one form of the float32 unit weights: the
+    tensor-core chain refuses weights packed without planes, the SIMT chain
+    weights packed as planes."""
+    x = torch.randn(2, 100, 32, device=dev).to(torch.bfloat16)
+    with pytest.raises(ValueError, match="planes"):
+        RS.residual_stack_cl(x, _stage(32, 3, torch.float32, dev, bias=0.1), (1, 3, 9), True)
+    with pytest.raises(ValueError, match="missing"):
+        RS.residual_stack_cl(x.float(), _stage(32, 3, torch.float32, dev, bias=0.1, planes=True),
+                             (1, 3, 9), True)
+    xc = torch.randn(2, 32, 100, device=dev).to(torch.bfloat16)
+    with pytest.raises(ValueError, match="planes"):
+        FS.fused_stage(xc, FS.pack(_units(32, 3, dev, 0.1), None, None), (1, 3, 9), True)
+    with pytest.raises(ValueError, match="missing"):
+        FS.fused_stage(xc, FS.pack(_units(32, 3, dev, 0.1), None, None, torch.bfloat16, True),
+                       (1, 3, 9), False)
+
+
+def _kernel_plan(kind, args):
+    """(tile, shared-memory bytes) as the kernels plan a launch, from their
+    C entry points; args as `RS.stack_plan` or `FS.stage_plan` take them."""
+    *dims, dtype, fast = args[:-1] if kind == "stack" else args
+    plan = (ctypes.c_longlong * 2)()
+    flags = (int(dtype == torch.bfloat16), int(fast))
+    if kind == "stack":
+        c, halo = dims
+        err = _build.library().nsc_stack_plan(c, halo, *flags, args[-1], ctypes.addressof(plan))
+    else:
+        err = _build.library().nsc_fused_stage_plan(*dims, *flags, ctypes.addressof(plan))
+    assert err == 0
+    return tuple(plan)
+
+
+@pytest.mark.parametrize("name", SHIPPED)
+def test_python_planner_matches_the_kernels(dev, name):
+    """The wrappers' shared-memory planner restates the kernels'; on every
+    stage of every shipped config, in every instantiation, both give the
+    same tile and bytes."""
+    cfg = get_config(name)
+    halo = sum(2 * d for d in cfg.dilations)
+    for c_in, c, c_out, sh, stl in stage_shapes(cfg):
+        for dtype in (torch.float32, torch.bfloat16):
+            for fast in (True, False):
+                for planes in (1, 3):
+                    args = (c, halo, dtype, fast, planes)
+                    assert _kernel_plan("stack", args) == RS.stack_plan(*args), args
+                args = (c_in, c, c_out, sh, stl, halo, dtype, fast)
+                assert _kernel_plan("fused", args) == FS.stage_plan(*args), args
+
+
+@pytest.mark.parametrize("args", PLANNER_REJECTS)
+def test_kernels_reject_what_the_python_planner_rejects(dev, args):
+    kind, a = args
+    assert _kernel_plan(kind, a)[0] == 0
 
 
 def test_stage_kernels_reject_bad_inputs(dev):
@@ -218,6 +297,21 @@ def test_stft_kernel_matches_plain_at_slice_shapes(dev, n_fft):
     assert (got - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
 
 
+# the smallest n_fft, small and large ones (4096 is twice the slice's
+# largest), with a T that no hop divides
+@pytest.mark.parametrize("n_fft,hop,t", [(2, 1, 997), (16, 4, 16001), (16, 5, 997),
+                                         (4096, 1024, 16001),
+                                         (4096, 333, 9000), (1024, 256, 15999)])
+def test_stft_kernel_matches_plain_at_supported_extremes(dev, n_fft, hop, t):
+    g = torch.Generator(device=dev).manual_seed(t)
+    x = torch.randn(3, t, device=dev, generator=g) * 0.3
+    got = KS.stft_magnitude(x, n_fft, hop)
+    torch.cuda.synchronize()
+    ref = KS.stft_magnitude_plain(x, n_fft, hop)
+    assert got.shape == ref.shape == (3, 1 + t // hop, n_fft // 2 + 1)
+    assert (got - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
+
+
 def test_stft_function_gradient_matches_plain(dev):
     g = torch.Generator(device=dev).manual_seed(0)
     x = torch.randn(4, 5000, device=dev, generator=g) * 0.3
@@ -238,6 +332,9 @@ def test_stft_wrapper_rejects_bad_inputs(dev):
         KS.stft_magnitude(x[:, ::2], 256, 64)
     with pytest.raises(ValueError):
         KS.stft_magnitude(x[:, :100], 256, 64)  # shorter than the reflect pad
+    for n_fft, hop in ((1, 1), (8192, 2048)):  # n_fft < 2; over the shared memory
+        with pytest.raises(ValueError):
+            KS.stft_magnitude(torch.randn(2, 9000, device=dev), n_fft, hop)
 
 
 def test_full_width_train_step_launches_the_kernels(dev):
