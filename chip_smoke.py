@@ -17,20 +17,24 @@ every plain version compared here run their float32 work under
   2. build    the kernels, compiled from nsc_tpu_torch/csrc (seconds), with
               ptxas's registers and spills per kernel (no stage kernel may
               spill) and the HMMA (tensor-core) instructions of each stage
-              kernel's instantiation, counted with `cuobjdump -sass`: above
-              0 in the bf16 snake_fast (tensor-core) instantiations of K1,
-              K5 and K6, exactly 0 in every float32 one (no TF32)
+              kernel's instantiation and of rvq_quantize, counted with
+              `cuobjdump -sass`: above 0 in the bf16 snake_fast
+              (tensor-core) instantiations of K1, K5 and K6 and in K2,
+              exactly 0 in every float32 stage instantiation (no TF32)
   3. kernels  each kernel against its plain version at the main paths'
               shapes: residual_stack (K1) and residual_stack_cl (K6) on all
               8 stages (B=64, full T) in bf16 and f32; fused_stage (K5) on
               all 8 stages with their real heads (strides 2/4/5 in) and
               tails (5/4/2 out) in bf16 and f32; rvq_quantize /
-              rvq_dequantize at M=32000, 16 x 1024 x 128; stft_magnitude at
-              the training step's six launch shapes (B=64, T=16000), the
-              spectral losses and their gradients through the kernel
-              against the plain path, and the multi-resolution gradient of
-              the kernel, the float32 matmul-DFT path and the float32 rfft
-              path against a float64 matmul-DFT gradient
+              rvq_dequantize at M=32000, 16 x 1024 x 128 (with K2's launch
+              plan and its winning scores against float64 scores);
+              stft_magnitude (the FFT route) at the training step's six
+              launch shapes (B=64, T=16000) and the DFT route at n_fft 400
+              and 2; the spectral losses through the kernel against the
+              plain path (values; the mel gradient), and the
+              multi-resolution gradient of the kernel, the float32
+              matmul-DFT path and the float32 rfft path against a float64
+              matmul-DFT gradient, on five noise seeds
   4. main     serving: for each serving path, reconstruct with the launch
               counters reset just before and read just after; a
               compress/decompress round trip ("auto"); index agreement and
@@ -45,8 +49,8 @@ every plain version compared here run their float32 work under
               path; the train step's time, audio seconds per second, peak
               memory and split; each kernel's time beside its plain
               version's, its bound and a PyTorch yardstick where one call
-              computes the same function; K4's backward (the plain
-              recompute the loss runs through it) beside its forward
+              computes the same function; K4's backward beside its forward
+              and beside the plain recompute it replaced
 
 then the `kernels` summary line, the card line and, last,
 {"ok": true, "device": {...}}. Any failed check raises and exits non-zero.
@@ -72,6 +76,7 @@ import time
 # edge_flops / PEAK_BF16_FLOPS.
 PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12
+PEAK_F64_FLOPS = 34e12  # float64 outside the tensor cores (K4's FFT computes in float64; printed)
 PEAK_BYTES = 3.35e12
 
 # Tolerances of the kernel checks, against the plain version on the same
@@ -86,28 +91,31 @@ PEAK_BYTES = 3.35e12
 # rvq_quantize: a different index is allowed only where the plain version's
 # top-2 score margin is below 1e-3 (scores are ~1e2; float32 dots of 128
 # terms differ by ~1e-5 with the order). rvq_dequantize: bit-exact.
-# stft_magnitude: float32 sums of up to 2048 products in another order:
-# 1e-4 x max|ref|. Spectral losses through it: values rtol 1e-5; gradients
-# 1e-4 x max|g| for the mel loss and 2e-3 x max|g| for the multi-resolution
-# loss. Its log-magnitude term divides by |X|, so a bin far below its
-# frame's peak turns the float32 error of its sums (~1e-6 of the peak,
-# whatever the order) into a relative error of its gradient: on the H100
-# the kernel's gradient read 7.8e-4 x max|g| from the plain version's, and
-# two plain lowerings of the same loss (matmul DFT and rfft) 2.3e-3 from
-# each other. The script prints that second distance beside the check.
+# stft_magnitude (either route): float32 sums in another order or an FFT's
+# rounding: 1e-4 x max|ref|. Spectral losses through it: values rtol 1e-5;
+# the mel loss's gradient 1e-4 x max|g| against the plain path's.
 K1_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2e-2, 1e-3)}
 K2_NEAR_TIE = 1e-3
 K4_TOL = 1e-4
 LOSS_RTOL = 1e-5
-LOSS_GRAD_TOL = {"multi_res_stft": 2e-3, "mel": 1e-4}
-# The multi-resolution gradient through K4 against a float64 reference
-# (the plain matmul-DFT path in float64: float64 input, window and basis).
-# K4's backward is the float32 plain path's, so K4 must be no farther from
-# float64 than that path (ratio <= 1.25), and at most a fixed 3e-3 x
-# max|g64|. Readings on the H100 (two runs): K4 2.342e-3, float32 matmul-DFT
-# 2.343e-3, float32 rfft 4.197e-3 x max|g64|.
-K4_F64_GRAD_TOL = 3e-3
+LOSS_GRAD_TOL = {"mel": 1e-4}
+# The multi-resolution loss's gradient is held to the true gradient, not to
+# the float32 plain path's rounding: on each noise seed (the reconstruction
+# is the target + 0.05 x N(0, 1) from that seed), e(g) = ||g - g64||_2 /
+# ||g64||_2 against the float64 matmul-DFT path (float64 input, window and
+# basis), and K4's e must be at most K4_F64_RATIO x the float32 plain
+# path's and at most K4_F64_L2_TOL. L2, not max-abs: the log-magnitude term
+# is an L1, its gradient flips sign at bins where reconstruction and target
+# nearly tie, and a handful of such flips set a max-abs distance. The fixed
+# limit is 2 x the plain path's largest reading over the five seeds on an
+# H100 (scripts/torch_k4_gradient.py; the plain path does not run K4):
+# 1.4055e-3, 1.4268e-3, 5.1575e-3, 1.5578e-3, 1.4570e-3 at seeds 2-6.
+K4_GRAD_SEEDS = (2, 3, 4, 5, 6)
 K4_F64_RATIO = 1.25
+K4_F64_L2_TOL = 1.0315e-2
+# The DFT route's shapes (n_fft, hop): a 25 ms window at 16 kHz, and the
+# smallest n_fft.
+K4_DFT_SHAPES = ((400, 100), (2, 1))
 
 BATCH, SECONDS = 64, 10.0
 # (path, unit_backend, the route of its residual units)
@@ -141,7 +149,7 @@ def kernel_label(symbol: str) -> str:
     """A readable name for a kernel symbol (mangled, or ptxas's line): the
     stage kernels as name<dtype,activation[,tc]>."""
     m = re.search(r"(residual_stack_cl|residual_stack|fused_stage|rvq_quantize|rvq_dequantize"
-                  r"|stft_magnitude)(_tc)?_kernel", symbol)
+                  r"|rvq_split_planes|stft_magnitude_dft|stft_magnitude)(_tc)?_kernel", symbol)
     if m is None:
         return symbol
     if m.group(1) not in STAGE_KERNELS:
@@ -152,16 +160,19 @@ def kernel_label(symbol: str) -> str:
                           "snake_fast" if "Lb1E" in symbol else "snake")
 
 
+HMMA_KERNELS = STAGE_KERNELS + ("rvq_quantize",)
+
+
 def hmma_counts(lib_path: str, cuda_bin: str) -> dict:
-    """HMMA instructions in each stage-kernel instantiation of the built
-    library, from `cuobjdump -sass`."""
+    """HMMA instructions in each stage-kernel instantiation and in the
+    quantize kernel of the built library, from `cuobjdump -sass`."""
     out = subprocess.run([os.path.join(cuda_bin, "cuobjdump"), "-sass", lib_path],
                          capture_output=True, text=True, check=True, timeout=300).stdout
     counts, label = {}, None
     for ln in out.splitlines():
         if "Function :" in ln:
             label = kernel_label(ln.split("Function :", 1)[1].strip())
-            label = label if label.startswith(STAGE_KERNELS) else None
+            label = label if label.startswith(HMMA_KERNELS) else None
             if label is not None:
                 counts.setdefault(label, 0)
         elif label is not None and re.search(r"\bHMMA\b", ln):
@@ -173,7 +184,8 @@ def train_smoke(dev, card, events_ms):
     """Phases 3-5 of the training path: stft_magnitude against its plain
     version, the full-width training steps with the launch counters, the
     entry point with a resume, and the timings. Returns the kernels-line
-    entry of stft_magnitude and the training path's launch counts."""
+    entries of stft_magnitude (the FFT route) and stft_magnitude_dft and
+    the training path's launch counts."""
     import tempfile
 
     import torch
@@ -195,32 +207,42 @@ def train_smoke(dev, card, events_ms):
     batches = [torch.from_numpy(next(source.batches(tcfg.batch_size, seg))).to(dev)
                for _ in range(TRAIN_WARMUP + TRAIN_TIMED)]
     target = batches[0]
-    gen = torch.Generator(device=dev).manual_seed(2)
-    pred = target + 0.05 * torch.randn(target.shape, device=dev, generator=gen)
+
+    def noisy(seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        return target + 0.05 * torch.randn(target.shape, device=dev, generator=g)
+
+    pred = noisy(2)
+    gen = torch.Generator(device=dev).manual_seed(3)
 
     # 3. stft_magnitude against its plain version -------------------------
-    # the six launch shapes of a step: five resolutions and the mel STFT,
-    # each on the reconstruction and on the target
+    # the six launch shapes of a step (the FFT route): five resolutions and
+    # the mel STFT, each on the reconstruction and on the target; then the
+    # DFT route's shapes
     shapes = [(n, n // 4) for n in tcfg.stft_fft_sizes] + [(tcfg.mel_fft_size, tcfg.mel_fft_size // 4)]
-    k4_err = 0.0
+    k4_err = {"fft": 0.0, "dft": 0.0}
     with torch.no_grad():
-        for n_fft, hop in shapes:
+        for n_fft, hop in shapes + list(K4_DFT_SHAPES):
+            kind = KS.route(n_fft)
             for what, x in (("pred", pred), ("target", target)):
+                if kind == "dft" and what == "pred":
+                    continue
                 got = KS.stft_magnitude(x, n_fft, hop)
                 torch.cuda.synchronize()
                 with float32_numerics():
                     ref = KS.stft_magnitude_plain(x, n_fft, hop)
                 err = (got - ref).abs().max().item()
                 scale = ref.abs().max().item()
-                emit({"phase": "kernel_check", "kernel": "stft_magnitude", "input": what,
-                      "B": x.shape[0], "T": x.shape[1], "n_fft": n_fft, "hop": hop,
+                emit({"phase": "kernel_check", "kernel": "stft_magnitude", "route": kind,
+                      "input": what, "B": x.shape[0], "T": x.shape[1], "n_fft": n_fft, "hop": hop,
                       "shape": list(got.shape), "max_abs_err": err, "max_abs_ref": scale,
                       "max_rel_err": err / scale})
                 check(tuple(got.shape) == tuple(ref.shape), f"K4 n_fft={n_fft}: shape")
                 check(torch.isfinite(got).all().item(), f"K4 n_fft={n_fft}: non-finite output")
                 check(err <= K4_TOL * scale, f"K4 n_fft={n_fft} {what}: max abs err {err}")
-                k4_err = max(k4_err, err)
+                k4_err[kind] = max(k4_err[kind], err)
                 del got, ref
+        check(all(KS.route(n) == "fft" for n, _ in shapes), "the training shapes take the DFT route")
 
     mrstft = SP.MultiResSTFTConfig(fft_sizes=tcfg.stft_fft_sizes)
     losses = {
@@ -238,38 +260,48 @@ def train_smoke(dev, card, events_ms):
         (grad,) = torch.autograd.grad(value, p)
         return value.item(), grad
 
-    for name, fn in losses.items():
-        with float32_numerics():
-            out = {route: value_and_grad(fn, pred, st) for route, st in routes}
-        (vk, gk), (vp, gp), (_, gr) = out["kernel"], out["plain"], out["plain_rfft"]
-        rel = abs(vk - vp) / abs(vp)
-        scale = gp.abs().max()
-        grad_err = ((gk - gp).abs().max() / scale).item()
-        floor = ((gr - gp).abs().max() / scale).item()
-        rec = {"phase": "kernel_check", "kernel": "stft_magnitude", "loss": name,
-               "value_kernel": vk, "value_plain": vp, "value_rel_err": rel,
-               "grad_err_over_max": grad_err, "plain_lowerings_grad_diff_over_max": floor}
-        if name == "multi_res_stft":
-            # the float64 matmul-DFT path (float64 input, window and basis)
-            # as the reference for the three float32 gradients
-            _, g64 = value_and_grad(fn, pred.double(), KS.stft_magnitude_plain)
-            s64 = g64.abs().max()
-            rec["grad_dist_to_float64_over_max"] = f64_dist = {
-                route: ((g.double() - g64).abs().max() / s64).item()
-                for route, (_, g) in out.items()}
-            rec["kernel_over_plain_float64_dist"] = f64_dist["kernel"] / f64_dist["plain"]
-            del g64
-        emit(rec)
-        check(rel <= LOSS_RTOL, f"{name} loss through K4: rel err {rel}")
-        check(grad_err <= LOSS_GRAD_TOL[name],
-              f"{name} loss gradient through K4: {grad_err} (plain lowerings differ by {floor})")
-        if name == "multi_res_stft":
-            check(f64_dist["kernel"] <= K4_F64_GRAD_TOL,
-                  f"{name} gradient through K4 vs float64: {f64_dist['kernel']}")
-            check(f64_dist["kernel"] <= K4_F64_RATIO * f64_dist["plain"],
-                  f"{name} gradient through K4 farther from float64 than the float32 plain "
-                  f"path: {f64_dist}")
-        del out, gk, gp, gr
+    # the mel loss on seed 2; the multi-resolution loss on every seed of
+    # K4_GRAD_SEEDS, each gradient against the float64 one (max-abs figures
+    # printed, the relative L2 distances gated)
+    for name, seeds in (("mel", (2,)), ("multi_res_stft", K4_GRAD_SEEDS)):
+        fn = losses[name]
+        for seed in seeds:
+            p = pred if seed == 2 else noisy(seed)
+            with float32_numerics():
+                out = {route: value_and_grad(fn, p, st) for route, st in routes}
+            (vk, gk), (vp, gp), (_, gr) = out["kernel"], out["plain"], out["plain_rfft"]
+            rel = abs(vk - vp) / abs(vp)
+            scale = gp.abs().max()
+            grad_err = ((gk - gp).abs().max() / scale).item()
+            floor = ((gr - gp).abs().max() / scale).item()
+            rec = {"phase": "kernel_check", "kernel": "stft_magnitude", "loss": name,
+                   "noise_seed": seed, "value_kernel": vk, "value_plain": vp,
+                   "value_rel_err": rel, "grad_err_over_max": grad_err,
+                   "plain_lowerings_grad_diff_over_max": floor}
+            if name == "multi_res_stft":
+                _, g64 = value_and_grad(fn, p.double(), KS.stft_magnitude_plain)
+                s64, n64 = g64.abs().max(), g64.norm()
+                rec["grad_dist_to_float64_over_max"] = {
+                    route: ((g.double() - g64).abs().max() / s64).item()
+                    for route, (_, g) in out.items()}
+                rec["grad_l2_dist_to_float64"] = l2 = {
+                    route: ((g.double() - g64).norm() / n64).item() for route, (_, g) in out.items()}
+                rec["kernel_over_plain_l2"] = l2["kernel"] / l2["plain"]
+                del g64
+            emit(rec)
+            check(rel <= LOSS_RTOL, f"{name} loss through K4 (seed {seed}): rel err {rel}")
+            if name == "mel":
+                check(grad_err <= LOSS_GRAD_TOL[name],
+                      f"{name} loss gradient through K4: {grad_err} (plain lowerings differ by {floor})")
+            else:
+                check(l2["kernel"] <= K4_F64_RATIO * l2["plain"],
+                      f"{name} gradient through K4 farther from float64 than {K4_F64_RATIO} x the "
+                      f"float32 plain path's at seed {seed}: {l2}")
+                check(l2["kernel"] <= K4_F64_L2_TOL,
+                      f"{name} gradient through K4 vs float64 at seed {seed}: {l2['kernel']}")
+            del out, gk, gp, gr
+            if p is not pred:
+                del p
 
     # 4. training: the main path ------------------------------------------
     # PyTorch's default (TF32 convolutions allowed), as a user's process has
@@ -331,6 +363,7 @@ def train_smoke(dev, card, events_ms):
     init_k2 = cfg.num_quantizers * 3  # per book: 2 Lloyd iterations + the final search
     expect = dict.fromkeys(kernels.LAUNCHES, 0)
     expect.update({"rvq_quantize": init_k2 + n_steps, "stft_magnitude": 12 * n_steps})
+    # (stft_magnitude_dft stays 0: every training n_fft takes the FFT)
     check(data_init_launches["rvq_quantize"] == init_k2, f"data-init launches {data_init_launches}")
     check(launches == expect, f"training launch counts {launches}, expected {expect}")
     del state, before, init_books, metrics
@@ -367,63 +400,104 @@ def train_smoke(dev, card, events_ms):
           "split_ms": {m: sum(v) / len(v) for m, v in split.items()},
           "peak_memory_gb": peak / 1e9, "card": card})
 
-    # K4's bound is the least work |STFT| needs: each input sample read once,
-    # each magnitude written once, and per frame the operations of a real
-    # FFT (2.5 n log2 n, half of a complex FFT's 5 n log2 n), the window
-    # (n) and the magnitudes (4 per bin). The O(n^2) DFT that K4 computes
-    # is printed beside it as dft_ops_ms, a yardstick of that algorithm.
-    # K4's backward, as the loss runs it: the plain matmul-DFT path
-    # recomputed and differentiated (`kernels/stft.py::_STFTMagnitude`),
-    # once per shape and step (only the reconstruction's magnitudes take a
-    # gradient), under the train step's float32 numerics.
-    def k4_backward(x, n_fft, hop, grad):
+    # K4's bound is the least work |STFT| needs, the function the TPU kernel
+    # computes: each input sample read once, each magnitude written once,
+    # and per frame the operations of a real FFT (2.5 n log2 n, half of a
+    # complex FFT's 5 n log2 n), the window (n) and the magnitudes (4 per
+    # bin), at the float32 rate of the function's data. Printed beside it
+    # and not in the bound: the port's own extra work, the spectrum (re, im)
+    # that the reconstruction's launches also write for the backward
+    # (spectrum_bytes_ms) and the FFT's operations at the float64 rate it
+    # computes in (f64_ops_ms); and the O(n^2) DFT's operations
+    # (dft_ops_ms), a yardstick of that algorithm. Per step each training
+    # shape is launched on the reconstruction, keeping the spectrum
+    # (`ms_spectrum`), and on the target (`ms`). K4's backward, as the loss
+    # runs it (only the reconstruction's magnitudes take a gradient), under
+    # the train step's float32 numerics: `stft_magnitude_backward` on the
+    # kept spectrum; beside it the plain matmul-DFT recompute that earlier
+    # versions of the port ran.
+    def k4_bound(b, t, n_fft, hop):
+        frames, bins = 1 + t // hop, n_fft // 2 + 1
+        flops = b * frames * (2.5 * n_fft * math.log2(n_fft) + n_fft + 4 * bins)
+        nbytes = 4 * (b * t + b * frames * bins + n_fft)
+        spectrum_bytes = 4 * 2 * b * frames * bins
+        return (flops, nbytes, nbytes / PEAK_BYTES * 1e3, flops / PEAK_F32_FLOPS * 1e3,
+                spectrum_bytes / PEAK_BYTES * 1e3, flops / PEAK_F64_FLOPS * 1e3)
+
+    def k4_recompute(x, n_fft, hop, grad):
         with torch.enable_grad(), float32_numerics():
             xx = x.detach().requires_grad_(True)
             y = KS.stft_magnitude_plain(xx, n_fft, hop)
             return torch.autograd.grad(y, xx, grad)
 
-    k4 = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0,
-          "bound_ms": 0.0, "dft_ops_ms": 0.0, "backward_ms": 0.0}
+    def torch_stft_abs(x, n_fft, hop, win):
+        return torch.stft(x, n_fft, hop_length=hop, window=win, center=True, pad_mode="reflect",
+                          return_complex=True).abs()
+
+    k4 = dict.fromkeys(("ms", "plain_ms", "library_ms", "bytes_ms", "ops_ms", "bound_ms",
+                        "spectrum_bytes_ms", "f64_ops_ms", "dft_ops_ms", "backward_ms",
+                        "recompute_backward_ms"), 0.0)
+    b, t = target.shape
     with torch.no_grad():
         for n_fft, hop in shapes:
             win = S.hann_window(n_fft, dev)
-            b, t = target.shape
             grad = torch.rand(b, 1 + t // hop, n_fft // 2 + 1, device=dev, generator=gen)
-            bwd_ms = events_ms(lambda: k4_backward(pred, n_fft, hop, grad), reps=3)
-            k4["backward_ms"] += bwd_ms
-            del grad
+            mag, re_, im_ = KS.launch(pred, n_fft, hop, spectrum=True)
+            with float32_numerics():
+                bwd_ms = events_ms(lambda: KS.stft_magnitude_backward(
+                    grad, re_, im_, mag, t, n_fft, hop), reps=3)
+            rec_ms = events_ms(lambda: k4_recompute(pred, n_fft, hop, grad), reps=3)
+            del grad, mag, re_, im_
+            ms_spec = events_ms(lambda: KS.launch(pred, n_fft, hop, spectrum=True))
             ms = events_ms(lambda: KS.stft_magnitude(target, n_fft, hop))
-            plain_ms = events_ms(lambda: KS.stft_magnitude_plain(target, n_fft, hop))
-            lib_ms = events_ms(lambda: torch.stft(
-                target, n_fft, hop_length=hop, window=win, center=True, pad_mode="reflect",
-                return_complex=True).abs())
-            frames, bins = 1 + t // hop, n_fft // 2 + 1
-            flops = b * frames * (2.5 * n_fft * math.log2(n_fft) + n_fft + 4 * bins)
-            dft_flops = 4 * b * frames * n_fft * bins
-            nbytes = 4 * (b * t + b * frames * bins + n_fft)
-            bytes_ms, ops_ms = nbytes / PEAK_BYTES * 1e3, flops / PEAK_F32_FLOPS * 1e3
+            with float32_numerics():
+                plain_ms = events_ms(lambda: KS.stft_magnitude_plain(target, n_fft, hop))
+            lib_ms = events_ms(lambda: torch_stft_abs(target, n_fft, hop, win))
+            flops, nbytes, bytes_ms, ops_ms, spec_bytes_ms, f64_ops_ms = k4_bound(b, t, n_fft, hop)
+            dft_flops = 4 * b * (1 + t // hop) * n_fft * (n_fft // 2 + 1)
             dft_ops_ms = dft_flops / PEAK_F32_FLOPS * 1e3
-            emit({"phase": "timing", "kernel": "stft_magnitude", "n_fft": n_fft, "hop": hop,
-                  "B": b, "T": t, "ms": ms, "backward_ms": bwd_ms, "plain_ms": plain_ms,
-                  "library_ms": lib_ms,
-                  "flops": flops, "bytes": nbytes, "bound_ms": max(bytes_ms, ops_ms),
+            emit({"phase": "timing", "kernel": "stft_magnitude", "route": "fft", "n_fft": n_fft,
+                  "hop": hop, "B": b, "T": t, "ms": ms, "ms_spectrum": ms_spec,
+                  "backward_ms": bwd_ms, "recompute_backward_ms": rec_ms, "plain_ms": plain_ms,
+                  "library_ms": lib_ms, "flops": flops, "bytes": nbytes,
+                  "bound_ms": max(bytes_ms, ops_ms),
                   "bound_by": "bytes" if bytes_ms > ops_ms else "operations",
+                  "spectrum_bytes_ms": spec_bytes_ms, "f64_ops_ms": f64_ops_ms,
                   "dft_flops": dft_flops, "dft_ops_ms": dft_ops_ms,
-                  "dft_tflops_achieved": dft_flops / ms / 1e9})
-            # per step: each shape is launched on the reconstruction and the target
-            for key, v in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms),
-                           ("bytes_ms", bytes_ms), ("ops_ms", ops_ms),
-                           ("bound_ms", max(bytes_ms, ops_ms)), ("dft_ops_ms", dft_ops_ms)):
+                  "achieved_bytes_per_s": nbytes / ms * 1e3})
+            k4["ms"] += ms + ms_spec
+            k4["backward_ms"] += bwd_ms
+            k4["recompute_backward_ms"] += rec_ms
+            k4["spectrum_bytes_ms"] += spec_bytes_ms
+            k4["bound_ms"] += 2 * max(bytes_ms, ops_ms)
+            for key, v in (("plain_ms", plain_ms), ("library_ms", lib_ms), ("bytes_ms", bytes_ms),
+                           ("ops_ms", ops_ms), ("f64_ops_ms", f64_ops_ms),
+                           ("dft_ops_ms", dft_ops_ms)):
                 k4[key] += 2 * v
-    emit({"phase": "timing", "kernel": "stft_magnitude",
-          "per": "train step (12 forward launches, 6 backward recomputes)", **k4, "card": card})
-    summary = {"name": "stft_magnitude", "route": "cuda", "source": "nsc_tpu_torch/csrc/stft.cu",
-               "replaces": "nsc_tpu/ops/pallas/stft.py:80",
-               "launches": launches["stft_magnitude"], "max_abs_err": k4_err,
-               "ms": k4["ms"], "plain_ms": k4["plain_ms"], "bound_ms": k4["bound_ms"],
-               "bound_by": "bytes" if k4["bytes_ms"] > k4["ops_ms"] else "operations",
-               "library_ms": k4["library_ms"]}
-    return summary, launches
+        emit({"phase": "timing", "kernel": "stft_magnitude",
+              "per": "train step (12 forward launches, 6 backwards)", **k4, "card": card})
+        # the DFT route, one launch at its first shape
+        n_fft, hop = K4_DFT_SHAPES[0]
+        win = S.hann_window(n_fft, dev)
+        dft = {"ms": events_ms(lambda: KS.stft_magnitude(target, n_fft, hop))}
+        with float32_numerics():
+            dft["plain_ms"] = events_ms(lambda: KS.stft_magnitude_plain(target, n_fft, hop))
+        dft["library_ms"] = events_ms(lambda: torch_stft_abs(target, n_fft, hop, win))
+        _, _, bytes_ms, ops_ms, _, _ = k4_bound(b, t, n_fft, hop)
+        dft.update(bound_ms=max(bytes_ms, ops_ms),
+                   bound_by="bytes" if bytes_ms > ops_ms else "operations")
+        emit({"phase": "timing", "kernel": "stft_magnitude_dft", "n_fft": n_fft, "hop": hop,
+              "B": b, "T": t, **dft, "card": card})
+    summaries = [
+        {"name": "stft_magnitude", "route": "cuda", "source": "nsc_tpu_torch/csrc/stft.cu",
+         "replaces": "nsc_tpu/ops/pallas/stft.py:80", "max_abs_err": k4_err["fft"],
+         "ms": k4["ms"], "plain_ms": k4["plain_ms"], "bound_ms": k4["bound_ms"],
+         "bound_by": "bytes" if k4["bytes_ms"] > k4["ops_ms"] else "operations",
+         "library_ms": k4["library_ms"]},
+        {"name": "stft_magnitude_dft", "route": "cuda", "source": "nsc_tpu_torch/csrc/stft.cu",
+         "replaces": "nsc_tpu/ops/pallas/stft.py:80", "max_abs_err": k4_err["dft"], **dft},
+    ]
+    return summaries, launches
 
 
 def main() -> int:
@@ -485,6 +559,7 @@ def main() -> int:
     for kernel in STAGE_KERNELS:
         check(hmma.get(f"{kernel}<bf16,snake_fast,tc>", 0) > 0,
               f"{kernel}: no tensor-core instantiation in the library")
+    check(hmma.get("rvq_quantize", 0) > 0, "rvq_quantize: no HMMA in the quantize kernel")
 
     def events_ms(fn, reps=5):
         fn()
@@ -623,6 +698,38 @@ def main() -> int:
           "worst_first_mismatch_margin": worst_margin})
     check(near_ties == bad_frames.numel(),
           "K2: an index differs where the plain version's margin is not a near-tie")
+    # K2's launch plan, and its winning scores against float64 scores of the
+    # same (frame, book, index): the float32 residual as the kernel forms it,
+    # the dot in float64; beside them the plain version's own winning scores
+    plan = KR.quantize_plan(*z2d.shape)
+    idx_s, best_k = KR.quantize_with_scores(books, z2d)
+    check(torch.equal(idx_s, idx_k), "K2: two launches on the same input disagree")
+    csq = KR.codeword_sq_norms(books)
+
+    def score_err(idx, best):
+        r, errs, top = z2d, [], 0.0
+        for q in range(books.shape[0]):
+            i = idx[:, q].long()
+            c = books[q][i]
+            s64 = csq[q][i].double() - 2.0 * (r.double() * c.double()).sum(-1)
+            errs.append((best[:, q].double() - s64).abs())
+            top = max(top, s64.abs().max().item())
+            r = r - c
+        e = torch.cat(errs)
+        return {"max": e.max().item(), "mean": e.mean().item(), "max_abs_score": top}
+
+    with float32_numerics():
+        r, best_p = z2d, []
+        for q in range(books.shape[0]):
+            sc = csq[q][None, :] - 2.0 * (r @ books[q].t())
+            best_p.append(sc.gather(1, idx_p[:, q:q + 1].long())[:, 0])
+            r = r - books[q][idx_p[:, q].long()]
+            del sc
+        best_p = torch.stack(best_p, dim=1)
+    emit({"phase": "kernel_check", "kernel": "rvq_quantize", "plan": plan,
+          "score_abs_err_vs_float64": {"kernel": score_err(idx_k, best_k),
+                                       "plain": score_err(idx_p, best_p)}})
+    del idx_s, best_k, best_p, r
     deq_k = KR.dequantize(books, idx_p)
     torch.cuda.synchronize()
     with float32_numerics():
@@ -794,8 +901,12 @@ def main() -> int:
     q_ms = events_ms(lambda: KR.quantize(books, z2d))
     q_plain = events_ms(lambda: KR.quantize_plain(books, z2d))
     q_bytes = (z2d.numel() + books.numel() + m * n_q) * 4
+    # the dot products as six bf16 MMAs each (the planes the kernel runs) at
+    # the bf16 tensor-core rate; beside it the float32-rate bound of one
+    # float32 product, as earlier slices gave it
     q_flops = 2 * m * k * d * n_q
-    q_bytes_ms, q_ops_ms = q_bytes / PEAK_BYTES * 1e3, q_flops / PEAK_F32_FLOPS * 1e3
+    q_bytes_ms, q_ops_ms = q_bytes / PEAK_BYTES * 1e3, 6 * q_flops / PEAK_BF16_FLOPS * 1e3
+    q_f32_ms = max(q_bytes_ms, q_flops / PEAK_F32_FLOPS * 1e3)
 
     dq_ms = events_ms(lambda: KR.dequantize(books, idx_p))
     dq_plain = events_ms(lambda: KR.dequantize_plain(books, idx_p))
@@ -807,14 +918,16 @@ def main() -> int:
     dq_flops = m * d * n_q
     dq_bytes_ms, dq_ops_ms = dq_bytes / PEAK_BYTES * 1e3, dq_flops / PEAK_F32_FLOPS * 1e3
     emit({"phase": "timing", "kernel": "rvq", "quantize_ms": q_ms,
-          "quantize_plain_ms": q_plain, "dequantize_ms": dq_ms,
+          "quantize_plain_ms": q_plain, "quantize_bound_ms": max(q_bytes_ms, q_ops_ms),
+          "quantize_float32_rate_bound_ms": q_f32_ms, "quantize_plan": plan,
+          "dequantize_ms": dq_ms,
           "dequantize_plain_ms": dq_plain, "dequantize_library_ms": dq_lib,
           "card": card})
 
     del bundle, bundles, model, params, rvq, wav, books, z, z2d, idx_k, idx_p, deq_k, deq_p
     torch.cuda.empty_cache()
     with torch.enable_grad():
-        k4_summary, train_launches = train_smoke(dev, card, events_ms)
+        k4_summaries, train_launches = train_smoke(dev, card, events_ms)
 
     by_path = {**serving_launches, "training": train_launches}
 
@@ -839,7 +952,7 @@ def main() -> int:
          "ms": dq_ms, "plain_ms": dq_plain, "bound_ms": max(dq_bytes_ms, dq_ops_ms),
          "bound_by": "bytes" if dq_bytes_ms > dq_ops_ms else "operations",
          "library_ms": dq_lib},
-        k4_summary,
+        *k4_summaries,
         stage_entry("fused_stage", "nsc_tpu_torch/csrc/fused_stage.cu",
                     "nsc_tpu/ops/pallas/residual_stack.py:513"),
         stage_entry("residual_stack_cl", "nsc_tpu_torch/csrc/residual_stack_cl.cu",

@@ -3,19 +3,50 @@
 //
 // quantize replaces nsc_tpu/ops/pallas/rvq_argmin.py::quantize_pallas
 // (_quantize_kernel): for each frame, over the books in order,
-//   idx = argmin_k ||c_k||^2 - 2 r.c_k   (true float32, lowest index on ties)
-//   r  -= c[idx]                          (skipped after the last book)
-// What bounds it on the H100: 2*M*K*D*n_q FLOP that must stay true float32
-// (no TF32, no tensor cores: the index contract is float32), against a few
-// MB of traffic, so it is bound by the FP32 pipe. Design: one block owns 64
-// frames; their residuals stay in shared memory for all books. Each book's
-// codewords stream through shared memory 64 at a time from the transposed
-// copy (n_q, D, K) (8 MB for the serving quantizer: L2-resident), and every
-// thread computes a 4 frame x 4 code register tile of dot products with
-// float32 FMAs, keeping a running (score, lowest index) per frame. ||c||^2
-// comes in precomputed once per call, and the score is one exact doubling
-// and one rounded subtraction, so only the dot's summation order differs
-// from the plain version.
+//   idx = argmin_k ||c_k||^2 - 2 r.c_k   (float32, lowest index on ties)
+//   r  -= c[idx]                          (float32; skipped after the last book)
+// The TPU kernel takes r.c at precision=HIGHEST, a multi-pass bf16 product
+// on the MXU; this one runs it on the tensor cores via exact bf16 planes.
+// Each float32 value is split by truncation into bf16 planes hi + mid + lo
+// that sum to it exactly (|v| >= 2^-110, and 0): the codebooks once per
+// call (rvq_split_planes_kernel, launched by the wrapper before the search;
+// kernels/residual_stack.py::split_planes is its plain version), the
+// residuals by the block. A bf16 x bf16 product is exact in
+// float32, so r.c is the sum of nine plane products; the six largest,
+// (residual plane . code plane) lo.hi, hi.lo, mid.mid, mid.hi, hi.mid,
+// hi.hi, smallest first, go through mma.sync m16n8k16 bf16 -> f32 into one
+// float32 accumulator per (frame, code); the three dropped (mid.lo, lo.mid,
+// lo.lo) are below ~3 x 2^-24 of |r||c|. ||c||^2 comes precomputed in
+// float32, and the score is one exact doubling and one rounded subtraction,
+// as in the plain version; what differs from it is the dot's summation
+// order and the tensor cores' accumulation, which need not round each
+// addition to nearest.
+//
+// What bounds it on the H100: 2*M*K*D*n_q FLOP per plane product, six of
+// them at the bf16 tensor-core rate, against a few MB of device memory
+// (the codebook planes, 12 MB for the serving quantizer, stay in L2).
+// Design: a tile of 128 frames per block, persistent blocks over the tiles
+// so the grid is one whole wave. The tile's residuals stay in shared memory
+// for all books as their three bf16 planes, which hold them exactly: the
+// update rebuilds each float32 residual as (hi + mid) + lo, subtracts the
+// codeword in float32 and splits the result again (a component below
+// 2^-110 in magnitude, other than 0, would lose its bits below 2^-133).
+// Per book, 128-code chunks of the codebook planes stream through shared
+// memory 64 dims at a time (48 KB stages: the block-wide barrier between
+// stages, more than the products, bounded a design with 32-dim stages),
+// double-buffered with cp.async so the copy of the next stage overlaps the
+// MMAs of this one (across book boundaries too). The 8
+// warps are 4 (32 frames each) x 2 (64 codes of the chunk each);
+// fragments come by ldmatrix from XOR-swizzled rows (stage_units.cuh's
+// TmBuf), and those of the next 16-dim step are loaded between the plane
+// products of this one. After each chunk a warp turns its accumulators
+// into scores (with ||c||^2 loaded at the chunk's start) and keeps a
+// running (score, lowest index) per frame in registers; after the book the
+// four lanes that share a frame reduce by shuffles and the two warps that
+// share it through shared memory. The residual update gathers the chosen
+// codewords (float32, from L2, 16 bytes a load) with every thread of the
+// block. Codes past K in the last chunk are zero planes and score +inf, so
+// they never win; dims past D are zero planes.
 //
 // dequantize replaces nsc_tpu/ops/pallas/rvq_argmin.py::dequantize_pallas
 // (_dequantize_kernel): out[m] = 0 + c_0[idx[m,0]] + c_1[idx[m,1]] + ...,
@@ -28,108 +59,408 @@
 
 #include <cuda_runtime.h>
 
-#include <cfloat>
 #include <cstddef>
+#include <cstdint>
+
+#include "stage_units.cuh"
 
 namespace {
 
-constexpr int kTM = 64;       // frames per block
-constexpr int kTK = 64;       // codewords per shared-memory chunk
-constexpr int kQThreads = 256;  // 16 (frame groups) x 16 (code groups)
+using nsc_stage::bf16;
+using nsc_stage::cp_async16;
+using nsc_stage::cp_async_commit;
+using nsc_stage::cp_async_wait_all;
+using nsc_stage::ldsm_x4;
+using nsc_stage::mma_bf16;
+using nsc_stage::TmBuf;
 
-__device__ __forceinline__ bool better(float s, int k, float bs, int bk) {
-  return bk < 0 || s < bs || (s == bs && k < bk);
+constexpr int kWM = 4, kWN = 2;  // warps over frames x codes
+constexpr int kQThreads = 32 * kWM * kWN;
+constexpr int kTM = 128;        // frames per tile
+constexpr int kNC = 128;        // codes per chunk
+constexpr int kKC = 64;         // dims per pipeline stage
+constexpr int kMI = 2;          // m16 tiles per warp: 32 frames
+constexpr int kNJ = 8;          // n8 tiles per warp: 64 codes
+constexpr int kPlanes = 3;      // hi, mid, lo
+constexpr int kMaxDim = 128;    // padded D
+constexpr int kStageElems = kPlanes * kNC * kKC;
+constexpr float kInf = __builtin_huge_valf();
+
+// shared memory of one block: the residuals' planes, two stages of code
+// planes, and the cross-warp argmin scratch
+__host__ __device__ inline int quantize_smem(int Dp) {
+  return kTM * Dp * 2 * kPlanes + 2 * kStageElems * 2 + kTM * (2 * kWN + 1) * 4;
 }
 
-__global__ void __launch_bounds__(kQThreads) rvq_quantize_kernel(
-    const float* __restrict__ z, const float* __restrict__ cbt,
-    const float* __restrict__ cb, const float* __restrict__ csq,
-    int* __restrict__ idx, int M, int n_q, int K, int D) {
-  extern __shared__ __align__(16) float sm[];
-  float* R = sm;              // [D][kTM] residuals, frames contiguous
-  float* Cc = R + D * kTM;    // [D][kTK] codeword chunk, codes contiguous
-  __shared__ float red_s[kTM][16];
-  __shared__ int red_k[kTM][16];
-  __shared__ int chosen[kTM];
+__device__ __forceinline__ bool better(float s, int k, float bs, int bk) {
+  return s < bs || (s == bs && k < bk);
+}
 
-  const int tid = threadIdx.x;
-  const int ty = tid / 16, tx = tid % 16;  // frames ty*4.., codes tx*4..
-  const int m0 = blockIdx.x * kTM;
+// v -> bf16 bits of hi, mid, lo with hi + mid + lo == v (truncation)
+__device__ __forceinline__ void split3(float v, uint32_t& h, uint32_t& m, uint32_t& l) {
+  const uint32_t hb = __float_as_uint(v) & 0xffff0000u;
+  const float rest = __fsub_rn(v, __uint_as_float(hb));
+  const uint32_t mb = __float_as_uint(rest) & 0xffff0000u;
+  h = hb >> 16;
+  m = mb >> 16;
+  l = __bfloat16_as_ushort(__float2bfloat16_rn(__fsub_rn(rest, __uint_as_float(mb))));
+}
 
-  for (int i = tid; i < kTM * D; i += kQThreads) {
-    const int m = i / D, d = i - m * D;
-    R[d * kTM + m] = m0 + m < M ? z[static_cast<size_t>(m0 + m) * D + d] : 0.f;
+// The residuals of the tile live only as their planes: thread-owned groups
+// of 8 dims of a row (16 bytes of each plane). A group's float32 values are
+// (hi + mid) + lo, exact for planes split from a float32.
+__device__ __forceinline__ void store_group(bf16* Rp, const TmBuf& rb, int Dp, int row, int c8,
+                                            const float (&v)[8]) {
+  uint32_t w[kPlanes][4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    uint32_t h0, m0, l0, h1, m1, l1;
+    split3(v[2 * e], h0, m0, l0);
+    split3(v[2 * e + 1], h1, m1, l1);
+    w[0][e] = h0 | (h1 << 16);
+    w[1][e] = m0 | (m1 << 16);
+    w[2][e] = l0 | (l1 << 16);
   }
+  const int off = rb.off(row, c8);
+#pragma unroll
+  for (int p = 0; p < kPlanes; ++p)
+    *reinterpret_cast<uint4*>(Rp + p * kTM * Dp + off) = make_uint4(w[p][0], w[p][1], w[p][2], w[p][3]);
+}
 
-  for (int q = 0; q < n_q; ++q) {
-    float best[4];
-    int bk[4];
+__device__ __forceinline__ void load_group(const bf16* Rp, const TmBuf& rb, int Dp, int row,
+                                           int c8, float (&v)[8]) {
+  const int off = rb.off(row, c8);
+  uint4 w[kPlanes];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      best[i] = FLT_MAX;
-      bk[i] = -1;
+  for (int p = 0; p < kPlanes; ++p) w[p] = *reinterpret_cast<const uint4*>(Rp + p * kTM * Dp + off);
+  const uint32_t* h = &w[0].x;
+  const uint32_t* m = &w[1].x;
+  const uint32_t* l = &w[2].x;
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    const int sh = e & 1 ? 0 : 16;
+    const float hv = __uint_as_float((h[e / 2] << sh) & 0xffff0000u);
+    const float mv = __uint_as_float((m[e / 2] << sh) & 0xffff0000u);
+    const float lv = __uint_as_float((l[e / 2] << sh) & 0xffff0000u);
+    v[e] = __fadd_rn(__fadd_rn(hv, mv), lv);
+  }
+}
+
+// Stage s of a tile: book q, chunk c of 128 codes, dims kd*64 .. + kn.
+// Stages run in order, so the next one is one step on.
+struct Stage {
+  int q = 0, c = 0, kd = 0, kn = 0;
+  __device__ __forceinline__ Stage next(int nch, int nkd, int Dp) const {
+    Stage n = *this;
+    if (++n.kd == nkd) {
+      n.kd = 0;
+      if (++n.c == nch) {
+        n.c = 0;
+        ++n.q;
+      }
     }
-    const float* bookt = cbt + static_cast<size_t>(q) * D * K;
-    for (int k0 = 0; k0 < K; k0 += kTK) {
-      __syncthreads();  // R updated / earlier chunk readers done
-      for (int i = tid; i < D * kTK; i += kQThreads) {
-        const int d = i / kTK, kk = i - d * kTK;
-        Cc[i] = k0 + kk < K ? bookt[static_cast<size_t>(d) * K + k0 + kk] : 0.f;
+    n.kn = min(kKC, Dp - n.kd * kKC);
+    return n;
+  }
+};
+
+// cp.async of a stage (three planes x 128 codes x 8*kCpr dims) into buf
+template <int kCpr>
+__device__ __forceinline__ void copy_stage(bf16* buf, const bf16* __restrict__ src, int Kp,
+                                           int Dp) {
+  const TmBuf cbuf(buf, kKC);
+  for (int i = threadIdx.x; i < kPlanes * kNC * kCpr; i += kQThreads) {
+    const int p = i / (kNC * kCpr), rem = i - p * kNC * kCpr, r = rem / kCpr, cc = rem - r * kCpr;
+    cp_async16(buf + p * kNC * kKC + cbuf.off(r, cc),
+               src + (static_cast<size_t>(p) * Kp + r) * Dp + cc * 8);
+  }
+}
+
+__device__ __forceinline__ void issue_stage(bf16* buf, const bf16* __restrict__ planes,
+                                            const Stage& st, int Kp, int Dp) {
+  const bf16* src = planes + (static_cast<size_t>(st.q) * kPlanes * Kp + st.c * kNC) * Dp +
+                    st.kd * kKC;
+  switch (st.kn) {
+    case 64: copy_stage<8>(buf, src, Kp, Dp); break;
+    case 48: copy_stage<6>(buf, src, Kp, Dp); break;
+    case 32: copy_stage<4>(buf, src, Kp, Dp); break;
+    default: copy_stage<2>(buf, src, Kp, Dp); break;
+  }
+  cp_async_commit();
+}
+
+// The A fragments (residual plane p, 16-dim step ks of stage kd) of this
+// warp's frames, and the B fragments (code plane p, step ks) of its codes.
+struct Frags {
+  const bf16* Rp;
+  const bf16* cs;
+  TmBuf rb, cb;
+  int Dp, wm, wn, lane;
+  __device__ __forceinline__ void a(uint32_t (&f)[kMI][4], int p, int kd, int ks) const {
+    const int chunk = kd * (kKC / 8) + 2 * ks + (lane >> 4);
+#pragma unroll
+    for (int mi = 0; mi < kMI; ++mi)
+      ldsm_x4(f[mi], Rp + p * kTM * Dp + rb.off(wm * 32 + mi * 16 + (lane & 15), chunk));
+  }
+  __device__ __forceinline__ void b(uint32_t (&f)[kNJ][2], int p, int ks) const {
+    const int chunk = 2 * ks + ((lane >> 3) & 1);
+#pragma unroll
+    for (int jp = 0; jp < kNJ / 2; ++jp) {
+      uint32_t r[4];
+      const int code = wn * (kNJ * 8) + jp * 16 + ((lane >> 4) & 1) * 8 + (lane & 7);
+      ldsm_x4(r, cs + p * kNC * kKC + cb.off(code, chunk));
+      f[2 * jp][0] = r[0];
+      f[2 * jp][1] = r[1];
+      f[2 * jp + 1][0] = r[2];
+      f[2 * jp + 1][1] = r[3];
+    }
+  }
+};
+
+// acc += (residual plane kR) . (code plane kC) over one 16-dim step
+template <int kR, int kC>
+__device__ __forceinline__ void plane_product(float (&acc)[kMI][kNJ][4],
+                                              const uint32_t (&a)[kPlanes][kMI][4],
+                                              const uint32_t (&b)[kPlanes][kNJ][2]) {
+#pragma unroll
+  for (int mi = 0; mi < kMI; ++mi)
+#pragma unroll
+    for (int j = 0; j < kNJ; ++j) mma_bf16(acc[mi][j], a[kR][mi], b[kC][j][0], b[kC][j][1]);
+}
+
+__global__ void __launch_bounds__(kQThreads, 1) rvq_quantize_kernel(
+    const float* __restrict__ z, const bf16* __restrict__ planes, const float* __restrict__ cb,
+    const float* __restrict__ csq, int* __restrict__ idx, float* __restrict__ best_out, int M,
+    int n_q, int K, int D, int Kp, int Dp, int tiles) {
+  extern __shared__ __align__(16) unsigned char smraw[];
+  bf16* Rp = reinterpret_cast<bf16*>(smraw);          // [3][kTM][Dp], swizzled
+  bf16* Cs = Rp + kPlanes * kTM * Dp;                 // [2][3][kNC][kKC], swizzled
+  float* red_s = reinterpret_cast<float*>(Cs + 2 * kStageElems);  // [kTM][kWN]
+  int* red_k = reinterpret_cast<int*>(red_s + kWN * kTM);         // [kTM][kWN]
+  int* chosen = red_k + kWN * kTM;                                // [kTM]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp / kWN, wn = warp % kWN;
+  const TmBuf rb(Rp, Dp);
+  const int nch = Kp / kNC, nkd = (Dp + kKC - 1) / kKC, c8n = Dp / 8;
+  const int per_book = nch * nkd, total = n_q * per_book;
+
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int m0 = tile * kTM;
+    __syncthreads();  // the previous tile's readers are done
+    for (int g = tid; g < kTM * c8n; g += kQThreads) {
+      const int row = g / c8n, c8 = g - row * c8n;
+      float v[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const int d = c8 * 8 + e;
+        v[e] = m0 + row < M && d < D ? z[static_cast<size_t>(m0 + row) * D + d] : 0.f;
       }
-      __syncthreads();
-      float acc[4][4] = {};
-      for (int d = 0; d < D; ++d) {
-        const float4 rv = *reinterpret_cast<const float4*>(R + d * kTM + ty * 4);
-        const float4 cv = *reinterpret_cast<const float4*>(Cc + d * kTK + tx * 4);
-        const float r4[4] = {rv.x, rv.y, rv.z, rv.w};
-        const float c4[4] = {cv.x, cv.y, cv.z, cv.w};
+      store_group(Rp, rb, Dp, row, c8, v);
+    }
+    Stage st;
+    st.kn = min(kKC, Dp);
+    issue_stage(Cs, planes, st, Kp, Dp);
+
+    float acc[kMI][kNJ][4];
+    float bs[kMI][2];  // running best score and index of this thread's frames
+    int bk[kMI][2];
+    float c2[kNJ][2];  // ||c||^2 of this thread's codes of the chunk, +inf past K
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+    for (int mi = 0; mi < kMI; ++mi) {
 #pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(r4[i], c4[j], acc[i][j]);
+      for (int j = 0; j < kNJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mi][j][e] = 0.f;
+      bs[mi][0] = bs[mi][1] = kInf;
+      bk[mi][0] = bk[mi][1] = 0;
+    }
+
+    for (int s = 0; s < total; ++s, st = st.next(nch, nkd, Dp)) {
+      cp_async_wait_all();
+      __syncthreads();  // stage s landed; every warp is done with stage s-1
+      if (s + 1 < total)
+        issue_stage(Cs + ((s + 1) & 1) * kStageElems, planes, st.next(nch, nkd, Dp), Kp, Dp);
+      if (st.kd == 0) {
+        // the chunk's ||c||^2, loaded while its products run
+        const float* csq_q = csq + static_cast<size_t>(st.q) * K;
+#pragma unroll
+        for (int j = 0; j < kNJ; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int code = st.c * kNC + wn * (kNJ * 8) + j * 8 + 2 * (lane & 3) + e;
+            c2[j][e] = code < K ? __ldg(csq_q + code) : kInf;
+          }
       }
+
+      // the six plane products of each 16-dim step, smallest first; the
+      // fragments of the next step are loaded as soon as the current step
+      // is done with the registers they replace (the code hi plane, read
+      // first and last, has its own buffer)
+      const bf16* cs = Cs + (s & 1) * kStageElems;
+      const Frags fr{Rp, cs, rb, TmBuf(const_cast<bf16*>(cs), kKC), Dp, wm, wn, lane};
+      const int nks = st.kn / 16;
+      uint32_t a[kPlanes][kMI][4], b[kPlanes][kNJ][2], bhi[kNJ][2];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int k = k0 + tx * 4 + j;
-        if (k < K) {
-          const float c2 = csq[static_cast<size_t>(q) * K + k];
+      for (int p = 0; p < kPlanes; ++p) {
+        fr.a(a[p], p, st.kd, 0);
+        fr.b(b[p], p, 0);
+      }
+      for (int ks = 0; ks < nks; ++ks) {
+        const bool more = ks + 1 < nks;
+        plane_product<2, 0>(acc, a, b);  // lo.hi
+        if (more) fr.a(a[2], 2, st.kd, ks + 1);
+        plane_product<0, 2>(acc, a, b);  // hi.lo
+        if (more) {
+          fr.b(b[2], 2, ks + 1);
+          fr.b(bhi, 0, ks + 1);
+        }
+        plane_product<1, 1>(acc, a, b);  // mid.mid
+        plane_product<1, 0>(acc, a, b);  // mid.hi
+        if (more) fr.a(a[1], 1, st.kd, ks + 1);
+        plane_product<0, 1>(acc, a, b);  // hi.mid
+        if (more) fr.b(b[1], 1, ks + 1);
+        plane_product<0, 0>(acc, a, b);  // hi.hi
+        if (more) {
+          fr.a(a[0], 0, st.kd, ks + 1);
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const float s = __fsub_rn(c2, 2.0f * acc[i][j]);
-            if (better(s, k, best[i], bk[i])) {
-              best[i] = s;
-              bk[i] = k;
+          for (int j = 0; j < kNJ; ++j) {
+            b[0][j][0] = bhi[j][0];
+            b[0][j][1] = bhi[j][1];
+          }
+        }
+      }
+
+      if (st.kd == nkd - 1) {
+        // scores of this chunk, c2 - 2 acc rounded once (the doubling is
+        // exact); each thread meets its codes in increasing order, so a
+        // strict < keeps the lowest index of equal scores
+#pragma unroll
+        for (int j = 0; j < kNJ; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int code = st.c * kNC + wn * (kNJ * 8) + j * 8 + 2 * (lane & 3) + e;
+#pragma unroll
+            for (int mi = 0; mi < kMI; ++mi)
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                const float sc = fmaf(-2.0f, acc[mi][j][2 * h + e], c2[j][e]);
+                if (sc < bs[mi][h]) {
+                  bs[mi][h] = sc;
+                  bk[mi][h] = code;
+                }
+              }
+          }
+#pragma unroll
+        for (int mi = 0; mi < kMI; ++mi)
+#pragma unroll
+          for (int j = 0; j < kNJ; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[mi][j][e] = 0.f;
+      }
+
+      if (st.c == nch - 1 && st.kd == nkd - 1) {
+        // the book's argmin: the 4 lanes of a frame, then its kWN warps
+#pragma unroll
+        for (int mi = 0; mi < kMI; ++mi)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            float v = bs[mi][h];
+            int k = bk[mi][h];
+#pragma unroll
+            for (int o = 1; o <= 2; o <<= 1) {
+              const float ov = __shfl_xor_sync(0xffffffffu, v, o);
+              const int ok = __shfl_xor_sync(0xffffffffu, k, o);
+              if (better(ov, ok, v, k)) {
+                v = ov;
+                k = ok;
+              }
+            }
+            if ((lane & 3) == 0) {
+              const int row = wm * 32 + mi * 16 + (lane >> 2) + 8 * h;
+              red_s[row * kWN + wn] = v;
+              red_k[row * kWN + wn] = k;
+            }
+            bs[mi][h] = kInf;
+            bk[mi][h] = 0;
+          }
+        __syncthreads();
+        if (tid < kTM) {
+          float v = red_s[tid * kWN];
+          int k = red_k[tid * kWN];
+#pragma unroll
+          for (int w = 1; w < kWN; ++w)
+            if (better(red_s[tid * kWN + w], red_k[tid * kWN + w], v, k)) {
+              v = red_s[tid * kWN + w];
+              k = red_k[tid * kWN + w];
+            }
+          chosen[tid] = k;
+          if (m0 + tid < M) {
+            idx[static_cast<size_t>(m0 + tid) * n_q + st.q] = k;
+            if (best_out != nullptr) best_out[static_cast<size_t>(m0 + tid) * n_q + st.q] = v;
+          }
+        }
+        __syncthreads();
+        if (st.q + 1 < n_q) {
+          // r -= c[idx] in float32, each thread on its groups: the chosen
+          // codewords are gathered first (from L2), then each group is
+          // rebuilt from its planes, updated and split again in place
+          const float* book = cb + static_cast<size_t>(st.q) * K * D;
+          constexpr int kG = 4;  // groups per thread per round
+          for (int g0 = tid; g0 < kTM * c8n; g0 += kG * kQThreads) {
+            float c[kG][8];
+#pragma unroll
+            for (int u = 0; u < kG; ++u) {
+              const int g = g0 + u * kQThreads;
+              const int row = g / c8n, d0 = (g - row * c8n) * 8;
+              const float* src = book + static_cast<size_t>(chosen[row < kTM ? row : 0]) * D + d0;
+              if (g < kTM * c8n && d0 < D && D % 8 == 0) {
+                const float4 lo = __ldg(reinterpret_cast<const float4*>(src));
+                const float4 hi = __ldg(reinterpret_cast<const float4*>(src + 4));
+                c[u][0] = lo.x; c[u][1] = lo.y; c[u][2] = lo.z; c[u][3] = lo.w;
+                c[u][4] = hi.x; c[u][5] = hi.y; c[u][6] = hi.z; c[u][7] = hi.w;
+              } else {
+#pragma unroll
+                for (int e = 0; e < 8; ++e) c[u][e] = g < kTM * c8n && d0 + e < D ? src[e] : 0.f;
+              }
+            }
+#pragma unroll
+            for (int u = 0; u < kG; ++u) {
+              const int g = g0 + u * kQThreads;
+              if (g >= kTM * c8n) continue;
+              const int row = g / c8n, c8 = g - row * c8n;
+              float v[8];
+              load_group(Rp, rb, Dp, row, c8, v);
+#pragma unroll
+              for (int e = 0; e < 8; ++e) v[e] = __fsub_rn(v[e], c[u][e]);
+              store_group(Rp, rb, Dp, row, c8, v);
             }
           }
         }
       }
     }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      red_s[ty * 4 + i][tx] = best[i];
-      red_k[ty * 4 + i][tx] = bk[i];
-    }
-    __syncthreads();
-    if (tid < kTM) {
-      float bs = red_s[tid][0];
-      int b = red_k[tid][0];
-      for (int t = 1; t < 16; ++t)
-        if (red_k[tid][t] >= 0 && better(red_s[tid][t], red_k[tid][t], bs, b)) {
-          bs = red_s[tid][t];
-          b = red_k[tid][t];
-        }
-      chosen[tid] = b;
-      if (m0 + tid < M) idx[static_cast<size_t>(m0 + tid) * n_q + q] = b;
-    }
-    __syncthreads();
-    if (q + 1 < n_q) {
-      const float* book = cb + static_cast<size_t>(q) * K * D;
-      for (int i = tid; i < kTM * D; i += kQThreads) {
-        const int d = i / kTM, m = i - d * kTM;
-        R[i] = __fsub_rn(R[i], book[static_cast<size_t>(chosen[m]) * D + d]);
-      }
-    }
   }
+}
+
+// The codebooks' planes: cb (n_q, K, D) float32 -> planes (n_q, 3, Kp, Dp)
+// bf16, hi, mid, lo of each value (as kernels/residual_stack.py::
+// split_planes), zero past K and D. One thread per (book, code, dim).
+__global__ void rvq_split_planes_kernel(const float* __restrict__ cb, bf16* __restrict__ planes,
+                                        int n_q, int K, int D, int Kp, int Dp) {
+  const size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= static_cast<size_t>(n_q) * Kp * Dp) return;
+  const int d = static_cast<int>(i % Dp);
+  const int k = static_cast<int>((i / Dp) % Kp);
+  const int q = static_cast<int>(i / (static_cast<size_t>(Dp) * Kp));
+  const float v = k < K && d < D ? cb[(static_cast<size_t>(q) * K + k) * D + d] : 0.f;
+  uint32_t h, m, l;
+  split3(v, h, m, l);
+  const size_t plane = static_cast<size_t>(Kp) * Dp;
+  unsigned short* out = reinterpret_cast<unsigned short*>(planes) + q * kPlanes * plane +
+                        static_cast<size_t>(k) * Dp + d;
+  out[0] = static_cast<unsigned short>(h);
+  out[plane] = static_cast<unsigned short>(m);
+  out[2 * plane] = static_cast<unsigned short>(l);
 }
 
 __global__ void rvq_dequantize_kernel(const int* __restrict__ idx,
@@ -149,24 +480,76 @@ __global__ void rvq_dequantize_kernel(const int* __restrict__ idx,
   }
 }
 
+int quantize_tiles(int M) { return (M + kTM - 1) / kTM; }
+
+// Persistent grid: at most as many blocks as fit on the card at once.
+cudaError_t quantize_grid(int M, int Dp, int* grid, int* per_sm, int* sms) {
+  const int smem = quantize_smem(Dp);
+  cudaError_t err = cudaFuncSetAttribute(rvq_quantize_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  int dev = 0;
+  err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, rvq_quantize_kernel, kQThreads, smem);
+  if (err != cudaSuccess) return err;
+  if (*per_sm < 1) return cudaErrorInvalidConfiguration;
+  const int slots = *per_sm * *sms, tiles = quantize_tiles(M);
+  *grid = tiles < slots ? tiles : slots;
+  return cudaSuccess;
+}
+
 }  // namespace
 
-// z (M, D), cbt (n_q, D, K), cb (n_q, K, D), csq (n_q, K): float32;
-// idx (M, n_q) int32. Returns the launch's cudaError_t.
-extern "C" int nsc_rvq_quantize(const void* z, const void* cbt, const void* cb,
-                                const void* csq, void* idx, int M, int n_q,
-                                int K, int D, void* stream) {
-  if (M < 1 || n_q < 1 || K < 1 || D < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = static_cast<size_t>(D) * (kTM + kTK) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      rvq_quantize_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+// z (M, D) float32; planes (n_q, 3, Kp, Dp) bf16 (hi, mid, lo of the
+// codebooks, zero past K and D); cb (n_q, K, D) and csq (n_q, K) float32;
+// idx (M, n_q) int32; best (M, n_q) float32, the winning scores, or null.
+// Kp a multiple of 128, Dp a multiple of 16, D <= Dp <= 128. Returns the
+// launch's cudaError_t.
+extern "C" int nsc_rvq_quantize(const void* z, const void* planes, const void* cb,
+                                const void* csq, void* idx, void* best, int M, int n_q, int K,
+                                int D, int Kp, int Dp, void* stream) {
+  if (M < 1 || n_q < 1 || K < 1 || D < 1 || Dp < D || Dp > kMaxDim || Dp % 16 != 0 || Kp < K ||
+      Kp % kNC != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int grid = 0, per_sm = 0, sms = 0;
+  cudaError_t err = quantize_grid(M, Dp, &grid, &per_sm, &sms);
   if (err != cudaSuccess) return static_cast<int>(err);
-  rvq_quantize_kernel<<<(M + kTM - 1) / kTM, kQThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(z), static_cast<const float*>(cbt),
-      static_cast<const float*>(cb), static_cast<const float*>(csq),
-      static_cast<int*>(idx), M, n_q, K, D);
+  rvq_quantize_kernel<<<grid, kQThreads, quantize_smem(Dp), static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(z), static_cast<const bf16*>(planes),
+      static_cast<const float*>(cb), static_cast<const float*>(csq), static_cast<int*>(idx),
+      static_cast<float*>(best), M, n_q, K, D, Kp, Dp, quantize_tiles(M));
   return static_cast<int>(cudaGetLastError());
 }
+
+// cb (n_q, K, D) float32 -> planes (n_q, 3, Kp, Dp) bf16, the quantize
+// kernel's codebook operand. Returns the launch's cudaError_t.
+extern "C" int nsc_rvq_split_planes(const void* cb, void* planes, int n_q, int K, int D, int Kp,
+                                    int Dp, void* stream) {
+  if (n_q < 1 || K < 1 || D < 1 || Kp < K || Dp < D) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t n = static_cast<size_t>(n_q) * Kp * Dp;
+  rvq_split_planes_kernel<<<static_cast<unsigned>((n + 255) / 256), 256, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(cb), static_cast<bf16*>(planes), n_q, K, D, Kp, Dp);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The quantize launch's plan for M frames of padded width Dp: 5 long longs,
+// tiles, blocks (the grid), blocks per SM, SMs, shared-memory bytes.
+extern "C" int nsc_rvq_quantize_plan(int M, int Dp, void* plan) {
+  int grid = 0, per_sm = 0, sms = 0;
+  const cudaError_t err = quantize_grid(M, Dp, &grid, &per_sm, &sms);
+  long long* o = static_cast<long long*>(plan);
+  o[0] = quantize_tiles(M);
+  o[1] = grid;
+  o[2] = per_sm;
+  o[3] = sms;
+  o[4] = quantize_smem(Dp);
+  return static_cast<int>(err);
+}
+
 
 // idx (M, n_q) int32, cb (n_q, K, D) float32 -> out (M, D) float32.
 extern "C" int nsc_rvq_dequantize(const void* idx, const void* cb, void* out,

@@ -12,6 +12,7 @@ LAUNCHES = {
     "rvq_quantize": 0,
     "rvq_dequantize": 0,
     "stft_magnitude": 0,
+    "stft_magnitude_dft": 0,
     "residual_stack_cl": 0,
     "fused_stage": 0,
 }

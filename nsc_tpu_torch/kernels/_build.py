@@ -6,7 +6,8 @@ then the objects are linked into `libnsc_kernels.so` under
 `nsc_tpu_torch/_build/<hash of sources and flags>/`. A build happens on the
 first call of `library()` in a process, never on import; a library already
 built from the same sources is reused. There is no fallback: without `nvcc`
-the call raises.
+the call raises, and a build that failed raises again on every later call
+in the process without compiling anew.
 """
 
 from __future__ import annotations
@@ -36,12 +37,21 @@ SIGNATURES = {
     # x, out, w1, b1, a1, w2, b2, a2, dilations(host int*), B, C, T, U,
     # is_bf16, fast_act, stream
     "nsc_residual_stack": [_P] * 9 + [_I] * 6 + [_P],
-    # z, cbt, cb, csq, idx, M, n_q, K, D, stream
-    "nsc_rvq_quantize": [_P] * 5 + [_I] * 4 + [_P],
+    # z, planes, cb, csq, idx, best (or null), M, n_q, K, D, Kp, Dp, stream
+    "nsc_rvq_quantize": [_P] * 6 + [_I] * 6 + [_P],
+    # cb, planes, n_q, K, D, Kp, Dp, stream
+    "nsc_rvq_split_planes": [_P] * 2 + [_I] * 5 + [_P],
+    # M, Dp, plan (5 long long: tiles, grid, blocks per SM, SMs, bytes)
+    "nsc_rvq_quantize_plan": [_I] * 2 + [_P],
     # idx, cb, out, M, n_q, K, D, stream
     "nsc_rvq_dequantize": [_P] * 3 + [_I] * 4 + [_P],
-    # xpad, win, cosb, sinb, out, B, Tp, n_fft, hop, F, K, Kp, stream
-    "nsc_stft_magnitude": [_P] * 5 + [_I] * 7 + [_P],
+    # x, win, tw, out, re, im (or null), B, T, n_fft, hop, F, stream
+    "nsc_stft_magnitude_fft": [_P] * 6 + [_I] * 5 + [_P],
+    # n_fft, hop, plan (2 long long: frames per block, bytes)
+    "nsc_stft_fft_plan": [_I] * 2 + [_P],
+    # xpad, win, cosb, sinb, out, re, im (or null), B, Tp, n_fft, hop, F, K,
+    # Kp, stream
+    "nsc_stft_magnitude_dft": [_P] * 7 + [_I] * 7 + [_P],
     # x, out, w1, b1, a1, w2, b2, a2, w1p, w2p (bf16 planes or null),
     # dilations, B, C, T, U, is_bf16, fast, stream; x and out (B, T, C),
     # float32 weights
@@ -58,6 +68,7 @@ SIGNATURES = {
 
 _lock = threading.Lock()
 _lib = None
+_error = None         # the failure of this process's build, if it failed
 build_seconds = None  # wall time of this process's build (0.0 if reused)
 build_log = ""        # nvcc's messages, including ptxas register/smem use
 
@@ -117,14 +128,20 @@ def _compile(out: Path) -> None:
 
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built first if needed."""
-    global _lib, build_seconds
+    global _lib, _error, build_seconds
     with _lock:
+        if _error is not None:
+            raise RuntimeError("the kernel library failed to build earlier in this process") from _error
         if _lib is None:
             t0 = time.perf_counter()
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             out = BUILD_DIR / _digest() / LIB_NAME
             if not out.exists():
-                _compile(out)
+                try:
+                    _compile(out)
+                except Exception as e:
+                    _error = e
+                    raise
             lib = ctypes.CDLL(str(out))
             for name, argtypes in SIGNATURES.items():
                 fn = getattr(lib, name)

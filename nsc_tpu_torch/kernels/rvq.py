@@ -2,12 +2,18 @@
 `csrc/rvq.cu`, their plain PyTorch versions, and the wrappers.
 
 quantize: for each frame, over the books in order, pick
-    argmin_k  ||c_k||^2 - 2 r.c_k     (true float32, lowest index on ties)
+    argmin_k  ||c_k||^2 - 2 r.c_k     (float32, lowest index on ties)
 and subtract the chosen codeword from the residual r (the last book's update
 is skipped: nothing reads it). `||c||^2` is computed once per call, by the
 wrapper, and the score is two separately rounded operations on it and on
-the dot product, so only the dot's summation order can differ between the
-kernel, its plain version and the JAX package.
+the dot product. The kernel takes the dot on the tensor cores: the wrapper
+splits the codebooks into exact bf16 planes hi + mid + lo (once per call,
+with a small split kernel; `codebook_planes` is its plain version), the
+kernel splits each book's residuals the same way, and six of the nine
+plane products (lo.hi, hi.lo, mid.mid, mid.hi, hi.mid, hi.hi, smallest
+first) are accumulated in float32. So the kernel's dot differs from the
+float32 one by its summation order, the tensor cores' accumulation and the
+three dropped products (below ~3 x 2^-24 of |r||c|).
 
 dequantize: sum the chosen codewords in book order, 0 + c_0 + c_1 + ...,
 in float32 (bit-exact with the JAX package's scan).
@@ -18,6 +24,20 @@ from __future__ import annotations
 import torch
 
 from nsc_tpu_torch import kernels
+from nsc_tpu_torch.kernels.residual_stack import split_planes
+
+# The quantize kernel's tiling (csrc/rvq.cu): frames per block tile, codes
+# per chunk (K is padded to it with zero planes, and padded codes are never
+# scored) and the dims a plane row is padded to.
+TILE_M = 128
+CODE_TILE = 128
+DIM_ALIGN = 16
+# The kernel takes padded widths up to 128 (csrc/rvq.cu kMaxDim). A block's
+# shared memory there (quantize_smem) is the three bf16 residual planes of
+# 128 frames (96 KB), two 48 KB stages of code planes and the argmin
+# scratch: 199,168 bytes. The residual planes grow by 768 bytes a dim, so
+# past 160 dims they would not fit one block beside the stages at all.
+MAX_QUANTIZE_DIM = 128
 
 
 def codeword_sq_norms(codebooks: torch.Tensor) -> torch.Tensor:
@@ -61,12 +81,36 @@ def _check_books(codebooks: torch.Tensor, device: torch.device) -> None:
         raise ValueError(f"codebooks must be contiguous on {device}")
 
 
-# The quantize kernel keeps a (D x 64) residual tile and a (D x 64) codeword
-# tile in shared memory; 227 KB per block bounds D.
-MAX_QUANTIZE_DIM = 384
+def padded_shape(k: int, d: int):
+    """(Kp, Dp): K rounded up to CODE_TILE, D to DIM_ALIGN."""
+    return -(-k // CODE_TILE) * CODE_TILE, -(-d // DIM_ALIGN) * DIM_ALIGN
 
 
-def _quantize_cuda(codebooks: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+def codebook_planes(codebooks: torch.Tensor) -> torch.Tensor:
+    """(n_q, K, D) float32 -> (n_q, 3, Kp, Dp) bf16 planes hi, mid, lo of
+    each codeword (`split_planes`), zero past K and D: what the split kernel
+    (`csrc/rvq.cu::rvq_split_planes_kernel`) writes on a card."""
+    n_q, k, d = codebooks.shape
+    kp, dp = padded_shape(k, d)
+    planes = split_planes(codebooks).transpose(0, 1)  # (n_q, 3, K, D)
+    return torch.nn.functional.pad(planes, (0, dp - d, 0, kp - k)).contiguous()
+
+
+def quantize_plan(m: int, d: int) -> dict:
+    """The launch plan the kernel takes for M frames of width D on this
+    card (needs the library): tiles of TILE_M frames, blocks (a persistent
+    grid of at most one block per slot), blocks per SM, SMs, bytes."""
+    import ctypes
+
+    from nsc_tpu_torch.kernels import _build
+
+    plan = (ctypes.c_longlong * 5)()
+    err = _build.library().nsc_rvq_quantize_plan(m, padded_shape(1, d)[1], plan)
+    _build.check(err, "nsc_rvq_quantize_plan")
+    return dict(zip(("tiles", "blocks", "blocks_per_sm", "sms", "smem_bytes"), plan))
+
+
+def _quantize_cuda(codebooks: torch.Tensor, z: torch.Tensor, scores: bool = False):
     from nsc_tpu_torch.kernels import _build
 
     _check_books(codebooks, z.device)
@@ -79,19 +123,33 @@ def _quantize_cuda(codebooks: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"quantize kernel takes 1 <= D <= {MAX_QUANTIZE_DIM}")
     m = z.shape[0]
     idx = torch.empty(m, n_q, dtype=torch.int32, device=z.device)
+    best = torch.empty(m, n_q, dtype=torch.float32, device=z.device) if scores else None
     if m == 0:
-        return idx
-    cbt = codebooks.transpose(1, 2).contiguous()  # (n_q, D, K)
-    csq = codeword_sq_norms(codebooks).contiguous()
+        return (idx, best) if scores else idx
+    kp, dp = padded_shape(k, d)
     lib = _build.library()
+    stream = torch.cuda.current_stream(z.device).cuda_stream
+    planes = torch.empty(n_q, 3, kp, dp, dtype=torch.bfloat16, device=z.device)
+    err = lib.nsc_rvq_split_planes(codebooks.data_ptr(), planes.data_ptr(), n_q, k, d, kp, dp,
+                                   stream)
+    _build.check(err, "nsc_rvq_split_planes")
+    csq = codeword_sq_norms(codebooks).contiguous()
     err = lib.nsc_rvq_quantize(
-        z.data_ptr(), cbt.data_ptr(), codebooks.data_ptr(), csq.data_ptr(),
-        idx.data_ptr(), m, n_q, k, d,
-        torch.cuda.current_stream(z.device).cuda_stream,
+        z.data_ptr(), planes.data_ptr(), codebooks.data_ptr(), csq.data_ptr(),
+        idx.data_ptr(), best.data_ptr() if scores else None, m, n_q, k, d, kp, dp, stream,
     )
     _build.check(err, "nsc_rvq_quantize")
     kernels.LAUNCHES["rvq_quantize"] += 1
-    return idx
+    return (idx, best) if scores else idx
+
+
+def quantize_with_scores(codebooks: torch.Tensor, z: torch.Tensor):
+    """The kernel's indices and winning scores ((M, n_q) int32, float32), on
+    a CUDA tensor only: what `quantize` launches, with the scores kept, so a
+    caller can hold them against a float64 score."""
+    if z.device.type != "cuda":
+        raise ValueError("quantize_with_scores runs the CUDA kernel only")
+    return _quantize_cuda(codebooks, z, scores=True)
 
 
 def _dequantize_cuda(codebooks: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

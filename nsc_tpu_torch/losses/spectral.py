@@ -4,8 +4,8 @@
 Multi-resolution STFT loss = spectral convergence + log-magnitude L1 over a
 bank of FFT sizes; mel loss = L1 on log-mel; time L1. Every loss STFT goes
 through `stft`, by default `nsc_tpu_torch.kernels.stft.stft_magnitude`: the
-CUDA kernel on a card (its backward through the plain version), the plain
-version on CPU tensors. Nothing moves to another path by itself; a caller
+CUDA kernel on a card (its backward through the spectrum the kernel
+computed), the plain version on CPU tensors. Nothing moves to another path by itself; a caller
 that holds the kernel against its plain version on the card passes
 `stft=stft_magnitude_plain`. The multi-resolution loss computes in float32,
 or in float64 for float64 inputs (a reference for its float32 gradient).

@@ -284,6 +284,89 @@ def test_rvq_kernels_match_plain_with_ties(dev):
     assert torch.equal(KR.dequantize(books, idx), KR.dequantize_plain(books, idx))
 
 
+# (n_q, K, D) of every shipped config: base/base_fast, small, small_factorized,
+# base_fast_f, tiny_test
+SHIPPED_RVQ = [(16, 1024, 128), (2, 256, 64), (2, 256, 16), (16, 1024, 32), (2, 16, 8)]
+
+
+@pytest.mark.parametrize("n_q,k,d", SHIPPED_RVQ)
+@pytest.mark.parametrize("m", [1, 333, 32000])
+def test_quantize_kernel_matches_plain_at_shipped_shapes(dev, n_q, k, d, m):
+    """On N(0, 1) books: an index may differ from the plain version only
+    where the plain version's top-2 margin is a near-tie (1e-3, as
+    chip_smoke.py's check)."""
+    from nsc_tpu_torch.configs import get_config
+    from nsc_tpu_torch.ops import rvq as rvq_ops
+    from nsc_tpu_torch.ops.precision import float32_numerics
+
+    assert any((c.num_quantizers, c.codebook_size, c.codebook_dim) == (n_q, k, d)
+               for c in map(get_config, SHIPPED))
+    g = torch.Generator(device=dev).manual_seed(m + k + d)
+    books = torch.randn(n_q, k, d, device=dev, generator=g)
+    z = torch.randn(m, d, device=dev, generator=g)
+    idx = KR.quantize(books, z)
+    torch.cuda.synchronize()
+    with float32_numerics():
+        ref = KR.quantize_plain(books, z)
+    assert idx.shape == ref.shape == (m, n_q) and idx.dtype == torch.int32
+    diff = idx != ref
+    bad = diff.any(dim=1).nonzero().flatten()
+    if bad.numel():
+        margins = rvq_ops.argmin_margins({"codebooks": books}, z[bad])
+        first = diff[bad].int().argmax(dim=1)
+        assert (margins[torch.arange(bad.numel(), device=dev), first] < 1e-3).all()
+
+
+@pytest.mark.parametrize("k", [16, 200])
+def test_quantize_kernel_never_chooses_padded_codes(dev, k):
+    g = torch.Generator(device=dev).manual_seed(k)
+    books = torch.randn(2, k, 8, device=dev, generator=g)
+    books += torch.sign(books) * 4.0
+    z = torch.cat([torch.zeros(5, 8, device=dev), torch.randn(60, 8, device=dev, generator=g) * 0.01])
+    idx = KR.quantize(books, z)
+    torch.cuda.synchronize()
+    assert int(idx.max()) < k
+    assert torch.equal(idx, KR.quantize_plain(books, z))
+
+
+@pytest.mark.parametrize("n_q,k,d", SHIPPED_RVQ + [(3, 300, 40)])
+def test_quantize_split_kernel_matches_codebook_planes(dev, n_q, k, d):
+    """The split kernel writes the planes `codebook_planes` computes, bit
+    for bit, zero past K and D."""
+    g = torch.Generator(device=dev).manual_seed(k * d)
+    books = torch.randn(n_q, k, d, device=dev, generator=g) * 3
+    kp, dp = KR.padded_shape(k, d)
+    planes = torch.empty(n_q, 3, kp, dp, dtype=torch.bfloat16, device=dev)
+    err = _build.library().nsc_rvq_split_planes(books.data_ptr(), planes.data_ptr(), n_q, k, d,
+                                                kp, dp, torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0
+    assert torch.equal(planes.view(torch.int16), KR.codebook_planes(books).view(torch.int16))
+
+
+def test_quantize_kernel_plan_and_scores(dev):
+    """At M = 32000 the persistent grid is one wave of whole blocks, and the
+    kernel's plan fits every shipped width; the winning scores are the float32 scores within the tensor cores'
+    accumulation (1e-5 of the largest score)."""
+    plan = KR.quantize_plan(32000, 128)
+    assert plan["tiles"] == 250 and plan["blocks_per_sm"] >= 1
+    assert plan["blocks"] == min(plan["tiles"], plan["blocks_per_sm"] * plan["sms"])
+    for _, _, d in SHIPPED_RVQ:  # every shipped width fits one block
+        assert KR.quantize_plan(1, d)["smem_bytes"] <= KS.MAX_SMEM
+    g = torch.Generator(device=dev).manual_seed(5)
+    books = torch.randn(4, 1024, 128, device=dev, generator=g)
+    z = torch.randn(3000, 128, device=dev, generator=g)
+    idx, best = KR.quantize_with_scores(books, z)
+    assert torch.equal(idx, KR.quantize(books, z))
+    csq = KR.codeword_sq_norms(books)
+    r = z
+    for q in range(books.shape[0]):
+        c = books[q][idx[:, q].long()]
+        s64 = csq[q][idx[:, q].long()].double() - 2.0 * (r.double() * c.double()).sum(-1)
+        assert (best[:, q].double() - s64).abs().max().item() <= 1e-5 * s64.abs().max().item()
+        r = r - c
+
+
 # the training step's STFT launches: five resolutions at hop n_fft/4 (the
 # mel STFT is the n_fft 1024 shape), on B=64 x 1 s
 @pytest.mark.parametrize("n_fft", [2048, 1024, 512, 256, 128])
@@ -310,6 +393,71 @@ def test_stft_kernel_matches_plain_at_supported_extremes(dev, n_fft, hop, t):
     ref = KS.stft_magnitude_plain(x, n_fft, hop)
     assert got.shape == ref.shape == (3, 1 + t // hop, n_fft // 2 + 1)
     assert (got - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
+
+
+# every power of two the FFT route takes, B = 1, a T that no hop divides
+@pytest.mark.parametrize("n_fft", [16, 32, 64, 128, 256, 512, 1024, 2048, 4096])
+def test_stft_fft_route_matches_plain_at_every_power_of_two(dev, n_fft):
+    from nsc_tpu_torch import kernels
+
+    g = torch.Generator(device=dev).manual_seed(n_fft)
+    hop, t = n_fft // 4, 3 * n_fft + 101
+    x = torch.randn(1, t, device=dev, generator=g) * 0.3
+    kernels.reset_launches()
+    got = KS.stft_magnitude(x, n_fft, hop)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["stft_magnitude"] == 1 and kernels.LAUNCHES["stft_magnitude_dft"] == 0
+    ref = KS.stft_magnitude_plain(x, n_fft, hop)
+    assert got.shape == ref.shape == (1, 1 + t // hop, n_fft // 2 + 1)
+    assert (got - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
+
+
+# n_fft that are not powers of two in 16-4096 take the DFT kernel
+@pytest.mark.parametrize("n_fft,hop,t", [(2, 1, 997), (400, 100, 16000), (400, 160, 3001),
+                                         (8, 2, 501)])
+def test_stft_dft_route_matches_plain(dev, n_fft, hop, t):
+    from nsc_tpu_torch import kernels
+
+    g = torch.Generator(device=dev).manual_seed(t)
+    x = torch.randn(2, t, device=dev, generator=g) * 0.3
+    kernels.reset_launches()
+    got = KS.stft_magnitude(x, n_fft, hop)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["stft_magnitude_dft"] == 1 and kernels.LAUNCHES["stft_magnitude"] == 0
+    ref = KS.stft_magnitude_plain(x, n_fft, hop)
+    assert got.shape == ref.shape
+    assert (got - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
+
+
+@pytest.mark.parametrize("n_fft,hop", [(2048, 512), (128, 32), (400, 100)])
+def test_stft_kernel_spectrum_outputs(dev, n_fft, hop):
+    """With the spectrum kept, the magnitudes are sqrt(re^2 + im^2 + 1e-8) of
+    it and the spectrum is the plain path's within the forward tolerance."""
+    from nsc_tpu_torch.ops import stft as S
+
+    g = torch.Generator(device=dev).manual_seed(1)
+    x = torch.randn(3, 5001, device=dev, generator=g) * 0.3
+    mag, re, im = KS.launch(x, n_fft, hop, spectrum=True)
+    torch.cuda.synchronize()
+    assert torch.equal(mag, KS.launch(x, n_fft, hop))
+    torch.testing.assert_close(mag, torch.sqrt(re * re + im * im + 1e-8), rtol=1e-6, atol=0)
+    frames = S.frame_signal(x, n_fft, hop) * S.hann_window(n_fft, dev)
+    cos_b, sin_b = S.dft_basis(n_fft, dev)
+    for got, ref in ((re, frames @ cos_b), (im, frames @ sin_b)):
+        assert (got - ref).abs().max().item() <= 1e-4 * mag.max().item()
+
+
+def test_stft_fft_plan_fits_one_block(dev):
+    """The FFT kernel's own plan: frames per block a power of two, at most
+    4096 / n_fft, and shared memory within one block's."""
+    lib = _build.library()
+    for n_fft, hop in ((16, 4), (16, 1000), (128, 32), (512, 1), (1024, 256), (2048, 512),
+                       (4096, 1024), (4096, 4096)):
+        plan = (ctypes.c_longlong * 2)()
+        assert lib.nsc_stft_fft_plan(n_fft, hop, plan) == 0
+        ft, smem = plan
+        assert 1 <= ft <= max(1, 4096 // n_fft) and ft & (ft - 1) == 0, (n_fft, hop, ft)
+        assert smem <= KS.MAX_SMEM, (n_fft, hop, smem)
 
 
 def test_stft_function_gradient_matches_plain(dev):
@@ -352,5 +500,6 @@ def test_full_width_train_step_launches_the_kernels(dev):
     state, metrics = step(state, batch)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES == {"residual_stack": 0, "rvq_quantize": 1, "rvq_dequantize": 0,
-                                "stft_magnitude": 12, "residual_stack_cl": 0, "fused_stage": 0}
+                                "stft_magnitude": 12, "stft_magnitude_dft": 0,
+                                "residual_stack_cl": 0, "fused_stage": 0}
     assert all(torch.isfinite(v).item() for v in metrics.values())

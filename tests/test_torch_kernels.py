@@ -175,5 +175,5 @@ def test_cpu_wrappers_do_not_count_launches():
     RS.residual_stack(torch.randn(1, 8, 50), packed, (1,), True)
     assert kernels.LAUNCHES == {
         "residual_stack": 0, "rvq_quantize": 0, "rvq_dequantize": 0, "stft_magnitude": 0,
-        "residual_stack_cl": 0, "fused_stage": 0,
+        "stft_magnitude_dft": 0, "residual_stack_cl": 0, "fused_stage": 0,
     }

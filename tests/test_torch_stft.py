@@ -113,7 +113,7 @@ def test_wrapper_refuses_other_devices():
 
 
 def test_kernel_shared_memory_budget():
-    """The slice's largest launch (n_fft 2048, hop 512) fits one block's
-    shared memory with room for two blocks per SM."""
-    assert KS.smem_bytes(2048, 512) <= KS.MAX_SMEM // 2
-    assert KS.smem_bytes(128, 32) < KS.smem_bytes(2048, 512)
+    """The DFT kernel at the losses' largest shape (n_fft 2048, hop 512)
+    fits one block's shared memory with room for two blocks per SM."""
+    assert KS.dft_smem_bytes(2048, 512) <= KS.MAX_SMEM // 2
+    assert KS.dft_smem_bytes(128, 32) < KS.dft_smem_bytes(2048, 512)
