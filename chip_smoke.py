@@ -17,17 +17,23 @@ every plain version compared here run their float32 work under
   2. build    the kernels, compiled from nsc_tpu_torch/csrc (seconds), with
               ptxas's registers and spills per kernel (no stage kernel may
               spill) and the HMMA (tensor-core) instructions of each stage
-              kernel's instantiation and of rvq_quantize, counted with
-              `cuobjdump -sass`: above 0 in the bf16 snake_fast
-              (tensor-core) instantiations of K1, K5 and K6 and in K2,
-              exactly 0 in every float32 stage instantiation (no TF32)
+              kernel's instantiation and of each of rvq_quantize's two
+              launch plans, counted with `cuobjdump -sass`: above 0 in the
+              bf16 snake_fast (tensor-core) instantiations of K1, K5 and K6
+              and in both K2 plans, exactly 0 in every float32 stage
+              instantiation (no TF32)
   3. kernels  each kernel against its plain version at the main paths'
               shapes: residual_stack (K1) and residual_stack_cl (K6) on all
               8 stages (B=64, full T) in bf16 and f32; fused_stage (K5) on
               all 8 stages with their real heads (strides 2/4/5 in) and
               tails (5/4/2 out) in bf16 and f32; rvq_quantize /
               rvq_dequantize at M=32000, 16 x 1024 x 128 (with K2's launch
-              plan and its winning scores against float64 scores);
+              plan and its winning scores against float64 scores, and the
+              codebook split bit-exact against its plain version); K2's
+              streamed plan at M=32000 on 8 x 1024 x 256 and 4 x 1024 x 384
+              (N(0, 1) books and frames); K3 also at a ragged M, at an odd
+              D (4-byte rows), with indices outside [0, K), and the earlier
+              row-warp design (timed beside it) on the serving indices;
               stft_magnitude (the FFT route) at the training step's six
               launch shapes (B=64, T=16000) and the DFT route at n_fft 400
               and 2; the spectral losses through the kernel against the
@@ -36,7 +42,8 @@ every plain version compared here run their float32 work under
               matmul-DFT path and the float32 rfft path against a float64
               matmul-DFT gradient, on five noise seeds
   4. main     serving: for each serving path, reconstruct with the launch
-              counters reset just before and read just after; a
+              counters reset just before and read just after (its stage
+              kernel x8, K2 and its codebook split x1, K3 x1); a
               compress/decompress round trip ("auto"); index agreement and
               decode-only divergence of every serving path against the
               float32 path, and of the two opt-in paths against "auto".
@@ -50,7 +57,10 @@ every plain version compared here run their float32 work under
               memory and split; each kernel's time beside its plain
               version's, its bound and a PyTorch yardstick where one call
               computes the same function; K4's backward beside its forward
-              and beside the plain recompute it replaced
+              and beside the plain recompute it replaced; K3 beside the
+              row-warp design and beside its L2 gather floor (the bytes it gathers
+              over the L2 read rate of one PyTorch reduction of an
+              L2-resident 8 MB tensor, reported, not gated)
 
 then the `kernels` summary line, the card line and, last,
 {"ok": true, "device": {...}}. Any failed check raises and exits non-zero.
@@ -89,8 +99,9 @@ PEAK_BYTES = 3.35e12
 # the same unit chain (K5 adds a head or tail whose float32 sums differ the
 # same way), so they take K1's tolerances.
 # rvq_quantize: a different index is allowed only where the plain version's
-# top-2 score margin is below 1e-3 (scores are ~1e2; float32 dots of 128
-# terms differ by ~1e-5 with the order). rvq_dequantize: bit-exact.
+# top-2 score margin is below 1e-3 (scores are ~1e2-1e3; float32 dots of
+# 128-384 terms differ by ~1e-5 with the order). rvq_dequantize and the
+# codebook split: bit-exact.
 # stft_magnitude (either route): float32 sums in another order or an FFT's
 # rounding: 1e-4 x max|ref|. Spectral losses through it: values rtol 1e-5;
 # the mel loss's gradient 1e-4 x max|g| against the plain path's.
@@ -116,6 +127,12 @@ K4_F64_L2_TOL = 1.0315e-2
 # The DFT route's shapes (n_fft, hop): a 25 ms window at 16 kHz, and the
 # smallest n_fft.
 K4_DFT_SHAPES = ((400, 100), (2, 1))
+# K2's streamed plan (padded widths over 128): (n_q, K, D) at M frames
+K2_WIDE = ((8, 1024, 256), (4, 1024, 384))
+K2_WIDE_M = 32000
+# The L2 read rate K3's gather floor is taken at: one reduction over this
+# many repeats of an 8 MB float32 tensor (it stays in the 50 MB L2)
+L2_PROBE_FLOATS, L2_PROBE_REPEATS = 2 * 1024 * 1024, 32
 
 BATCH, SECONDS = 64, 10.0
 # (path, unit_backend, the route of its residual units)
@@ -148,10 +165,15 @@ STAGE_KERNELS = ("residual_stack_cl", "residual_stack", "fused_stage")
 def kernel_label(symbol: str) -> str:
     """A readable name for a kernel symbol (mangled, or ptxas's line): the
     stage kernels as name<dtype,activation[,tc]>."""
-    m = re.search(r"(residual_stack_cl|residual_stack|fused_stage|rvq_quantize|rvq_dequantize"
-                  r"|rvq_split_planes|stft_magnitude_dft|stft_magnitude)(_tc)?_kernel", symbol)
+    m = re.search(r"(residual_stack_cl|residual_stack|fused_stage|rvq_quantize"
+                  r"|rvq_dequantize_rowwarp|rvq_dequantize|rvq_split_planes|stft_magnitude_dft"
+                  r"|stft_magnitude)(_tc)?_kernel", symbol)
     if m is None:
         return symbol
+    if m.group(1) == "rvq_quantize":
+        return "rvq_quantize<%s>" % ("streamed" if "Lb1E" in symbol else "resident")
+    if m.group(1) == "rvq_dequantize":
+        return "rvq_dequantize<%s>" % ("float4" if "Li4E" in symbol else "float")
     if m.group(1) not in STAGE_KERNELS:
         return m.group(1)
     if m.group(2):
@@ -164,8 +186,9 @@ HMMA_KERNELS = STAGE_KERNELS + ("rvq_quantize",)
 
 
 def hmma_counts(lib_path: str, cuda_bin: str) -> dict:
-    """HMMA instructions in each stage-kernel instantiation and in the
-    quantize kernel of the built library, from `cuobjdump -sass`."""
+    """HMMA instructions in each stage-kernel instantiation and in each
+    launch plan of the quantize kernel of the built library, from
+    `cuobjdump -sass`."""
     out = subprocess.run([os.path.join(cuda_bin, "cuobjdump"), "-sass", lib_path],
                          capture_output=True, text=True, check=True, timeout=300).stdout
     counts, label = {}, None
@@ -362,9 +385,11 @@ def train_smoke(dev, card, events_ms):
     check(not torch.equal(init_books, state["rvq"]["codebooks"]), "EMA codebooks did not move")
     init_k2 = cfg.num_quantizers * 3  # per book: 2 Lloyd iterations + the final search
     expect = dict.fromkeys(kernels.LAUNCHES, 0)
-    expect.update({"rvq_quantize": init_k2 + n_steps, "stft_magnitude": 12 * n_steps})
+    expect.update({"rvq_quantize": init_k2 + n_steps, "rvq_split_planes": init_k2 + n_steps,
+                   "stft_magnitude": 12 * n_steps})
     # (stft_magnitude_dft stays 0: every training n_fft takes the FFT)
-    check(data_init_launches["rvq_quantize"] == init_k2, f"data-init launches {data_init_launches}")
+    check(data_init_launches["rvq_quantize"] == data_init_launches["rvq_split_planes"] == init_k2,
+          f"data-init launches {data_init_launches}")
     check(launches == expect, f"training launch counts {launches}, expected {expect}")
     del state, before, init_books, metrics
     torch.cuda.empty_cache()
@@ -559,7 +584,9 @@ def main() -> int:
     for kernel in STAGE_KERNELS:
         check(hmma.get(f"{kernel}<bf16,snake_fast,tc>", 0) > 0,
               f"{kernel}: no tensor-core instantiation in the library")
-    check(hmma.get("rvq_quantize", 0) > 0, "rvq_quantize: no HMMA in the quantize kernel")
+    for plan in ("resident", "streamed"):
+        check(hmma.get(f"rvq_quantize<{plan}>", 0) > 0,
+              f"rvq_quantize: no HMMA in the {plan} plan's kernel")
 
     def events_ms(fn, reps=5):
         fn()
@@ -675,6 +702,22 @@ def main() -> int:
             del got, x, xh
         del x32, xh32
 
+    def index_check(bk, zz, idx_k, idx_p):
+        """K2's indices against the plain version's: how many differ, and
+        whether each frame's first difference is at a near-tie."""
+        diff = idx_k != idx_p
+        bad = diff.any(dim=1).nonzero().flatten()
+        near, worst = 0, 0.0
+        if bad.numel():
+            with float32_numerics():
+                margins = rvq_ops.argmin_margins({"codebooks": bk}, zz[bad])
+            first = diff[bad].int().argmax(dim=1)
+            m_first = margins[torch.arange(bad.numel(), device=dev), first]
+            near = int((m_first < K2_NEAR_TIE).sum().item())
+            worst = m_first.max().item()
+        return {"index_mismatches": int(diff.sum().item()), "frames_differing": int(bad.numel()),
+                "near_ties": near, "worst_first_mismatch_margin": worst}
+
     books = rvq["codebooks"].contiguous()
     z = model.latents(params, wav)  # the main path's own latents
     z2d = z.reshape(-1, z.shape[-1]).float().contiguous()
@@ -682,21 +725,11 @@ def main() -> int:
     torch.cuda.synchronize()
     with float32_numerics():
         idx_p = KR.quantize_plain(books, z2d)
-    diff = idx_k != idx_p
-    bad_frames = diff.any(dim=1).nonzero().flatten()
-    near_ties, worst_margin = 0, 0.0
-    if bad_frames.numel():
-        margins = rvq_ops.argmin_margins(rvq, z2d[bad_frames])
-        first = diff[bad_frames].int().argmax(dim=1)
-        m_first = margins[torch.arange(bad_frames.numel(), device=dev), first]
-        near_ties = int((m_first < K2_NEAR_TIE).sum().item())
-        worst_margin = m_first.max().item()
+    rec = index_check(books, z2d, idx_k, idx_p)
+    worst_margin = rec["worst_first_mismatch_margin"]
     emit({"phase": "kernel_check", "kernel": "rvq_quantize", "M": z2d.shape[0],
-          "n_q": books.shape[0], "K": books.shape[1], "D": books.shape[2],
-          "index_mismatches": int(diff.sum().item()),
-          "frames_differing": int(bad_frames.numel()), "near_ties": near_ties,
-          "worst_first_mismatch_margin": worst_margin})
-    check(near_ties == bad_frames.numel(),
+          "n_q": books.shape[0], "K": books.shape[1], "D": books.shape[2], **rec})
+    check(rec["near_ties"] == rec["frames_differing"],
           "K2: an index differs where the plain version's margin is not a near-tie")
     # K2's launch plan, and its winning scores against float64 scores of the
     # same (frame, book, index): the float32 residual as the kernel forms it,
@@ -730,6 +763,51 @@ def main() -> int:
           "score_abs_err_vs_float64": {"kernel": score_err(idx_k, best_k),
                                        "plain": score_err(idx_p, best_p)}})
     del idx_s, best_k, best_p, r
+    # K2's first launch, the codebook split, against its plain version
+    lib = _build.library()
+    stream = torch.cuda.current_stream().cuda_stream
+    kp, dp = KR.padded_shape(*books.shape[1:])
+    planes = torch.empty(books.shape[0], 3, kp, dp, dtype=torch.bfloat16, device=dev)
+
+    def split_launch():
+        _build.check(lib.nsc_rvq_split_planes(books.data_ptr(), planes.data_ptr(), *books.shape,
+                                              kp, dp, stream), "nsc_rvq_split_planes")
+
+    split_launch()
+    torch.cuda.synchronize()
+    split_exact = torch.equal(planes.view(torch.int16), KR.codebook_planes(books).view(torch.int16))
+    emit({"phase": "kernel_check", "kernel": "rvq_split_planes", "shape": list(planes.shape),
+          "bit_exact": split_exact})
+    check(split_exact, "rvq_split_planes: not bit-exact against its plain version")
+
+    # K2's streamed plan (padded widths over 128) on N(0, 1) books and frames
+    gw = torch.Generator(device=dev).manual_seed(7)
+    wide = []
+    for n_q_w, k_w, d_w in K2_WIDE:
+        bk = torch.randn(n_q_w, k_w, d_w, device=dev, generator=gw)
+        zz = torch.randn(K2_WIDE_M, d_w, device=dev, generator=gw)
+        wplan = KR.quantize_plan(K2_WIDE_M, d_w)
+        got = KR.quantize(bk, zz)
+        torch.cuda.synchronize()
+        with float32_numerics():
+            ref = KR.quantize_plain(bk, zz)
+        rec = index_check(bk, zz, got, ref)
+        emit({"phase": "kernel_check", "kernel": "rvq_quantize", "M": K2_WIDE_M, "n_q": n_q_w,
+              "K": k_w, "D": d_w, "plan": wplan, **rec})
+        check(wplan["plan"] == "streamed" and wplan["smem_bytes"] <= RS.MAX_SMEM,
+              f"K2 at D={d_w}: plan {wplan}")
+        check(tuple(got.shape) == (K2_WIDE_M, n_q_w) and int(got.min()) >= 0 and int(got.max()) < k_w,
+              f"K2 at D={d_w}: indices out of shape or range")
+        check(rec["near_ties"] == rec["frames_differing"],
+              f"K2 at D={d_w}: an index differs where the plain version's margin is not a near-tie")
+        wide.append({"n_q": n_q_w, "K": k_w, "D": d_w, "M": K2_WIDE_M, "books": bk, "z": zz,
+                     "check": rec})
+        del got, ref
+
+    # K3: the serving shape, a ragged M, an odd D (4-byte rows), indices
+    # outside [0, K) (they add nothing), all bit-exact against the plain
+    # version; and the earlier row-warp design, timed beside it below, on the serving
+    # indices
     deq_k = KR.dequantize(books, idx_p)
     torch.cuda.synchronize()
     with float32_numerics():
@@ -738,6 +816,38 @@ def main() -> int:
     emit({"phase": "kernel_check", "kernel": "rvq_dequantize", "M": idx_p.shape[0],
           "bit_exact": bool(torch.equal(deq_k, deq_p)), "max_abs_err": deq_err})
     check(torch.equal(deq_k, deq_p), "K3: not bit-exact against its plain version")
+    n_q, k, d = books.shape
+    out_old = torch.empty_like(deq_k)
+
+    def dequantize_rowwarp():
+        _build.check(lib.nsc_rvq_dequantize_rowwarp(idx_p.data_ptr(), books.data_ptr(),
+                                                    out_old.data_ptr(), *idx_p.shape, k, d, stream),
+                     "nsc_rvq_dequantize_rowwarp")
+
+    out_of_range = idx_p.clone()
+    out_of_range[::3, 0] = -1
+    out_of_range[1::2, -1] = k
+    out_of_range[::5, n_q // 2] = 1 << 30
+    odd_books = torch.randn(n_q, k, d + 1, device=dev, generator=gw)
+    for what, bk, ii in (("ragged_M", books, idx_p[:1001].contiguous()),
+                         ("odd_D", odd_books, idx_p),
+                         ("out_of_range", books, out_of_range)):
+        got = KR.dequantize(bk, ii)
+        torch.cuda.synchronize()
+        with float32_numerics():
+            ref = KR.dequantize_plain(bk, ii)
+        exact = bool(torch.equal(got, ref))
+        emit({"phase": "kernel_check", "kernel": "rvq_dequantize", "case": what,
+              "M": ii.shape[0], "n_q": bk.shape[0], "K": bk.shape[1], "D": bk.shape[2],
+              "bit_exact": exact})
+        check(exact, f"K3 {what}: not bit-exact against its plain version")
+        del got, ref
+    dequantize_rowwarp()
+    torch.cuda.synchronize()
+    emit({"phase": "kernel_check", "kernel": "rvq_dequantize", "case": "row-warp design",
+          "bit_exact": bool(torch.equal(out_old, deq_p))})
+    check(torch.equal(out_old, deq_p), "K3's row-warp design: not bit-exact against the plain version")
+    del out_of_range, odd_books
 
     # 4. main path ----------------------------------------------------------
     # each serving path once, the counters read around its reconstruct
@@ -754,7 +864,7 @@ def main() -> int:
         check(tuple(out.shape) == (BATCH, t_len), f"{path}: reconstruct shape {tuple(out.shape)}")
         check(torch.isfinite(out).all().item(), f"{path}: reconstruct output not finite")
         expect = dict.fromkeys(kernels.LAUNCHES, 0)
-        expect.update({route: 8, "rvq_quantize": 1, "rvq_dequantize": 1})
+        expect.update({route: 8, "rvq_quantize": 1, "rvq_split_planes": 1, "rvq_dequantize": 1})
         check(launches == expect, f"{path}: launch counts {launches}, expected {expect}")
         serving_launches[path] = launches
         del out
@@ -896,7 +1006,6 @@ def main() -> int:
         emit({"phase": "timing", "kernel": kernel, "per": "reconstruct (8 launches)", **acc,
               "card": card})
 
-    n_q, k, d = books.shape
     m = z2d.shape[0]
     q_ms = events_ms(lambda: KR.quantize(books, z2d))
     q_plain = events_ms(lambda: KR.quantize_plain(books, z2d))
@@ -908,23 +1017,67 @@ def main() -> int:
     q_bytes_ms, q_ops_ms = q_bytes / PEAK_BYTES * 1e3, 6 * q_flops / PEAK_BF16_FLOPS * 1e3
     q_f32_ms = max(q_bytes_ms, q_flops / PEAK_F32_FLOPS * 1e3)
 
-    dq_ms = events_ms(lambda: KR.dequantize(books, idx_p))
+    # K2's streamed plan, bound as the resident one: six bf16 MMAs per
+    # product at the bf16 rate, or the bytes of z, the books and the indices
+    for w in wide:
+        bk, zz = w["books"], w["z"]
+        w_flops = 2 * w["M"] * w["K"] * w["D"] * w["n_q"]
+        w_bytes_ms = (zz.numel() + bk.numel() + w["M"] * w["n_q"]) * 4 / PEAK_BYTES * 1e3
+        w_ops_ms = 6 * w_flops / PEAK_BF16_FLOPS * 1e3
+        w.update(ms=events_ms(lambda: KR.quantize(bk, zz)),
+                 plain_ms=events_ms(lambda: KR.quantize_plain(bk, zz)),
+                 bound_ms=max(w_bytes_ms, w_ops_ms),
+                 bound_by="bytes" if w_bytes_ms > w_ops_ms else "operations")
+        del w["books"], w["z"]
+        emit({"phase": "timing", "kernel": "rvq_quantize", "plan": "streamed", **w, "card": card})
+    del bk, zz
+
+    # the codebook split: each value read once and its three planes written
+    # once; two float32 subtractions per value
+    sp_ms = events_ms(split_launch, reps=20)
+    sp_plain = events_ms(lambda: KR.codebook_planes(books))
+    sp_bytes_ms = (books.numel() * 4 + planes.numel() * 2) / PEAK_BYTES * 1e3
+    sp_ops_ms = 2 * books.numel() / PEAK_F32_FLOPS * 1e3
+
+    # K3 and the row-warp design in turns (kernel, row-warp, row-warp, kernel), 50
+    # launches each; its L2 gather floor: the codewords it gathers,
+    # n_q * D * 4 bytes a frame, over the L2 read rate of one reduction of an
+    # 8 MB tensor repeated L2_PROBE_REPEATS times (a stride-0 view: each
+    # repeat reads the same bytes, which stay in L2)
+    turns = [events_ms(fn, reps=50) for fn in (lambda: KR.dequantize(books, idx_p),
+                                               dequantize_rowwarp, dequantize_rowwarp,
+                                               lambda: KR.dequantize(books, idx_p))]
+    dq_ms, dq_old_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
     dq_plain = events_ms(lambda: KR.dequantize_plain(books, idx_p))
     flat = books.reshape(n_q * k, d)
     offs = idx_p.long() + torch.arange(n_q, device=dev)[None, :] * k
-    dq_lib = events_ms(lambda: torch.nn.functional.embedding_bag(offs, flat, mode="sum"))
+    dq_lib = events_ms(lambda: torch.nn.functional.embedding_bag(offs, flat, mode="sum"), reps=50)
     used_rows = torch.unique(offs).numel()  # codewords this run's indices read
     dq_bytes = (idx_p.numel() + used_rows * d + m * d) * 4
     dq_flops = m * d * n_q
     dq_bytes_ms, dq_ops_ms = dq_bytes / PEAK_BYTES * 1e3, dq_flops / PEAK_F32_FLOPS * 1e3
+    l2_src = torch.rand(L2_PROBE_FLOATS, device=dev, generator=gen)
+    l2_view = l2_src.expand(L2_PROBE_REPEATS, L2_PROBE_FLOATS)
+    l2_ms = events_ms(lambda: l2_view.sum(1), reps=20)
+    l2_rate = L2_PROBE_REPEATS * L2_PROBE_FLOATS * 4 / (l2_ms * 1e-3)
+    dq_gathered = n_q * d * 4 * m
+    dq_floor_ms = dq_gathered / l2_rate * 1e3
     emit({"phase": "timing", "kernel": "rvq", "quantize_ms": q_ms,
           "quantize_plain_ms": q_plain, "quantize_bound_ms": max(q_bytes_ms, q_ops_ms),
           "quantize_float32_rate_bound_ms": q_f32_ms, "quantize_plan": plan,
-          "dequantize_ms": dq_ms,
+          "split_planes_ms": sp_ms, "split_planes_plain_ms": sp_plain,
+          "split_planes_bound_ms": max(sp_bytes_ms, sp_ops_ms),
+          "dequantize_ms": dq_ms, "dequantize_turns_ms": turns,
+          "dequantize_rowwarp_ms": dq_old_ms,
           "dequantize_plain_ms": dq_plain, "dequantize_library_ms": dq_lib,
+          "dequantize_bound_ms": max(dq_bytes_ms, dq_ops_ms),
+          "dequantize_gathered_bytes": dq_gathered, "l2_probe_ms": l2_ms,
+          "l2_read_bytes_per_s": l2_rate, "dequantize_l2_gather_floor_ms": dq_floor_ms,
+          "dequantize_achieved_l2_bytes_per_s": dq_gathered / (dq_ms * 1e-3),
           "card": card})
+    del out_old, l2_src, l2_view
 
-    del bundle, bundles, model, params, rvq, wav, books, z, z2d, idx_k, idx_p, deq_k, deq_p
+    del bundle, bundles, model, params, rvq, wav, books, z, z2d, idx_k, idx_p, deq_k, deq_p, planes
     torch.cuda.empty_cache()
     with torch.enable_grad():
         k4_summaries, train_launches = train_smoke(dev, card, events_ms)
@@ -946,12 +1099,19 @@ def main() -> int:
          "replaces": "nsc_tpu/ops/pallas/rvq_argmin.py:90", "max_abs_err": worst_margin,
          "ms": q_ms, "plain_ms": q_plain, "bound_ms": max(q_bytes_ms, q_ops_ms),
          "bound_by": "bytes" if q_bytes_ms > q_ops_ms else "operations",
-         "library_ms": None},
+         "library_ms": None,
+         "streamed": [{key: w[key] for key in ("n_q", "K", "D", "M", "ms", "plain_ms", "bound_ms")}
+                      for w in wide]},
+        {"name": "rvq_split_planes", "route": "cuda", "source": "nsc_tpu_torch/csrc/rvq.cu",
+         "replaces": "nsc_tpu/ops/pallas/rvq_argmin.py:90", "max_abs_err": 0.0,
+         "ms": sp_ms, "plain_ms": sp_plain, "bound_ms": max(sp_bytes_ms, sp_ops_ms),
+         "bound_by": "bytes" if sp_bytes_ms > sp_ops_ms else "operations", "library_ms": None},
         {"name": "rvq_dequantize", "route": "cuda", "source": "nsc_tpu_torch/csrc/rvq.cu",
          "replaces": "nsc_tpu/ops/pallas/rvq_argmin.py:147", "max_abs_err": deq_err,
          "ms": dq_ms, "plain_ms": dq_plain, "bound_ms": max(dq_bytes_ms, dq_ops_ms),
          "bound_by": "bytes" if dq_bytes_ms > dq_ops_ms else "operations",
-         "library_ms": dq_lib},
+         "library_ms": dq_lib, "rowwarp_ms": dq_old_ms,
+         "l2_gather_floor_ms": dq_floor_ms},
         *k4_summaries,
         stage_entry("fused_stage", "nsc_tpu_torch/csrc/fused_stage.cu",
                     "nsc_tpu/ops/pallas/residual_stack.py:513"),

@@ -10,6 +10,7 @@ that it went through the kernels.
 LAUNCHES = {
     "residual_stack": 0,
     "rvq_quantize": 0,
+    "rvq_split_planes": 0,
     "rvq_dequantize": 0,
     "stft_magnitude": 0,
     "stft_magnitude_dft": 0,

@@ -37,14 +37,18 @@ SIGNATURES = {
     # x, out, w1, b1, a1, w2, b2, a2, dilations(host int*), B, C, T, U,
     # is_bf16, fast_act, stream
     "nsc_residual_stack": [_P] * 9 + [_I] * 6 + [_P],
-    # z, planes, cb, csq, idx, best (or null), M, n_q, K, D, Kp, Dp, stream
-    "nsc_rvq_quantize": [_P] * 6 + [_I] * 6 + [_P],
+    # z, planes, cb, csq, scratch (or null), idx, best (or null), M, n_q, K,
+    # D, Kp, Dp, scratch blocks, stream
+    "nsc_rvq_quantize": [_P] * 7 + [_I] * 7 + [_P],
     # cb, planes, n_q, K, D, Kp, Dp, stream
     "nsc_rvq_split_planes": [_P] * 2 + [_I] * 5 + [_P],
-    # M, Dp, plan (5 long long: tiles, grid, blocks per SM, SMs, bytes)
+    # M, Dp, plan (6 long long: tiles, grid, blocks per SM, SMs, bytes,
+    # streamed)
     "nsc_rvq_quantize_plan": [_I] * 2 + [_P],
-    # idx, cb, out, M, n_q, K, D, stream
+    # idx, cb, out, M, n_q, K, D, stream (also the earlier design, `_rowwarp`,
+    # which only chip_smoke.py times)
     "nsc_rvq_dequantize": [_P] * 3 + [_I] * 4 + [_P],
+    "nsc_rvq_dequantize_rowwarp": [_P] * 3 + [_I] * 4 + [_P],
     # x, win, tw, out, re, im (or null), B, T, n_fft, hop, F, stream
     "nsc_stft_magnitude_fft": [_P] * 6 + [_I] * 5 + [_P],
     # n_fft, hop, plan (2 long long: frames per block, bytes)

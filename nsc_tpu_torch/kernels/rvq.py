@@ -13,10 +13,14 @@ kernel splits each book's residuals the same way, and six of the nine
 plane products (lo.hi, hi.lo, mid.mid, mid.hi, hi.mid, hi.hi, smallest
 first) are accumulated in float32. So the kernel's dot differs from the
 float32 one by its summation order, the tensor cores' accumulation and the
-three dropped products (below ~3 x 2^-24 of |r||c|).
+three dropped products (below ~3 x 2^-24 of |r||c|). It takes every width:
+padded widths up to RESIDENT_DIM keep the tile's residual planes in shared
+memory, wider ones stream them from a scratch in device memory that the
+wrapper allocates (`quantize_plan`).
 
 dequantize: sum the chosen codewords in book order, 0 + c_0 + c_1 + ...,
-in float32 (bit-exact with the JAX package's scan).
+in float32 (bit-exact with the JAX package's scan and Pallas kernel); an
+index outside [0, K) adds nothing, as in the Pallas kernel's one-hot product.
 """
 
 from __future__ import annotations
@@ -32,12 +36,13 @@ from nsc_tpu_torch.kernels.residual_stack import split_planes
 TILE_M = 128
 CODE_TILE = 128
 DIM_ALIGN = 16
-# The kernel takes padded widths up to 128 (csrc/rvq.cu kMaxDim). A block's
-# shared memory there (quantize_smem) is the three bf16 residual planes of
-# 128 frames (96 KB), two 48 KB stages of code planes and the argmin
-# scratch: 199,168 bytes. The residual planes grow by 768 bytes a dim, so
-# past 160 dims they would not fit one block beside the stages at all.
-MAX_QUANTIZE_DIM = 128
+# The kernel's two launch plans (csrc/rvq.cu), chosen by the padded width
+# Dp: up to RESIDENT_DIM the three bf16 residual planes of the 128-frame
+# tile stay in shared memory beside the stages of code planes ("resident");
+# above it each stage also carries the tile's residual planes of its dims,
+# copied from a slot of 3 x TILE_M x Dp bf16 per block in device memory that
+# the wrapper allocates ("streamed").
+RESIDENT_DIM = 128
 
 
 def codeword_sq_norms(codebooks: torch.Tensor) -> torch.Tensor:
@@ -61,13 +66,19 @@ def quantize_plain(codebooks: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
 
 
 def dequantize_plain(codebooks: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """codebooks (n_q, K, D) f32, idx (M, n_q) int -> (M, D) f32."""
+    """codebooks (n_q, K, D) f32, idx (M, n_q) int -> (M, D) f32. An index
+    outside [0, K) adds nothing."""
+    k = codebooks.shape[1]
     acc = torch.zeros(
         idx.shape[0], codebooks.shape[-1], dtype=torch.float32,
         device=codebooks.device,
     )
     for q in range(codebooks.shape[0]):
-        acc = acc + codebooks[q][idx[:, q].long()]
+        i = idx[:, q].long()
+        ok = (i >= 0) & (i < k)
+        # +0 where the index is out of range: the sum starts at +0 and so is
+        # never -0, so adding +0 leaves it as it is
+        acc = acc + torch.where(ok[:, None], codebooks[q][i.clamp(0, k - 1)], 0.0)
     return acc
 
 
@@ -99,28 +110,38 @@ def codebook_planes(codebooks: torch.Tensor) -> torch.Tensor:
 def quantize_plan(m: int, d: int) -> dict:
     """The launch plan the kernel takes for M frames of width D on this
     card (needs the library): tiles of TILE_M frames, blocks (a persistent
-    grid of at most one block per slot), blocks per SM, SMs, bytes."""
+    grid of at most one block per slot), blocks per SM, SMs, shared-memory
+    bytes, and the plan, "resident" or "streamed"."""
     import ctypes
 
     from nsc_tpu_torch.kernels import _build
 
-    plan = (ctypes.c_longlong * 5)()
+    plan = (ctypes.c_longlong * 6)()
     err = _build.library().nsc_rvq_quantize_plan(m, padded_shape(1, d)[1], plan)
     _build.check(err, "nsc_rvq_quantize_plan")
-    return dict(zip(("tiles", "blocks", "blocks_per_sm", "sms", "smem_bytes"), plan))
+    out = dict(zip(("tiles", "blocks", "blocks_per_sm", "sms", "smem_bytes"), plan))
+    out["plan"] = "streamed" if plan[5] else "resident"
+    return out
+
+
+def _check_quantize(codebooks: torch.Tensor, z: torch.Tensor) -> None:
+    """What the kernel takes: (n_q, K, D) float32 books with n_q, K, D >= 1
+    and (M, D) float32 frames, both contiguous on z's device."""
+    _check_books(codebooks, z.device)
+    n_q, k, d = codebooks.shape
+    if min(n_q, k, d) < 1:
+        raise ValueError(f"quantize kernel takes n_q, K, D >= 1, got {tuple(codebooks.shape)}")
+    if z.dim() != 2 or z.shape[1] != d or z.dtype != torch.float32:
+        raise ValueError(f"z must be (M, {d}) float32, got {tuple(z.shape)} {z.dtype}")
+    if not z.is_contiguous():
+        raise ValueError("z must be contiguous")
 
 
 def _quantize_cuda(codebooks: torch.Tensor, z: torch.Tensor, scores: bool = False):
     from nsc_tpu_torch.kernels import _build
 
-    _check_books(codebooks, z.device)
+    _check_quantize(codebooks, z)
     n_q, k, d = codebooks.shape
-    if z.dim() != 2 or z.shape[1] != d or z.dtype != torch.float32:
-        raise ValueError(f"z must be (M, {d}) float32, got {tuple(z.shape)} {z.dtype}")
-    if not z.is_contiguous():
-        raise ValueError("z must be contiguous")
-    if d > MAX_QUANTIZE_DIM or n_q < 1 or k < 1:
-        raise ValueError(f"quantize kernel takes 1 <= D <= {MAX_QUANTIZE_DIM}")
     m = z.shape[0]
     idx = torch.empty(m, n_q, dtype=torch.int32, device=z.device)
     best = torch.empty(m, n_q, dtype=torch.float32, device=z.device) if scores else None
@@ -133,10 +154,16 @@ def _quantize_cuda(codebooks: torch.Tensor, z: torch.Tensor, scores: bool = Fals
     err = lib.nsc_rvq_split_planes(codebooks.data_ptr(), planes.data_ptr(), n_q, k, d, kp, dp,
                                    stream)
     _build.check(err, "nsc_rvq_split_planes")
+    kernels.LAUNCHES["rvq_split_planes"] += 1
     csq = codeword_sq_norms(codebooks).contiguous()
+    scratch, slots = None, 0
+    if dp > RESIDENT_DIM:  # the streamed plan: a residual slot per block of its grid
+        slots = quantize_plan(m, d)["blocks"]
+        scratch = torch.empty(slots, 3, TILE_M, dp, dtype=torch.bfloat16, device=z.device)
     err = lib.nsc_rvq_quantize(
         z.data_ptr(), planes.data_ptr(), codebooks.data_ptr(), csq.data_ptr(),
-        idx.data_ptr(), best.data_ptr() if scores else None, m, n_q, k, d, kp, dp, stream,
+        scratch.data_ptr() if scratch is not None else None, idx.data_ptr(),
+        best.data_ptr() if scores else None, m, n_q, k, d, kp, dp, slots, stream,
     )
     _build.check(err, "nsc_rvq_quantize")
     kernels.LAUNCHES["rvq_quantize"] += 1

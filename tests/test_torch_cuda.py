@@ -232,7 +232,7 @@ def test_stage_kernels_reject_bad_inputs(dev):
                                          ("pallas_fused", "residual_stack_cl")])
 def test_opt_in_serving_paths_launch_their_kernels(dev, backend, key):
     """reconstruct on `small` (widths 16-256 pass the bf16 gate): the stage
-    kernel x8, K2 and K3 once, K1 never."""
+    kernel x8, K2 (with its codebook split) and K3 once, K1 never."""
     import dataclasses
 
     from nsc_tpu_torch import api, kernels, weights
@@ -244,7 +244,7 @@ def test_opt_in_serving_paths_launch_their_kernels(dev, backend, key):
     out = b.model.reconstruct(b.params, b.rvq, wav)
     torch.cuda.synchronize()
     want = dict.fromkeys(kernels.LAUNCHES, 0)
-    want.update({key: 8, "rvq_quantize": 1, "rvq_dequantize": 1})
+    want.update({key: 8, "rvq_quantize": 1, "rvq_split_planes": 1, "rvq_dequantize": 1})
     assert kernels.LAUNCHES == want
     assert out.shape == wav.shape and torch.isfinite(out).all()
 
@@ -271,6 +271,38 @@ def test_float32_path_ignores_callers_tf32(dev):
     np.testing.assert_array_equal(runs[True][1], runs[False][1])
 
 
+# (M, n_q, K, D): the serving shape; a ragged M; widths whose rows go 4
+# bytes a lane (D % 4 != 0: 129, 77, 3, 1) and 16 (64, 8, 4, 384); more
+# books than one batch of loads (20, 40)
+DEQUANTIZE_CASES = [(32000, 16, 1024, 128), (1001, 16, 1024, 128), (999, 4, 300, 129),
+                    (333, 20, 64, 77), (100, 3, 16, 3), (50, 2, 16, 1), (777, 2, 256, 64),
+                    (123, 40, 16, 8), (65, 5, 8, 4), (300, 4, 100, 384)]
+
+
+@pytest.mark.parametrize("m,n_q,k,d", DEQUANTIZE_CASES)
+def test_dequantize_kernel_bit_exact(dev, m, n_q, k, d):
+    """Bit-exact against the plain version, also where indices fall outside
+    [0, K) (they add nothing), and from books that are not 16-byte aligned."""
+    from nsc_tpu_torch import kernels
+
+    g = torch.Generator(device=dev).manual_seed(m * d)
+    books = torch.randn(n_q, k, d, device=dev, generator=g)
+    idx = torch.randint(0, k, (m, n_q), device=dev, generator=g, dtype=torch.int32)
+    kernels.reset_launches()
+    got = KR.dequantize(books, idx)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["rvq_dequantize"] == 1
+    assert torch.equal(got, KR.dequantize_plain(books, idx))
+    bad = idx.clone()
+    bad[::3, 0] = -1
+    bad[1::2, -1] = k
+    bad[::7, n_q // 2] = 1 << 30
+    assert torch.equal(KR.dequantize(books, bad), KR.dequantize_plain(books, bad))
+    flat = torch.randn(books.numel() + 1, device=dev, generator=g)
+    shifted = flat[1:].view(n_q, k, d)  # 4 bytes past an aligned start
+    assert torch.equal(KR.dequantize(shifted, idx), KR.dequantize_plain(shifted, idx))
+
+
 def test_rvq_kernels_match_plain_with_ties(dev):
     g = torch.Generator(device=dev).manual_seed(0)
     books = torch.randn(4, 300, 40, device=dev, generator=g)
@@ -289,23 +321,21 @@ def test_rvq_kernels_match_plain_with_ties(dev):
 SHIPPED_RVQ = [(16, 1024, 128), (2, 256, 64), (2, 256, 16), (16, 1024, 32), (2, 16, 8)]
 
 
-@pytest.mark.parametrize("n_q,k,d", SHIPPED_RVQ)
-@pytest.mark.parametrize("m", [1, 333, 32000])
-def test_quantize_kernel_matches_plain_at_shipped_shapes(dev, n_q, k, d, m):
+def _check_quantize_against_plain(dev, n_q, k, d, m):
     """On N(0, 1) books: an index may differ from the plain version only
     where the plain version's top-2 margin is a near-tie (1e-3, as
-    chip_smoke.py's check)."""
-    from nsc_tpu_torch.configs import get_config
+    chip_smoke.py's check). One split and one search launch per call."""
+    from nsc_tpu_torch import kernels
     from nsc_tpu_torch.ops import rvq as rvq_ops
     from nsc_tpu_torch.ops.precision import float32_numerics
 
-    assert any((c.num_quantizers, c.codebook_size, c.codebook_dim) == (n_q, k, d)
-               for c in map(get_config, SHIPPED))
     g = torch.Generator(device=dev).manual_seed(m + k + d)
     books = torch.randn(n_q, k, d, device=dev, generator=g)
     z = torch.randn(m, d, device=dev, generator=g)
+    kernels.reset_launches()
     idx = KR.quantize(books, z)
     torch.cuda.synchronize()
+    assert kernels.LAUNCHES["rvq_quantize"] == kernels.LAUNCHES["rvq_split_planes"] == 1
     with float32_numerics():
         ref = KR.quantize_plain(books, z)
     assert idx.shape == ref.shape == (m, n_q) and idx.dtype == torch.int32
@@ -315,6 +345,27 @@ def test_quantize_kernel_matches_plain_at_shipped_shapes(dev, n_q, k, d, m):
         margins = rvq_ops.argmin_margins({"codebooks": books}, z[bad])
         first = diff[bad].int().argmax(dim=1)
         assert (margins[torch.arange(bad.numel(), device=dev), first] < 1e-3).all()
+
+
+@pytest.mark.parametrize("n_q,k,d", SHIPPED_RVQ)
+@pytest.mark.parametrize("m", [1, 333, 32000])
+def test_quantize_kernel_matches_plain_at_shipped_shapes(dev, n_q, k, d, m):
+    from nsc_tpu_torch.configs import get_config
+
+    assert any((c.num_quantizers, c.codebook_size, c.codebook_dim) == (n_q, k, d)
+               for c in map(get_config, SHIPPED))
+    _check_quantize_against_plain(dev, n_q, k, d, m)
+
+
+# widths past the resident plan's 128: chip_smoke.py's two (8 x 256 and
+# 4 x 384 at 1024 codes), the first padded width over 128 (D 129 -> 144,
+# a 16-dim last stage), and 1024
+@pytest.mark.parametrize("n_q,k,d,m", [(8, 1024, 256, 32000), (4, 1024, 384, 32000),
+                                       (8, 1024, 256, 333), (2, 300, 129, 1000),
+                                       (3, 200, 1024, 700)])
+def test_quantize_kernel_matches_plain_at_wide_widths(dev, n_q, k, d, m):
+    assert KR.quantize_plan(m, d)["plan"] == "streamed"
+    _check_quantize_against_plain(dev, n_q, k, d, m)
 
 
 @pytest.mark.parametrize("k", [16, 200])
@@ -345,17 +396,27 @@ def test_quantize_split_kernel_matches_codebook_planes(dev, n_q, k, d):
 
 
 def test_quantize_kernel_plan_and_scores(dev):
-    """At M = 32000 the persistent grid is one wave of whole blocks, and the
-    kernel's plan fits every shipped width; the winning scores are the float32 scores within the tensor cores'
-    accumulation (1e-5 of the largest score)."""
+    """At M = 32000 the persistent grid is one wave of whole blocks; at
+    every padded width 16-1024 the plan is resident up to 128 and streamed
+    above, its shared memory (199,168 bytes from 128 on) within one block's.
+    The winning scores, in either plan, are the float32 scores within the
+    tensor cores' accumulation (1e-5 of the largest score)."""
     plan = KR.quantize_plan(32000, 128)
     assert plan["tiles"] == 250 and plan["blocks_per_sm"] >= 1
-    assert plan["blocks"] == min(plan["tiles"], plan["blocks_per_sm"] * plan["sms"])
-    for _, _, d in SHIPPED_RVQ:  # every shipped width fits one block
-        assert KR.quantize_plan(1, d)["smem_bytes"] <= KS.MAX_SMEM
+    for dp in range(16, 1025, 16):
+        plan = KR.quantize_plan(32000, dp)
+        assert plan["plan"] == ("resident" if dp <= KR.RESIDENT_DIM else "streamed"), dp
+        assert plan["smem_bytes"] <= KS.MAX_SMEM, dp
+        assert dp < KR.RESIDENT_DIM or plan["smem_bytes"] == 199168, dp
+        assert plan["blocks"] == min(plan["tiles"], plan["blocks_per_sm"] * plan["sms"]), dp
+    for d in (128, 256):
+        _check_scores(dev, d)
+
+
+def _check_scores(dev, d):
     g = torch.Generator(device=dev).manual_seed(5)
-    books = torch.randn(4, 1024, 128, device=dev, generator=g)
-    z = torch.randn(3000, 128, device=dev, generator=g)
+    books = torch.randn(4, 1024, d, device=dev, generator=g)
+    z = torch.randn(3000, d, device=dev, generator=g)
     idx, best = KR.quantize_with_scores(books, z)
     assert torch.equal(idx, KR.quantize(books, z))
     csq = KR.codeword_sq_norms(books)
@@ -499,7 +560,8 @@ def test_full_width_train_step_launches_the_kernels(dev):
     kernels.reset_launches()
     state, metrics = step(state, batch)
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES == {"residual_stack": 0, "rvq_quantize": 1, "rvq_dequantize": 0,
-                                "stft_magnitude": 12, "stft_magnitude_dft": 0,
-                                "residual_stack_cl": 0, "fused_stage": 0}
+    assert kernels.LAUNCHES == {"residual_stack": 0, "rvq_quantize": 1, "rvq_split_planes": 1,
+                                "rvq_dequantize": 0, "stft_magnitude": 12,
+                                "stft_magnitude_dft": 0, "residual_stack_cl": 0,
+                                "fused_stage": 0}
     assert all(torch.isfinite(v).item() for v in metrics.values())

@@ -12,7 +12,11 @@ Tolerances:
     the interpreted kernel can keep some of those intermediates in float32,
     which moves about a quarter of the outputs by one bf16 ulp; so max abs
     <= 2e-2 * max|ref| (a few ulps) and mean abs <= 2e-3 * max|ref|.
-  * RVQ quantize and dequantize: bit-exact.
+  * RVQ quantize and dequantize: bit-exact. An index outside [0, K) adds
+    nothing to the sum, in the Pallas kernel (its one-hot row is zero) and
+    in the port; the JAX package's XLA scan instead gathers with jnp's
+    out-of-range rule, so those indices are held against the Pallas kernel
+    only.
 """
 
 import dataclasses
@@ -165,6 +169,26 @@ def test_dequantize_plain_bit_exact(m, d, k, n_q):
     np.testing.assert_array_equal(got, scan)
 
 
+@pytest.mark.parametrize("n_q,k,d", [(2, 8, 4), (3, 128, 16), (4, 256, 130)])
+def test_dequantize_plain_out_of_range_indices_add_nothing(n_q, k, d):
+    """Indices -1 and K (and far outside) beside indices in range: the plain
+    version gives what the Pallas kernel gives, bit for bit."""
+    books = _books(n_q, k, d, seed=k + d)
+    idx = np.random.RandomState(k).randint(0, k, (40, n_q)).astype(np.int32)
+    idx[::2, 0] = -1
+    idx[1::3, -1] = k
+    idx[5, :] = [k, -1, 1 << 30, -(1 << 30)][:n_q] + [3] * max(0, n_q - 4)
+    idx[7, :] = -1  # no book adds anything: a zero row
+    ref = np.asarray(JPK.dequantize_pallas(jnp.asarray(books), jnp.asarray(idx), interpret=True))
+    got = KR.dequantize(torch.from_numpy(books), torch.from_numpy(idx)).numpy()
+    np.testing.assert_array_equal(got, ref)
+    assert not got[7].any()
+    in_range = (idx >= 0) & (idx < k)
+    want = sum(np.where(in_range[:, q, None], books[q][np.clip(idx[:, q], 0, k - 1)], 0)
+               for q in range(n_q))
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+
+
 def test_cpu_wrappers_do_not_count_launches():
     kernels.reset_launches()
     books = torch.from_numpy(_books(2, 128, 8, seed=1))
@@ -174,6 +198,6 @@ def test_cpu_wrappers_do_not_count_launches():
     packed = RS.pack_stage(W.units_from_jax(units), torch.float32)
     RS.residual_stack(torch.randn(1, 8, 50), packed, (1,), True)
     assert kernels.LAUNCHES == {
-        "residual_stack": 0, "rvq_quantize": 0, "rvq_dequantize": 0, "stft_magnitude": 0,
-        "stft_magnitude_dft": 0, "residual_stack_cl": 0, "fused_stage": 0,
+        "residual_stack": 0, "rvq_quantize": 0, "rvq_split_planes": 0, "rvq_dequantize": 0,
+        "stft_magnitude": 0, "stft_magnitude_dft": 0, "residual_stack_cl": 0, "fused_stage": 0,
     }

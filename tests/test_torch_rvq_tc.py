@@ -5,6 +5,11 @@ against the plain version and the JAX package's Pallas kernel in interpret
 mode. The kernel itself runs only on a card
 (`tests/test_torch_cuda.py`).
 
+The kernel has two launch plans (residual planes resident in shared memory
+up to a padded width of 128, streamed from device memory above it); both
+run the same products in the same order, so `quantize_emulated` describes
+both, and the shipped widths and widths past 128 are held here.
+
 Tolerances: none. The split is exact (for |v| >= 2^-110; below that held to
 bf16's smallest subnormal, 2^-133), and on random-init books the indices
 of the emulation, the plain version and the JAX kernel are equal.
@@ -115,6 +120,21 @@ def test_emulated_score_matches_plain_and_pallas(name):
     np.testing.assert_array_equal(got, pallas)
 
 
+# widths of the streamed plan: the first padded width past 128 (D 129 ->
+# 144, a 16-dim last stage), and the two chip_smoke.py times
+@pytest.mark.parametrize("n_q,k,d", [(3, 128, 129), (2, 256, 256), (2, 128, 384)])
+def test_emulated_score_matches_plain_and_pallas_at_wide_widths(n_q, k, d):
+    rs = np.random.RandomState(d)
+    books = rs.randn(n_q, k, d).astype(np.float32)
+    z = rs.randn(300, d).astype(np.float32)
+    assert KR.padded_shape(k, d)[1] > KR.RESIDENT_DIM
+    got = quantize_emulated(torch.from_numpy(books), torch.from_numpy(z)).numpy()
+    plain = KR.quantize_plain(torch.from_numpy(books), torch.from_numpy(z)).numpy()
+    np.testing.assert_array_equal(got, plain)
+    pallas = np.asarray(JPK.quantize_pallas(jnp.asarray(books), jnp.asarray(z), interpret=True))
+    np.testing.assert_array_equal(got, pallas)
+
+
 @pytest.mark.parametrize("k", [16, 200])
 def test_padded_codes_are_never_chosen(k):
     """Codewords far from the origin and residuals at it: a padded (zero)
@@ -129,11 +149,43 @@ def test_padded_codes_are_never_chosen(k):
     assert torch.equal(got, KR.quantize_plain(torch.from_numpy(books), torch.from_numpy(z)))
 
 
-def test_quantize_kernel_refuses_wider_books():
-    """Every shipped codebook width is within the kernel's; a wider one is
-    refused before any launch."""
+@pytest.mark.parametrize("d", [129, 384, 1024])
+def test_quantize_kernel_takes_every_width(d):
+    """The wrapper's checks take any width past the resident plan's (and
+    every shipped one), and still refuse empty books or frames of another
+    width, before any launch."""
     for name in ("tiny_test", "small", "small_factorized", "base", "base_fast", "base_fast_f"):
-        assert get_config(name).codebook_dim <= KR.MAX_QUANTIZE_DIM
-    books = torch.zeros(1, 16, KR.MAX_QUANTIZE_DIM + 1)
-    with pytest.raises(ValueError, match="D <="):
-        KR._quantize_cuda(books, torch.zeros(4, KR.MAX_QUANTIZE_DIM + 1))
+        cfg = get_config(name)
+        KR._check_quantize(torch.zeros(cfg.num_quantizers, cfg.codebook_size, cfg.codebook_dim),
+                           torch.zeros(4, cfg.codebook_dim))
+    KR._check_quantize(torch.zeros(2, 16, d), torch.zeros(4, d))
+    for books, z in ((torch.zeros(1, 16, 0), torch.zeros(4, 0)),
+                     (torch.zeros(0, 16, d), torch.zeros(4, d)),
+                     (torch.zeros(1, 0, d), torch.zeros(4, d)),
+                     (torch.zeros(1, 16, d), torch.zeros(4, d - 1))):
+        with pytest.raises(ValueError):
+            KR._check_quantize(books, z)
+
+
+def quantize_smem(dp):
+    """A quantize block's shared memory at padded width dp, as csrc/rvq.cu's
+    quantize_smem plans it: the resident plan's three bf16 residual planes of
+    the tile, two stages of code planes (128 codes x 64 dims x 3 planes) that
+    the streamed plan doubles with the tile's residual planes of the same
+    dims, and the argmin scratch (the card test reads the kernel's own)."""
+    stage = 3 * KR.CODE_TILE * 64 * 2
+    argmin = KR.TILE_M * 5 * 4
+    if dp > KR.RESIDENT_DIM:
+        return 2 * 2 * stage + argmin
+    return KR.TILE_M * dp * 2 * 3 + 2 * stage + argmin
+
+
+def test_quantize_smem_fits_every_width():
+    """Resident planes grow by 768 bytes a dim up to 128; the streamed plan
+    holds 199,168 bytes at every width; all within one Hopper block."""
+    from nsc_tpu_torch.kernels.residual_stack import MAX_SMEM
+
+    for dp in range(16, 1025, 16):
+        assert quantize_smem(dp) <= MAX_SMEM, dp
+    assert quantize_smem(128) == quantize_smem(144) == quantize_smem(1024) == 199168
+    assert quantize_smem(112) == 199168 - 16 * 768
