@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py
 
-Serves the `base_fast` codec at full width (weights made from seed 0) on
-64 x 10 s of 16 kHz audio through its three serving paths (unit_backend
+Serves the `base_fast` codec at full width (weights made from seed 0, and
+the trained flagship from its export) on 64 x 10 s of 16 kHz audio through
+its three serving paths (unit_backend
 "auto": K1; "pallas_ct_fused": K5; "pallas_fused": K6), trains it at full
 width (TrainConfig defaults: batch 64 x 1 s, GAN with all discriminators)
 and checks every hand-written kernel of those paths against its plain
@@ -47,13 +48,46 @@ every plain version compared here run their float32 work under
               compress/decompress round trip ("auto"); index agreement and
               decode-only divergence of every serving path against the
               float32 path, and of the two opt-in paths against "auto".
+              flagship (the trained base_fast, loaded from its export
+              `exports/base_fast_synthetic2_48k_refit`): the fingerprint
+              in meta.json; reconstruct of the 64 x 10 s batch with the
+              counters around it (K1 x8, K2 and its split x1, K3 x1); the
+              float32 path's indices on the 8 x 10 s noise and speech probes
+              against nsc_tpu's CPU float32 reference (reference_f32.npz:
+              a frame may differ only where its first differing book's
+              reference margin is below 1e-3); the serving path run to run
+              and against its GPU pin (exact when the pin's card and
+              torch/CUDA/cuDNN versions are this run's); K2 against its
+              plain version on the serving latents of the 64 x 10 s batch
+              (near-tie rule); serving against float32 on the trained
+              books (index agreement, decode divergence, margin
+              percentiles, and the latents' relative error of K1 and of
+              the serving config with its units op by op; reported).
+              streaming (flagship, 30 s of the speech probe in 1 s chunks):
+              streaming_compress against compress (float32: the margin
+              rule; serving: reported), streaming_decompress against
+              decompress (finite, same length), push_many against
+              sequential pushes (identical), the counters around a
+              streaming compress and decompress at queue_chunks 4 and 1 (K2
+              + split and K3 once per dispatch, nothing else), and every
+              dispatch's K2 (near-tie rule) and K3 (bit-exact) against
+              their plain versions on the dispatch's own inputs.
+              cli: `python3 -m nsc_tpu_torch` compress (batch and
+              --streaming 1.0), decompress and eval --ceiling --json on a
+              10 s WAV of the speech probe: each stream's indices and the
+              decoded WAV against the same calls in this process, eval's
+              metrics finite.
               training: seeded full-width state, step-0 data init of the
               codebooks, 2 + 5 steps with the counters reset just before
               the data init and read after the last step; then the entry
               point (`nsc_tpu_torch.train.loop.main`) for 2 steps into a
               temporary workdir and a resume to step 3
   5. timing   reconstruct wall time and real-time factor of each serving
-              path; the train step's time, audio seconds per second, peak
+              path; streaming_compress and streaming_decompress real-time
+              factors of the flagship's serving bundle at queue_chunks 4
+              and 1, and K2 and K3 beside their plain versions (in turns)
+              on one dispatch's inputs at each; the wall seconds of each
+              CLI call; the train step's time, audio seconds per second, peak
               memory and split; each kernel's time beside its plain
               version's, its bound and a PyTorch yardstick where one call
               computes the same function; K4's backward beside its forward
@@ -68,6 +102,7 @@ Without CUDA, or without the package beside it, it exits non-zero and prints
 no result.
 """
 
+import contextlib
 import json
 import math
 import os
@@ -140,6 +175,18 @@ SERVING_PATHS = (("serving", "auto", "residual_stack"),
                  ("serving_fused_boundary", "pallas_ct_fused", "fused_stage"),
                  ("serving_channels_last", "pallas_fused", "residual_stack_cl"))
 TRAIN_WARMUP, TRAIN_TIMED = 2, 5
+# The trained flagship, exported for the port (scripts/export_torch_checkpoint.py)
+# with nsc_tpu's CPU float32 indices and argmin margins on the canonical
+# probes (reference_f32.npz) and the port's GPU pin (canonical_idx_gpu.npz).
+# Its float32 indices are held to that reference under K2_NEAR_TIE: a frame
+# may differ only where its first differing book's reference margin is below
+# it (two float32 encoders agree to ~1e-6 relative on the latents, which
+# moves a score of ~1e1-1e2 by ~1e-4 at most).
+FLAGSHIP = "base_fast"
+EXPORT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "exports",
+                      "base_fast_synthetic2_48k_refit")
+# streaming: three rows of the speech probe end to end (30 s) in 1 s chunks
+STREAM_ROWS, STREAM_CHUNK_SECONDS = 3, 1.0
 
 
 def emit(obj) -> None:
@@ -525,6 +572,429 @@ def train_smoke(dev, card, events_ms):
     return summaries, launches
 
 
+def first_flips(idx, ref_idx, ref_margins) -> dict:
+    """Indices against a reference: how many differ, and the reference
+    margin at each differing frame's first differing book (later books
+    follow the first flip). `ok`: every such margin is below K2_NEAR_TIE."""
+    import numpy as np
+
+    n_q = ref_idx.shape[-1]
+    diff = (idx != ref_idx).reshape(-1, n_q)
+    margins = np.asarray(ref_margins).reshape(-1, n_q)
+    frames = np.nonzero(diff.any(-1))[0]
+    first = diff[frames].argmax(-1)
+    m = margins[frames, first]
+    return {"index_mismatches": int(diff.sum()), "frames_differing": int(frames.size),
+            "frames": int(diff.shape[0]), "first_flip_margins": sorted(float(v) for v in m)[:64],
+            "ok": bool((m < K2_NEAR_TIE).all())}
+
+
+def index_check(books, z, idx_k, idx_p) -> dict:
+    """K2's indices against the plain version's: how many differ, and
+    whether each frame's first difference is at a near-tie (the plain
+    version's margin there below K2_NEAR_TIE)."""
+    import torch
+
+    from nsc_tpu_torch.ops import rvq as rvq_ops
+    from nsc_tpu_torch.ops.precision import float32_numerics
+
+    diff = idx_k != idx_p
+    bad = diff.any(dim=1).nonzero().flatten()
+    near, worst = 0, 0.0
+    if bad.numel():
+        with float32_numerics():
+            margins = rvq_ops.argmin_margins({"codebooks": books}, z[bad])
+        first = diff[bad].int().argmax(dim=1)
+        m_first = margins[torch.arange(bad.numel(), device=z.device), first]
+        near = int((m_first < K2_NEAR_TIE).sum().item())
+        worst = m_first.max().item()
+    return {"index_mismatches": int(diff.sum().item()), "frames_differing": int(bad.numel()),
+            "near_ties": near, "worst_first_mismatch_margin": worst}
+
+
+def hold_quantize(books, z, idx_k, what: str) -> dict:
+    """K2's indices `idx_k` on (books, z) against the plain version's,
+    gated by the near-tie rule."""
+    from nsc_tpu_torch.kernels import rvq as KR
+    from nsc_tpu_torch.ops.precision import float32_numerics
+
+    with float32_numerics():
+        idx_p = KR.quantize_plain(books, z)
+    rec = index_check(books, z, idx_k, idx_p)
+    check(rec["near_ties"] == rec["frames_differing"],
+          f"K2 {what}: an index differs where the plain version's margin is not a near-tie")
+    return rec
+
+
+@contextlib.contextmanager
+def recording(module, names):
+    """Record the arguments and result of every call to `module.<name>` for
+    each name while the block runs (the calls themselves are unchanged:
+    the path's own launches), and restore the functions after it."""
+    calls = {name: [] for name in names}
+    originals = {name: getattr(module, name) for name in names}
+
+    def recorder(name, fn):
+        def call(*args):
+            out = fn(*args)
+            calls[name].append((args, out))
+            return out
+        return call
+
+    for name, fn in originals.items():
+        setattr(module, name, recorder(name, fn))
+    try:
+        yield calls
+    finally:
+        for name, fn in originals.items():
+            setattr(module, name, fn)
+
+
+def hold_dispatches(calls, what: str) -> dict:
+    """Each recorded K2 call against the plain version (near-tie rule) and
+    each recorded K3 call against the plain version (bit-exact): the
+    streaming path's own launches, at its own shapes."""
+    import torch
+
+    from nsc_tpu_torch.kernels import rvq as KR
+    from nsc_tpu_torch.ops.precision import float32_numerics
+
+    q = {"M": [], "index_mismatches": 0, "frames_differing": 0, "near_ties": 0,
+         "worst_first_mismatch_margin": 0.0}
+    for (books, z), idx in calls["quantize"]:
+        rec = hold_quantize(books, z, idx, f"{what} dispatch M={z.shape[0]}")
+        q["M"].append(z.shape[0])
+        for key in ("index_mismatches", "frames_differing", "near_ties"):
+            q[key] += rec[key]
+        q["worst_first_mismatch_margin"] = max(q["worst_first_mismatch_margin"],
+                                               rec["worst_first_mismatch_margin"])
+    dq = {"M": [], "bit_exact": True, "max_abs_err": 0.0}
+    for (books, idx), out in calls["dequantize"]:
+        with float32_numerics():
+            ref = KR.dequantize_plain(books, idx)
+        dq["M"].append(idx.shape[0])
+        dq["bit_exact"] &= bool(torch.equal(out, ref))
+        dq["max_abs_err"] = max(dq["max_abs_err"], (out - ref).abs().max().item())
+    check(dq["bit_exact"], f"K3 {what}: a dispatch is not bit-exact against its plain version")
+    return {"rvq_quantize": q, "rvq_dequantize": dq}
+
+
+def flagship_smoke(dev, wav_np):
+    """The trained flagship from its export: the serving bundle's
+    reconstruct with its launch counts, the float32 path against nsc_tpu's
+    CPU float32 reference on both probes, the serving path run to run and
+    against its GPU pin, K2 against its plain version on the serving
+    latents of the batch, and serving against float32 on the trained books
+    (with the units op by op beside K1). Returns (serving bundle, float32
+    bundle, the reconstruct's launches)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from nsc_tpu_torch import api, canonical, kernels
+    from nsc_tpu_torch.ops import rvq as rvq_ops
+    from nsc_tpu_torch.train import checkpoint as ckpt
+
+    meta = ckpt.export_meta(EXPORT)
+    t0 = time.perf_counter()
+    serve = api.load_model(FLAGSHIP, checkpoint=EXPORT, serving=True, device=dev)
+    load_s = time.perf_counter() - t0
+    f32 = api.load_model(FLAGSHIP, checkpoint=EXPORT, device=dev)
+    cfg = serve.cfg
+    fps = (api.codebook_fingerprint(serve.rvq), api.codebook_fingerprint(f32.rvq))
+    emit({"phase": "flagship", "what": "load", "export": os.path.relpath(EXPORT), "meta": meta,
+          "fingerprints": fps, "load_seconds": load_s, "route": serve.model.kernels.units,
+          "devices": sorted({str(t.device) for t in (serve.rvq["codebooks"], f32.rvq["codebooks"])})})
+    check(fps == (meta["fingerprint"], meta["fingerprint"]), f"flagship fingerprint {fps} != {meta}")
+    check(serve.model.kernels.units == "residual_stack" and serve.model.kernels.rvq,
+          f"flagship serving kernels {serve.model.kernels}")
+
+    # the main path on trained weights: reconstruct, counters around it
+    wav = torch.from_numpy(wav_np).to(dev)
+    kernels.reset_launches()
+    out = serve.model.reconstruct(serve.params, serve.rvq, wav)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    expect = dict.fromkeys(kernels.LAUNCHES, 0)
+    expect.update({"residual_stack": 8, "rvq_quantize": 1, "rvq_split_planes": 1, "rvq_dequantize": 1})
+    emit({"phase": "flagship", "what": "reconstruct", "shape": list(out.shape),
+          "finite": bool(torch.isfinite(out).all().item()), "launches": launches})
+    check(tuple(out.shape) == tuple(wav.shape) and torch.isfinite(out).all().item(),
+          "flagship reconstruct output")
+    check(launches == expect, f"flagship launch counts {launches}, expected {expect}")
+    del out
+
+    # the float32 path against nsc_tpu's CPU float32 reference
+    probes = {"noise": canonical.probe_input(cfg), "speech": canonical.speech_probe_input(cfg)}
+    with np.load(os.path.join(EXPORT, "reference_f32.npz"), allow_pickle=False) as z:
+        ref = {k: z[k] for k in z.files}
+    check(int(ref["fingerprint"]) == meta["fingerprint"], "reference_f32.npz: other codebooks")
+    for name, x in probes.items():
+        rec = first_flips(api.encode(f32, x), ref[f"indices_{name}"], ref[f"margins_{name}"])
+        emit({"phase": "flagship", "what": "float32_vs_nsc_tpu_cpu_reference", "probe": name,
+              "rows": x.shape[0], "seconds": x.shape[1] / cfg.sample_rate, **rec})
+        check(rec["ok"], f"flagship float32 {name} probe: an index differs from nsc_tpu's "
+              f"where its margin is not below {K2_NEAR_TIE}")
+
+    # the serving path: run to run, and against the GPU pin
+    first = api.encode(serve, probes["speech"])
+    again = api.encode(serve, probes["speech"])
+    exact, rate, status, gated = canonical.check_pin(serve, EXPORT)
+    emit({"phase": "flagship", "what": "serving_determinism", "run_to_run_equal":
+          bool(np.array_equal(first, again)), "pin_exact": exact, "pin_match_rate": rate,
+          "pin_status": status, "backend": canonical.backend(dev), "pin_gated": gated})
+    check(np.array_equal(first, again), "flagship serving path: two encodes of the probe differ")
+    check(exact is not None, f"flagship GPU pin: {status}")
+    if gated:
+        check(exact, f"flagship serving path misses its GPU pin: {rate} ({status})")
+
+    # the main path's K2 on the trained books: the serving bundle's own
+    # latents of the 64 x 10 s batch, against the plain version (gated)
+    from nsc_tpu_torch.kernels import rvq as KR
+
+    books = serve.rvq["codebooks"].contiguous()
+    z = serve.model.latents(serve.params, wav).reshape(-1, books.shape[-1]).float().contiguous()
+    rec = hold_quantize(books, z, KR.quantize(books, z), "flagship batch 64 x 10 s")
+    emit({"phase": "kernel_check", "kernel": "rvq_quantize", "on": "flagship serving latents",
+          "M": z.shape[0], **rec})
+    del z
+
+    # serving against float32 on the trained books (reported), with the
+    # serving config's units op by op ("reference" route: bf16, no K1) as
+    # the witness that tells bf16's own error from K1's: latents as
+    # ||a - b|| / ||b||, indices as the share of equal entries
+    units_off = api.bundle_from_jax(dataclasses.replace(cfg, unit_backend="reference"),
+                                    *ckpt.restore_inference(EXPORT), device=dev)
+    check(units_off.model.kernels.units == "reference", f"units off: {units_off.model.kernels}")
+
+    def rel(a, b):
+        return ((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30)).item()
+
+    for name, x_np in (("batch_64x10s", wav_np), ("speech_probe", probes["speech"])):
+        x = torch.from_numpy(x_np).to(dev)
+        lat = {"float32": f32.model.latents(f32.params, x),
+               "serving_k1": serve.model.latents(serve.params, x),
+               "serving_units_op_by_op": units_off.model.latents(units_off.params, x)}
+        idx = {k: rvq_ops.quantize(f32.rvq, v, kernel=False) for k, v in lat.items()}
+        margins = rvq_ops.argmin_margins(f32.rvq, lat["float32"]).flatten().double()
+        idx_s = serve.model.encode(serve.params, serve.rvq, x)
+        idx_f = idx["float32"]
+        dec_f = f32.model.decode(f32.params, f32.rvq, idx_f)
+        dec_s = serve.model.decode(serve.params, serve.rvq, idx_f)
+        ref_rms = dec_f.pow(2).mean().sqrt().item()
+        pairs = (("serving_k1", "float32"), ("serving_units_op_by_op", "float32"),
+                 ("serving_k1", "serving_units_op_by_op"))
+        emit({"phase": "flagship", "what": "serving_vs_float32", "input": name,
+              "index_agreement": (idx_s == idx_f).float().mean().item(),
+              "latent_rel_err": {f"{a}_vs_{b}": rel(lat[a], lat[b]) for a, b in pairs},
+              "plain_quantize_index_agreement": {
+                  f"{a}_vs_{b}": (idx[a] == idx[b]).float().mean().item() for a, b in pairs},
+              "decode_only_max_abs": (dec_s - dec_f).abs().max().item(),
+              "decode_only_rel_rms": (dec_s - dec_f).pow(2).mean().sqrt().item() / max(ref_rms, 1e-12),
+              "float32_argmin_margin_percentiles": {
+                  p: torch.quantile(margins, p / 100).item() for p in (0, 1, 5, 50)},
+              "float32_margins_below_near_tie": (margins < K2_NEAR_TIE).double().mean().item()})
+        del x, lat, idx, idx_f, idx_s, dec_f, dec_s, margins
+    del units_off
+    return serve, f32, launches
+
+
+def streaming_smoke(serve, f32, card, events_ms):
+    """Streaming on the flagship: 30 s of the speech probe in 1 s chunks,
+    against batch compress/decompress on both bundles, push_many against
+    sequential pushes, the serving bundle's launch counts per dispatch and
+    the streaming real-time factors. Returns the streaming launches."""
+    import numpy as np
+    import torch
+
+    from nsc_tpu_torch import api, bitstream, canonical, kernels, streaming
+    from nsc_tpu_torch.ops import rvq as rvq_ops
+
+    cfg = serve.cfg
+    wav = canonical.speech_probe_input(cfg, STREAM_ROWS).reshape(-1)
+    seconds = wav.shape[0] / cfg.sample_rate
+    chunk = int(STREAM_CHUNK_SECONDS * cfg.sample_rate)
+    batch_idx = {}
+    for name, b in (("float32", f32), ("serving", serve)):
+        blob = api.compress(b, wav)
+        sblob = api.streaming_compress(b, wav, chunk_seconds=STREAM_CHUNK_SECONDS)
+        idx_b = bitstream.deserialize(blob)[1]
+        idx_s = bitstream.deserialize(sblob)[1]
+        # the reference margins: the batch path's own latents
+        lat = b.model.latents(b.params, torch.from_numpy(wav[None]).to(b.device))
+        margins = rvq_ops.argmin_margins(b.rvq, lat)[0].cpu().numpy()
+        rec = first_flips(idx_s, idx_b, margins)
+        batch_idx[name] = idx_b
+        if name == "serving":
+            rec["index_agreement_with_float32_batch"] = {
+                "streaming": float((idx_s == batch_idx["float32"]).mean()),
+                "batch": float((idx_b == batch_idx["float32"]).mean())}
+        batch_wav = api.decompress(b, blob)
+        stream_wav = api.streaming_decompress(b, blob, chunk_seconds=STREAM_CHUNK_SECONDS)
+        finite = bool(np.isfinite(stream_wav).all())
+        emit({"phase": "streaming", "what": "streaming_vs_batch", "bundle": name,
+              "seconds": seconds, "chunk_seconds": STREAM_CHUNK_SECONDS,
+              "bytes_identical": sblob == blob, **rec,
+              "decompress_shape": [list(batch_wav.shape), list(stream_wav.shape)],
+              "decompress_finite": finite,
+              "decompress_max_abs_diff": float(np.abs(stream_wav - batch_wav).max())})
+        if name == "float32":
+            check(rec["ok"], "flagship float32 streaming: an index differs from batch where "
+                  f"its margin is not below {K2_NEAR_TIE}")
+        check(stream_wav.shape == batch_wav.shape == wav.shape and finite,
+              f"{name} streaming_decompress: shape or finiteness")
+        del lat
+
+    # push_many against sequential pushes on the serving bundle
+    chunks = [wav[i:i + chunk] for i in range(0, 4 * chunk, chunk)]
+    seq_enc = streaming.StreamingEncoder(serve.model, serve.params, serve.rvq)
+    seq = [seq_enc.push(c) for c in chunks]
+    many = streaming.StreamingEncoder(serve.model, serve.params, serve.rvq).push_many(chunks)
+    equal = all(np.array_equal(a, c) for a, c in zip(many, seq))
+    emit({"phase": "streaming", "what": "push_many_vs_push", "bundle": "serving",
+          "chunks": len(chunks), "identical": equal,
+          "index_mismatches": int(sum((a != c).sum() for a, c in zip(many, seq)))})
+    check(equal, "serving push_many differs from sequential pushes")
+
+    # launch counts: one K2 (with its split) per encoder dispatch, one K3 per
+    # decoder dispatch, no stage kernel (the units run op by op); and each
+    # dispatch's K2 and K3 against their plain versions on the dispatch's
+    # own inputs (queue 4: 200 frames, and a 100-frame tail; queue 1: 50)
+    from nsc_tpu_torch.kernels import rvq as KR
+
+    dispatch_inputs = {}
+    for queue in (4, 1):
+        with recording(KR, ("quantize", "dequantize")) as calls:
+            kernels.reset_launches()
+            sblob = api.streaming_compress(serve, wav, chunk_seconds=STREAM_CHUNK_SECONDS,
+                                           queue_chunks=queue)
+            api.streaming_decompress(serve, sblob, chunk_seconds=STREAM_CHUNK_SECONDS,
+                                     queue_chunks=queue)
+            torch.cuda.synchronize()
+            counted = dict(kernels.LAUNCHES)
+        if queue == 4:
+            launches = counted
+        dispatches = -(-math.ceil(seconds / STREAM_CHUNK_SECONDS) // queue)
+        expect = dict.fromkeys(kernels.LAUNCHES, 0)
+        expect.update({"rvq_quantize": dispatches, "rvq_split_planes": dispatches,
+                       "rvq_dequantize": dispatches})
+        held = hold_dispatches(calls, f"streaming queue {queue}")
+        emit({"phase": "streaming", "what": "launches", "queue_chunks": queue,
+              "dispatches_each_way": dispatches, "launches": counted})
+        emit({"phase": "kernel_check", "on": "streaming dispatches", "queue_chunks": queue, **held})
+        check(counted == expect, f"streaming launch counts at queue {queue}: {counted}, "
+              f"expected {expect}")
+        (books, z), idx = calls["quantize"][0]
+        dispatch_inputs[queue] = (books, z, idx)
+        del calls
+
+    # real-time factors on the serving bundle, host clock (each call ends
+    # with its indices or samples on the host)
+    for queue_chunks in (4, 1):
+        times = {}
+        for what in ("streaming_compress", "streaming_decompress"):
+            fn = (lambda: api.streaming_compress(serve, wav, STREAM_CHUNK_SECONDS, queue_chunks=queue_chunks)
+                  ) if what == "streaming_compress" else (
+                lambda: api.streaming_decompress(serve, sblob, STREAM_CHUNK_SECONDS, queue_chunks=queue_chunks))
+            fn()
+            torch.cuda.synchronize()
+            reps = 3
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            times[what] = (time.perf_counter() - t0) / reps
+        emit({"phase": "timing", "what": "streaming", "bundle": "serving", "queue_chunks": queue_chunks,
+              "seconds": seconds, "chunk_seconds": STREAM_CHUNK_SECONDS,
+              **{f"{k}_wall_ms": v * 1e3 for k, v in times.items()},
+              **{f"{k}_rtf": seconds / v for k, v in times.items()}, "card": card})
+
+    # K2 and K3 on one dispatch's own inputs at each queue (200 and 50
+    # frames), beside their plain versions and bounds (as the serving
+    # shape's), in turns (kernel, plain, plain, kernel): the plain times at
+    # these shapes swing between runs
+    for queue, (books, z, idx) in dispatch_inputs.items():
+        n_q, k, d = books.shape
+        m = z.shape[0]
+        q_bytes_ms = (z.numel() + books.numel() + m * n_q) * 4 / PEAK_BYTES * 1e3
+        q_ops_ms = 6 * 2 * m * k * d * n_q / PEAK_BF16_FLOPS * 1e3
+        dq_rows = torch.unique(idx.long() + torch.arange(n_q, device=idx.device)[None, :] * k).numel()
+        dq_bytes_ms = (idx.numel() + dq_rows * d + m * d) * 4 / PEAK_BYTES * 1e3
+        dq_ops_ms = m * d * n_q / PEAK_F32_FLOPS * 1e3
+        rec = {}
+        for name, kern, plain in (
+                ("quantize", lambda: KR.quantize(books, z), lambda: KR.quantize_plain(books, z)),
+                ("dequantize", lambda: KR.dequantize(books, idx), lambda: KR.dequantize_plain(books, idx))):
+            turns = [events_ms(fn, reps=20) for fn in (kern, plain, plain, kern)]
+            rec[f"{name}_ms"] = (turns[0] + turns[3]) / 2
+            rec[f"{name}_plain_ms"] = (turns[1] + turns[2]) / 2
+            rec[f"{name}_turns_ms"] = turns
+        emit({"phase": "timing", "kernel": "rvq", "shape": "one streaming dispatch",
+              "queue_chunks": queue, "M": m, **rec,
+              "quantize_bound_ms": max(q_bytes_ms, q_ops_ms),
+              "dequantize_bound_ms": max(dq_bytes_ms, dq_ops_ms), "card": card})
+    return launches
+
+
+def cli_smoke(serve):
+    """`python3 -m nsc_tpu_torch` in subprocesses on a 10 s WAV of the
+    speech probe: compress (batch and streaming) of the serving bundle, each
+    stream's indices against the same encode in this process; decompress
+    against the same decompress in this process; eval --ceiling --json.
+    (`info` and the other commands are covered by the CPU tests: each call
+    here costs 10-16 s of process start.)"""
+    import tempfile
+
+    import numpy as np
+
+    from nsc_tpu_torch import api, bitstream, canonical
+    from nsc_tpu_torch.utils import audio
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    model = ["--model", FLAGSHIP, "--checkpoint", EXPORT, "--serving"]
+    with tempfile.TemporaryDirectory(prefix="nsc_cli_") as tmp:
+        wav_path = os.path.join(tmp, "speech.wav")
+        audio.save_wav(wav_path, canonical.speech_probe_input(serve.cfg, 1)[0], serve.cfg.sample_rate)
+        wav, _ = audio.load_wav(wav_path, target_sr=serve.cfg.sample_rate)
+
+        def run(*args):
+            t0 = time.perf_counter()
+            proc = subprocess.run([sys.executable, "-m", "nsc_tpu_torch", *args], cwd=root,
+                                  capture_output=True, text=True, timeout=600)
+            wall = time.perf_counter() - t0
+            emit({"phase": "cli", "args": [a if a != EXPORT else os.path.relpath(EXPORT) for a in args],
+                  "rc": proc.returncode, "wall_seconds": wall,
+                  "stdout_tail": proc.stdout[-400:], "stderr_tail": proc.stderr[-400:]})
+            check(proc.returncode == 0, f"CLI {args[0]}: rc {proc.returncode}: {proc.stderr[-2000:]}")
+            return proc.stdout
+
+        batch_path, stream_path = os.path.join(tmp, "batch.nsc"), os.path.join(tmp, "stream.nsc")
+        run("compress", wav_path, batch_path, *model)
+        run("compress", wav_path, stream_path, "--streaming", "1.0", *model)
+        for path, want in ((batch_path, api.encode(serve, wav)),
+                           (stream_path, bitstream.deserialize(api.streaming_compress(serve, wav, 1.0))[1])):
+            with open(path, "rb") as f:
+                got = bitstream.deserialize(f.read())[1]
+            equal = bool(np.array_equal(got, want))
+            emit({"phase": "cli", "what": "stream_indices_vs_in_process", "stream": os.path.basename(path),
+                  "shape": list(got.shape), "equal": equal})
+            check(equal, f"CLI {os.path.basename(path)}: indices differ from the in-process encode")
+        out_path, want_path = os.path.join(tmp, "out.wav"), os.path.join(tmp, "want.wav")
+        run("decompress", batch_path, out_path, *model)
+        with open(batch_path, "rb") as f:
+            audio.save_wav(want_path, api.decompress(serve, f.read()), serve.cfg.sample_rate)
+        got, want = audio.load_wav(out_path)[0], audio.load_wav(want_path)[0]
+        equal = got.shape == want.shape == wav.shape and bool(np.array_equal(got, want))
+        emit({"phase": "cli", "what": "decompress_vs_in_process", "samples": got.shape[0], "equal": equal})
+        check(equal, "CLI decompress: the WAV differs from the in-process decompress")
+        metrics = json.loads(run("eval", wav_path, "--ceiling", "--json", *model).strip().splitlines()[-1])
+        emit({"phase": "cli", "what": "eval", "metrics": metrics})
+        check(all(math.isfinite(v) for v in metrics.values() if isinstance(v, float)),
+              f"CLI eval: non-finite metric {metrics}")
+        check("ceiling_mel_distance" in metrics and "stoi" in metrics, f"CLI eval: metrics {metrics}")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -701,22 +1171,6 @@ def main() -> int:
                     stage_err[kernel] = max(stage_err[kernel], e)
             del got, x, xh
         del x32, xh32
-
-    def index_check(bk, zz, idx_k, idx_p):
-        """K2's indices against the plain version's: how many differ, and
-        whether each frame's first difference is at a near-tie."""
-        diff = idx_k != idx_p
-        bad = diff.any(dim=1).nonzero().flatten()
-        near, worst = 0, 0.0
-        if bad.numel():
-            with float32_numerics():
-                margins = rvq_ops.argmin_margins({"codebooks": bk}, zz[bad])
-            first = diff[bad].int().argmax(dim=1)
-            m_first = margins[torch.arange(bad.numel(), device=dev), first]
-            near = int((m_first < K2_NEAR_TIE).sum().item())
-            worst = m_first.max().item()
-        return {"index_mismatches": int(diff.sum().item()), "frames_differing": int(bad.numel()),
-                "near_ties": near, "worst_first_mismatch_margin": worst}
 
     books = rvq["codebooks"].contiguous()
     z = model.latents(params, wav)  # the main path's own latents
@@ -1079,10 +1533,25 @@ def main() -> int:
 
     del bundle, bundles, model, params, rvq, wav, books, z, z2d, idx_k, idx_p, deq_k, deq_p, planes
     torch.cuda.empty_cache()
+
+    # the trained flagship, streaming on it, and the CLI --------------------
+    t_phase = time.perf_counter()
+    serve, f32, flagship_launches = flagship_smoke(dev, wav_np)
+    streaming_launches = streaming_smoke(serve, f32, card, events_ms)
+    del f32
+    t_cli = time.perf_counter()
+    cli_smoke(serve)
+    emit({"phase": "timing", "what": "flagship_streaming_cli",
+          "flagship_and_streaming_seconds": t_cli - t_phase,
+          "cli_seconds": time.perf_counter() - t_cli})
+    del serve
+    torch.cuda.empty_cache()
+
     with torch.enable_grad():
         k4_summaries, train_launches = train_smoke(dev, card, events_ms)
 
-    by_path = {**serving_launches, "training": train_launches}
+    by_path = {**serving_launches, "flagship": flagship_launches,
+               "streaming": streaming_launches, "training": train_launches}
 
     def stage_entry(kernel, source, replaces):
         acc = timing[kernel]

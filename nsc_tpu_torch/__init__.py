@@ -18,4 +18,6 @@ from nsc_tpu_torch.api import (  # noqa: F401
     list_models,
     load_model,
     serving_config,
+    streaming_compress,
+    streaming_decompress,
 )

@@ -1,0 +1,272 @@
+"""CLI: compress/decompress WAV files with the PyTorch port (counterpart of
+`python -m nsc_tpu`).
+
+  python -m nsc_tpu_torch compress   in.wav out.nsc [--model base] [--n-q 8]
+  python -m nsc_tpu_torch decompress in.nsc out.wav [--model base] [--streaming 1.0]
+  python -m nsc_tpu_torch roundtrip  in.wav out.wav [--model base] [--n-q 8]
+  python -m nsc_tpu_torch eval       ref.wav [deg.wav] [--model base] [--ceiling] [--json]
+  python -m nsc_tpu_torch info       in.nsc
+  python -m nsc_tpu_torch models
+
+Commands that run the model take --checkpoint (an export of a JAX package
+checkpoint, `scripts/export_torch_checkpoint.py`), --seed, --serving and
+--device (default cuda; there is no move to the CPU unless `--device cpu`
+is given). `eval` with one file scores a codec round trip of it; with two
+files it scores deg against ref directly.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+
+def _build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="nsc_tpu_torch", description=__doc__)
+    sub = p.add_subparsers(dest="cmd", required=True)
+
+    def add_model_args(sp):
+        sp.add_argument("--model", default="base", help="config name")
+        sp.add_argument("--checkpoint", default=None,
+                        help="exported checkpoint directory (weights.npz, meta.json)")
+        sp.add_argument("--seed", type=int, default=0)
+        sp.add_argument(
+            "--serving", action="store_true",
+            help="the serving path (bf16, the hand-written kernels, the "
+            "polynomial snake; indices deviate from the float32 path's at "
+            "near-tied codewords)",
+        )
+        sp.add_argument("--device", default="cuda",
+                        help="torch device; raises when CUDA is asked for and absent")
+
+    c = sub.add_parser("compress", help="wav -> nsc bitstream")
+    c.add_argument("input"), c.add_argument("output")
+    c.add_argument("--n-q", type=int, default=None, help="codebooks to use")
+    c.add_argument(
+        "--streaming", type=float, default=None, metavar="SECONDS",
+        help="encode in chunks of this many seconds through the streaming "
+        "encoder (bounded memory)",
+    )
+    c.add_argument(
+        "--entropy", action="store_true",
+        help="arithmetic-code the index planes (decompress auto-detects)",
+    )
+    c.add_argument(
+        "--queue-chunks", type=int, default=4, metavar="K",
+        help="streaming mode: chunks encoded per pass (1 = strict "
+        "chunk-at-a-time)",
+    )
+    add_model_args(c)
+
+    d = sub.add_parser("decompress", help="nsc bitstream -> wav")
+    d.add_argument("input"), d.add_argument("output")
+    d.add_argument("--n-q", type=int, default=None)
+    d.add_argument(
+        "--streaming", type=float, default=None, metavar="SECONDS",
+        help="decode in chunks of this many seconds through the streaming "
+        "decoder (bounded memory for long streams)",
+    )
+    d.add_argument(
+        "--queue-chunks", type=int, default=4, metavar="K",
+        help="streaming mode: index blocks decoded per pass (1 = strict "
+        "chunk-at-a-time)",
+    )
+    add_model_args(d)
+
+    r = sub.add_parser("roundtrip", help="wav -> codes -> wav")
+    r.add_argument("input"), r.add_argument("output")
+    r.add_argument("--n-q", type=int, default=None)
+    add_model_args(r)
+
+    e = sub.add_parser("eval", help="quality metrics: ref vs deg, or a codec round trip")
+    e.add_argument("reference", help="clean/reference wav")
+    e.add_argument(
+        "degraded", nargs="?", default=None,
+        help="degraded wav; omitted = round-trip `reference` through the model",
+    )
+    e.add_argument("--n-q", type=int, default=None)
+    e.add_argument(
+        "--ceiling", action="store_true",
+        help="round-trip mode only: also decode the un-quantized latents "
+        "(the model's infinite-bitrate bound) and report the quantization gap",
+    )
+    e.add_argument("--json", action="store_true", help="machine-readable output")
+    add_model_args(e)
+
+    i = sub.add_parser("info", help="print bitstream header")
+    i.add_argument("input")
+
+    sub.add_parser("models", help="list model configs")
+    return p
+
+
+def _print_quality(ref, deg, sample_rate, as_json, extra=None) -> int:
+    """Score deg against ref with every metric of `eval.quality`."""
+    import json
+
+    from nsc_tpu_torch.eval import quality
+
+    m = dict(extra or {})
+    m["si_snr_db"] = round(quality.si_snr(ref, deg), 3)
+    m["snr_db"] = round(quality.snr(ref, deg), 3)
+    m["mel_distance"] = round(quality.mel_distance(ref, deg, sample_rate), 4)
+    m["fw_seg_snr_db"] = round(quality.fw_seg_snr(ref, deg, sample_rate), 3)
+    m["pesq_proxy"] = round(quality.pesq_proxy(ref, deg, sample_rate), 3)
+    m["stoi_proxy"] = round(quality.stoi_proxy(ref, deg, sample_rate), 4)
+    m["visqol_nsim"] = round(quality.visqol_nsim(ref, deg, sample_rate), 4)
+    try:  # faithful Taal et al. 2011: needs >= 30 active frames at 10 kHz
+        m["stoi"] = round(quality.stoi(ref, deg, sample_rate), 4)
+    except ValueError as e:
+        m["stoi_error"] = str(e)
+    if as_json:
+        print(json.dumps(m))
+    else:
+        for k, v in m.items():
+            print(f"{k:16s} {v}")
+        print(
+            "(pesq_proxy: fwSegSNR logistic, NOT ITU-T P.862; stoi: "
+            "faithful Taal et al. 2011; stoi_proxy: envelope-correlation "
+            "construction; visqol_nsim: gammatone-NSIM core of ViSQOL, "
+            "NOT ViSQOL v3 — see nsc_tpu_torch/eval/quality.py)"
+        )
+    return 0
+
+
+def main(argv=None) -> int:
+    args = _build_parser().parse_args(argv)
+
+    if args.cmd == "models":
+        from nsc_tpu_torch.configs import get_config, list_configs
+
+        for name in list_configs():
+            cfg = get_config(name)
+            print(
+                f"{name:12s} hop={cfg.hop:4d} frame_rate={cfg.frame_rate:6.1f}Hz "
+                f"n_q={cfg.num_quantizers:2d} K={cfg.codebook_size:4d} "
+                f"max_bitrate={cfg.bitrate()/1000:.2f}kbps"
+            )
+        return 0
+
+    if args.cmd == "info":
+        from nsc_tpu_torch.bitstream import FLAG_FINGERPRINT, BitstreamHeader
+
+        with open(args.input, "rb") as f:
+            blob = f.read()
+        h, off = BitstreamHeader.from_bytes(blob)
+        dur = h.orig_len / h.sample_rate
+        bitrate = (len(blob) - off) * 8 / dur if dur else 0.0
+        fp = f" codebook_fp={h.fingerprint:#010x}" if h.flags & FLAG_FINGERPRINT else ""
+        print(
+            f"model={h.model_name} sr={h.sample_rate} hop={h.hop} "
+            f"n_q={h.n_q} bits={h.bits} frames={h.num_frames} "
+            f"duration={dur:.2f}s payload_bitrate={bitrate/1000:.2f}kbps{fp}"
+        )
+        return 0
+
+    from nsc_tpu_torch.utils import audio
+
+    if args.cmd == "eval" and args.degraded is not None:
+        # two-file scoring needs no model at all
+        ref, sr = audio.load_wav(args.reference)
+        deg, _ = audio.load_wav(args.degraded, target_sr=sr)
+        ref, deg = audio.to_mono(ref), audio.to_mono(deg)
+        n = min(len(ref), len(deg))
+        return _print_quality(ref[:n], deg[:n], sr, args.json)
+
+    import nsc_tpu_torch as nt
+
+    bundle = nt.load_model(
+        args.model, checkpoint=args.checkpoint, seed=args.seed,
+        serving=args.serving, device=args.device,
+    )
+    sr = bundle.cfg.sample_rate
+
+    if args.cmd == "compress":
+        wav, _ = audio.load_wav(args.input, target_sr=sr)
+        wav = audio.to_mono(wav)
+        if args.streaming:
+            blob = nt.streaming_compress(
+                bundle, wav, chunk_seconds=args.streaming, n_q=args.n_q,
+                entropy_coding=args.entropy, queue_chunks=args.queue_chunks,
+            )
+        else:
+            blob = nt.compress(bundle, wav, n_q=args.n_q, entropy_coding=args.entropy)
+        with open(args.output, "wb") as f:
+            f.write(blob)
+        ratio = wav.nbytes / len(blob)
+        print(f"wrote {args.output}: {len(blob)} bytes ({ratio:.1f}x vs f32 PCM)")
+        return 0
+
+    if args.cmd == "decompress":
+        with open(args.input, "rb") as f:
+            blob = f.read()
+        if args.streaming:
+            wav = nt.streaming_decompress(
+                bundle, blob, chunk_seconds=args.streaming, n_q=args.n_q,
+                queue_chunks=args.queue_chunks,
+            )
+        else:
+            wav = nt.decompress(bundle, blob, n_q=args.n_q)
+        audio.save_wav(args.output, wav, sr)
+        print(f"wrote {args.output}: {len(wav)} samples")
+        return 0
+
+    if args.cmd == "eval":
+        wav, _ = audio.load_wav(args.reference, target_sr=sr)
+        wav = audio.to_mono(wav)
+        blob = nt.compress(bundle, wav, n_q=args.n_q)
+        out = nt.decompress(bundle, blob)[: len(wav)]
+        dur = len(wav) / sr
+        extra = {"bitrate_kbps": round(len(blob) * 8 / dur / 1000, 3)} if dur else {}
+        if args.ceiling:
+            # the infinite-bitrate bound: decode the un-quantized latents
+            rec = _ceiling(bundle, wav)
+            from nsc_tpu_torch.eval import quality
+
+            ceil_mel = round(quality.mel_distance(wav, rec, sr), 4)
+            extra["ceiling_mel_distance"] = ceil_mel
+            extra["ceiling_si_snr_db"] = round(quality.si_snr(wav, rec), 3)
+            extra["quant_gap_mel"] = round(quality.mel_distance(wav, out, sr) - ceil_mel, 4)
+        return _print_quality(wav, out, sr, args.json, extra=extra)
+
+    if args.cmd == "roundtrip":
+        wav, _ = audio.load_wav(args.input, target_sr=sr)
+        wav = audio.to_mono(wav)
+        blob = nt.compress(bundle, wav, n_q=args.n_q)
+        out = nt.decompress(bundle, blob)
+        audio.save_wav(args.output, out, sr)
+        print(f"wrote {args.output} ({len(blob)} byte stream)")
+        return 0
+
+    return 1
+
+
+def _ceiling(bundle, wav):
+    """`wav` through the encoder and the decoder without quantization
+    (`NeuralSpeechCodec.decode_latents`), trimmed to its length."""
+    import numpy as np
+    import torch
+
+    pad = (-len(wav)) % bundle.cfg.hop
+    w = torch.tensor(np.pad(wav, (0, pad))[None, :], device=bundle.device)
+    with torch.inference_mode():
+        z = bundle.model.latents(bundle.params, w)
+        rec = bundle.model.decode_latents(bundle.params, z)
+    return rec[0, : len(wav)].cpu().numpy()
+
+
+def _entry() -> int:
+    try:
+        return main()
+    except FileNotFoundError as e:
+        print(f"error: file not found: {e.filename or e}", file=sys.stderr)
+    except (ValueError, KeyError) as e:
+        from nsc_tpu_torch.bitstream import BitstreamError
+
+        kind = "bitstream error" if isinstance(e, BitstreamError) else "error"
+        print(f"{kind}: {e}", file=sys.stderr)
+    return 2
+
+
+if __name__ == "__main__":
+    sys.exit(_entry())

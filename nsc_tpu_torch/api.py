@@ -24,6 +24,7 @@ import torch
 from nsc_tpu_torch import bitstream, weights
 from nsc_tpu_torch.configs import CodecConfig, get_config, list_configs
 from nsc_tpu_torch.models.codec import NeuralSpeechCodec
+from nsc_tpu_torch.train import checkpoint as ckpt
 
 ArrayLike = Union[np.ndarray, torch.Tensor]
 
@@ -87,15 +88,30 @@ def bundle_from_jax(
 
 
 def load_model(
-    name: str = "base", *, seed: int = 0, serving: bool = False, device=None,
+    name: str = "base",
+    *,
+    checkpoint: Optional[str] = None,
+    seed: int = 0,
+    serving: bool = False,
+    device=None,
 ) -> ModelBundle:
-    """Build a codec by config name with weights made from `seed`.
+    """Build a codec by config name, with the weights of `checkpoint` (an
+    export of a JAX package checkpoint, `scripts/export_torch_checkpoint.py`;
+    its config must be `name`) or, without one, weights made from `seed`.
     serving=True applies `serving_config`. device=None means CUDA."""
     cfg = get_config(name)
     if serving:
         cfg = serving_config(cfg)
     dev = resolve_device(device)
-    params, rvq = weights.init_jax_layout(cfg, seed)
+    if checkpoint is None:
+        params, rvq = weights.init_jax_layout(cfg, seed)
+    else:
+        made_for = ckpt.export_meta(checkpoint)["config"]
+        if made_for != name:
+            raise ValueError(
+                f"checkpoint {checkpoint} holds a {made_for!r} model, not {name!r}"
+            )
+        params, rvq = ckpt.restore_inference(checkpoint)
     return bundle_from_jax(cfg, params, rvq, device=dev)
 
 
@@ -276,3 +292,73 @@ def decompress(
     _check_stream_identity(bundle, header)
     wav = decode(bundle, idx)
     return wav[: header.orig_len]
+
+
+def streaming_compress(
+    bundle: ModelBundle,
+    wav: ArrayLike,
+    chunk_seconds: float = 1.0,
+    n_q: Optional[int] = None,
+    *,
+    entropy_coding: bool = False,
+    queue_chunks: int = 4,
+) -> bytes:
+    """compress() through the stateful chunked encoder: bounded memory for
+    arbitrarily long inputs; the stream of batch compress where batch and
+    streaming run the same float operations (see `streaming`). Requires a
+    causal config. queue_chunks: chunks encoded per pass
+    (`StreamingEncoder.push_many`); 1 is strict chunk-at-a-time."""
+    from nsc_tpu_torch.streaming import StreamingEncoder
+
+    arr, single = _as_batch(wav)
+    if not single:
+        raise ValueError("streaming_compress takes a single (T,) waveform")
+    arr = arr[0]
+    cfg = bundle.cfg
+    chunk = max(cfg.hop, int(chunk_seconds * cfg.sample_rate) // cfg.hop * cfg.hop)
+    padded = np.pad(arr, (0, (-len(arr)) % cfg.hop))
+    enc = StreamingEncoder(bundle.model, bundle.params, bundle.rvq, n_q=n_q)
+    chunks = [padded[i : i + chunk] for i in range(0, len(padded), chunk)]
+    group = max(1, int(queue_chunks))
+    blocks: list = []
+    for g in range(0, len(chunks), group):
+        blocks.extend(enc.push_many(chunks[g : g + group]))
+    idx = np.concatenate(blocks, axis=0)
+    return _finalize_stream(bundle, idx, arr.shape[0], entropy_coding)
+
+
+def streaming_decompress(
+    bundle: ModelBundle,
+    blob: bytes,
+    chunk_seconds: float = 1.0,
+    n_q: Optional[int] = None,
+    *,
+    queue_chunks: int = 4,
+) -> np.ndarray:
+    """decompress() through the stateful chunked decoder: bounded memory for
+    arbitrarily long streams. Chunks have a fixed frame count; the last,
+    partial one is zero-padded and trimmed (trailing frames cannot change
+    earlier samples of a causal decoder). queue_chunks: index blocks decoded
+    per pass; 1 is chunk-at-a-time."""
+    from nsc_tpu_torch.streaming import StreamingDecoder
+
+    header, idx = bitstream.deserialize(blob, max_n_q=n_q)
+    _check_stream_identity(bundle, header)
+    cfg = bundle.cfg
+    fpc = max(1, int(chunk_seconds * cfg.sample_rate) // cfg.hop)
+    dec = StreamingDecoder(bundle.model, bundle.params, bundle.rvq, n_q=n_q)
+    blocks, gots = [], []
+    for s in range(0, idx.shape[0], fpc):
+        c = idx[s : s + fpc]
+        gots.append(c.shape[0])
+        if c.shape[0] < fpc:
+            c = np.pad(c, ((0, fpc - c.shape[0]), (0, 0)))
+        blocks.append(c)
+    group = max(1, int(queue_chunks))
+    parts = []
+    for g in range(0, len(blocks), group):
+        outs = dec.push_many(blocks[g : g + group])
+        for out, got in zip(outs, gots[g : g + group]):
+            parts.append(out[: got * cfg.hop])
+    wav = np.concatenate(parts, axis=0) if parts else np.zeros(0, np.float32)
+    return np.asarray(wav, np.float32)[: header.orig_len]

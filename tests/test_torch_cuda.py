@@ -565,3 +565,65 @@ def test_full_width_train_step_launches_the_kernels(dev):
                                 "stft_magnitude_dft": 0, "residual_stack_cl": 0,
                                 "fused_stage": 0}
     assert all(torch.isfinite(v).item() for v in metrics.values())
+
+
+def test_streaming_serving_bundle_launches_rvq_kernels_once_per_dispatch(dev):
+    """StreamingEncoder/Decoder on a `small` serving bundle: K2 (with its
+    split) once per encoder push, K3 once per decoder push, no stage
+    kernel (the units run op by op)."""
+    import numpy as np
+
+    from nsc_tpu_torch import api, kernels, streaming
+
+    b = api.load_model("small", serving=True, device=dev)
+    hop = b.cfg.hop
+    wav = (np.random.RandomState(0).randn(2, 12 * hop) * 0.1).astype(np.float32)
+    enc = streaming.StreamingEncoder(b.model, b.params, b.rvq)
+    dec = streaming.StreamingDecoder(b.model, b.params, b.rvq)
+    kernels.reset_launches()
+    blocks = enc.push_many([wav[:, : 4 * hop], wav[:, 4 * hop: 8 * hop]])
+    blocks.append(enc.push(wav[:, 8 * hop:]))
+    outs = dec.push_many(blocks[:2]) + [dec.push(blocks[2])]
+    torch.cuda.synchronize()
+    want = dict.fromkeys(kernels.LAUNCHES, 0)
+    want.update({"rvq_quantize": 2, "rvq_split_planes": 2, "rvq_dequantize": 2})
+    assert kernels.LAUNCHES == want
+    assert [o.shape for o in outs] == [(2, 4 * hop)] * 3
+    assert all(np.isfinite(o).all() for o in outs)
+
+
+def test_cli_runs_on_the_card_by_default(dev, tmp_path):
+    """Without --device the CLI runs the model on CUDA: compress and
+    decompress a WAV through the serving path of `small`."""
+    import numpy as np
+
+    from nsc_tpu_torch import bitstream
+    from nsc_tpu_torch.__main__ import main
+    from nsc_tpu_torch.utils import audio
+
+    wav = tmp_path / "in.wav"
+    audio.save_wav(str(wav), np.random.RandomState(0).randn(16000).astype(np.float32) * 0.1, 16000)
+    assert main(["compress", str(wav), str(tmp_path / "a.nsc"), "--model", "small", "--serving"]) == 0
+    assert main(["decompress", str(tmp_path / "a.nsc"), str(tmp_path / "b.wav"), "--model", "small",
+                 "--serving"]) == 0
+    header, idx = bitstream.deserialize((tmp_path / "a.nsc").read_bytes())
+    assert idx.shape == (50, 2) and audio.load_wav(str(tmp_path / "b.wav"))[0].shape == (16000,)
+
+
+def test_load_model_checkpoint_puts_every_tensor_on_the_card(dev):
+    """The committed flagship export, serving and float32: every tensor of
+    both bundles on cuda:0, the codebooks' fingerprint as in meta.json."""
+    import os
+
+    from nsc_tpu_torch import api, weights
+    from nsc_tpu_torch.train import checkpoint as ckpt
+
+    export = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                          "exports", "base_fast_synthetic2_48k_refit")
+    for serving in (False, True):
+        b = api.load_model("base_fast", checkpoint=export, serving=serving)
+        devices = set()
+        weights.tree_map(lambda t: devices.add(str(t.device)) if isinstance(t, torch.Tensor) else None,
+                         (b.params, b.rvq))
+        assert devices == {"cuda:0"}
+        assert api.codebook_fingerprint(b.rvq) == ckpt.export_meta(export)["fingerprint"]
