@@ -81,7 +81,30 @@ every plain version compared here run their float32 work under
               codebooks, 2 + 5 steps with the counters reset just before
               the data init and read after the last step; then the entry
               point (`nsc_tpu_torch.train.loop.main`) for 2 steps into a
-              temporary workdir and a resume to step 3
+              temporary workdir and a resume to step 3.
+              loop: the entry point (`loop.parse_args`, then `loop.run`
+              with a metrics row per step) at full width on a WAV
+              directory (synthetic2 rows and speech-probe rows, one at
+              22.05 kHz in stereo) and on synthetic2:pool=256, a
+              checkpoint every step and a full state every 2, 2 kept:
+              5 steps, and 3 then a resume to 5, under
+              `deterministic()`; gated: the kept full states and
+              exports, best.json, the resumed run's metrics
+              rows equal to the uninterrupted run's, the threaded step-3
+              snapshot equal to a synchronous save of the live state,
+              infer_best/ and infer/ equal to the live state at their
+              steps, the float32 bundle of infer/ encoding as the final
+              state, K2 + split x1 and K4 x12 per step (+ K2 x48 per data
+              init), and the workdir served (K1 x8, K2 + split x1, K3 x1).
+              refit: 25,600 frames of synthetic2 through the flagship's
+              float32 encoder, refit_codebooks (k-means 10) between two
+              pool_reports: the residual MSE falls at every depth, every
+              K2 search held against plain and float64
+              (`hold_refit_search`), K2 + split x (16 x 11 + 2).
+              finetune: run_finetune on the flagship export, 4 steps at
+              batch 64 x 1 s on synthetic2:pool=256, held-out mel every 2:
+              only decoder leaves move, K2 + split x1 and K4 x12 per step
+              (+ K2 x1 for the held-out batch), the workdir served
   5. timing   reconstruct wall time and real-time factor of each serving
               path; streaming_compress and streaming_decompress real-time
               factors of the flagship's serving bundle at queue_chunks 4
@@ -94,7 +117,11 @@ every plain version compared here run their float32 work under
               and beside the plain recompute it replaced; K3 beside the
               row-warp design and beside its L2 gather floor (the bytes it gathers
               over the L2 read rate of one PyTorch reduction of an
-              L2-resident 8 MB tensor, reported, not gated)
+              L2-resident 8 MB tensor, reported, not gated); the host
+              sources' seconds per batch of 64 x 1 s beside the step, the
+              threaded snapshot's cost to the step (windows of steps alone
+              and with a full-state submit, in turns), the full state's
+              and an export's bytes, the refit's and the finetune's seconds
 
 then the `kernels` summary line, the card line and, last,
 {"ok": true, "device": {...}}. Any failed check raises and exits non-zero.
@@ -103,6 +130,7 @@ no result.
 """
 
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -187,6 +215,26 @@ EXPORT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "exports",
                       "base_fast_synthetic2_48k_refit")
 # streaming: three rows of the speech probe end to end (30 s) in 1 s chunks
 STREAM_ROWS, STREAM_CHUNK_SECONDS = 3, 1.0
+# The training loop's entry point (`loop_smoke`): LOOP_STEPS steps with a
+# checkpoint every step and a full state every 2 (full at 1, 3, 5), the
+# newest LOOP_KEEP full states kept; pools of LOOP_POOL synthetic2
+# segments; each host source timed over SOURCE_BATCHES batches after its
+# first. LOOP_ARGS: more arguments of the entry point (none at full
+# width), which also set the TrainConfig of the host-source timing and of
+# the snapshot's cost. SNAPSHOT_TURNS: turns of that cost, each a window of
+# SNAPSHOT_WINDOW steps without a snapshot and one with a snapshot after its
+# first step.
+LOOP_STEPS, LOOP_KEEP, LOOP_POOL, SOURCE_BATCHES = 5, 2, 256, 2
+LOOP_ARGS = []
+SNAPSHOT_TURNS, SNAPSHOT_WINDOW = 6, 2
+# The flagship's refit (`refit_smoke`): REFIT_BATCHES x REFIT_BATCH x 1 s of
+# synthetic2 from REFIT_SEED (25,600 frames), k-means REFIT_ITERS
+# iterations, as the flagship's own refit (artifacts/.../meta.json: 10)
+REFIT_SEED, REFIT_BATCH, REFIT_BATCHES, REFIT_ITERS = 7, 64, 8, 10
+# The decoder finetune (`finetune_smoke`): FINETUNE_STEPS steps of
+# finetune_config(batch_size=64), held-out eval every 2 steps
+FINETUNE_STEPS = 4
+FINETUNE_OVERRIDES = {}
 
 
 def emit(obj) -> None:
@@ -569,7 +617,7 @@ def train_smoke(dev, card, events_ms):
         {"name": "stft_magnitude_dft", "route": "cuda", "source": "nsc_tpu_torch/csrc/stft.cu",
          "replaces": "nsc_tpu/ops/pallas/stft.py:80", "max_abs_err": k4_err["dft"], **dft},
     ]
-    return summaries, launches
+    return summaries, launches, step_s * 1e3
 
 
 def first_flips(idx, ref_idx, ref_margins) -> dict:
@@ -623,6 +671,49 @@ def hold_quantize(books, z, idx_k, what: str) -> dict:
     rec = index_check(books, z, idx_k, idx_p)
     check(rec["near_ties"] == rec["frames_differing"],
           f"K2 {what}: an index differs where the plain version's margin is not a near-tie")
+    return rec
+
+
+# The refit's k-means searches (one book each) run book 0 on the trained
+# encoder's raw latents, whose norms reach ~130 on synthetic2, so a score
+# ||c||^2 - 2 r.c reaches ~-1e4, where one float32 ulp is ~1e-3 and plain's
+# own margins are off from float64 by about as much (readings in PERF.md,
+# from this script and scripts/torch_refit_flips.py). A refit flip is
+# allowed where plain's margin is below K2_NEAR_TIE (the flagship check's
+# rule), or where K2's pick scores within K2_NEAR_TIE of the float64 best of
+# the book (plain, not K2, missed the argmin). Any other flip is a K2 error.
+def hold_refit_search(books, z, idx_k) -> dict:
+    """K2's indices on one refit search (books (1, K, D), residuals z)
+    against the plain version's and, past the margin rule, against the
+    float64 scores of the whole book."""
+    import torch
+
+    from nsc_tpu_torch.kernels import rvq as KR
+    from nsc_tpu_torch.ops import rvq as rvq_ops
+    from nsc_tpu_torch.ops.precision import float32_numerics
+
+    check(books.shape[0] == 1, f"refit search over {books.shape[0]} books")
+    with float32_numerics():
+        idx_p = KR.quantize_plain(books, z)
+    rec = index_check(books, z, idx_k, idx_p)
+    rec.update(past_near_tie=[], k2_errors=0)
+    if rec["near_ties"] == rec["frames_differing"]:
+        return rec
+    bad = (idx_k != idx_p).any(dim=1).nonzero().flatten()
+    with float32_numerics():
+        margin = rvq_ops.argmin_margins({"codebooks": books}, z[bad])[:, 0]
+    past = bad[margin >= K2_NEAR_TIE]
+    cb, r = books[0].double(), z[past].double()
+    s64 = (cb * cb).sum(1)[None, :] - 2 * (r @ cb.t())
+    best = s64.min(dim=1).values
+    rows = torch.arange(past.numel(), device=z.device)
+    k2_gap = s64[rows, idx_k[past, 0].long()] - best
+    plain_gap = s64[rows, idx_p[past, 0].long()] - best
+    for j, m in enumerate(margin[margin >= K2_NEAR_TIE].tolist()):
+        rec["past_near_tie"].append({
+            "margin": m, "float64_best_score": best[j].item(), "k2_minus_best": k2_gap[j].item(),
+            "plain_minus_best": plain_gap[j].item(), "r_norm": r[j].norm().item()})
+    rec["k2_errors"] = int((k2_gap >= K2_NEAR_TIE).sum().item())
     return rec
 
 
@@ -995,8 +1086,435 @@ def cli_smoke(serve):
         check("ceiling_mel_distance" in metrics and "stoi" in metrics, f"CLI eval: metrics {metrics}")
 
 
+@contextlib.contextmanager
+def deterministic():
+    """PyTorch's deterministic algorithms (warnings, not errors, where an op
+    has none) and cuDNN's deterministic convolutions while the block runs, so
+    that two training runs can be compared bit for bit; the caller's
+    settings come back after it."""
+    import torch
+
+    saved = (torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled(),
+             torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(saved[0], warn_only=saved[1])
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved[2:]
+
+
+@contextlib.contextmanager
+def recording_states(full_at):
+    """Host copies of the live train state after each step of the loop's
+    train step (`seen[step]`): params_g and the codebooks, and the whole
+    state at the steps in `full_at`. Wraps `loop.make_train_step` while the
+    block runs; the step itself is unchanged."""
+    import torch
+
+    from nsc_tpu_torch import weights
+    from nsc_tpu_torch.train import loop as L
+
+    seen, make = {}, L.make_train_step
+
+    def factory(model, tcfg):
+        step_fn = make(model, tcfg)
+
+        def wrapped(state, batch, **kw):
+            state, metrics = step_fn(state, batch, **kw)
+            keep = state if state["step"] in full_at else {
+                "params_g": state["params_g"], "rvq": {"codebooks": state["rvq"]["codebooks"]}}
+            seen[state["step"]] = weights.tree_map(
+                lambda x: x.detach().to("cpu", copy=True) if isinstance(x, torch.Tensor) else x, keep)
+            return state, metrics
+        return wrapped
+
+    L.make_train_step = factory
+    try:
+        yield seen
+    finally:
+        L.make_train_step = make
+
+
+def trees_equal(a, b) -> bool:
+    """Two trees of tensors and numbers (as the train state), leaf for leaf,
+    bit for bit."""
+    import torch
+
+    from nsc_tpu_torch.train.train import tree_leaves
+
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(
+        torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y for x, y in zip(la, lb))
+
+
+def export_equals(step_dir: str, params_g, rvq) -> bool:
+    """The export's weights.npz against (params_g, rvq), array for array, bit
+    for bit."""
+    import numpy as np
+
+    from nsc_tpu_torch.train import checkpoint as ckpt
+
+    want = ckpt.export_arrays(params_g, rvq)
+    with np.load(os.path.join(step_dir, ckpt.EXPORT_WEIGHTS)) as z:
+        return sorted(z.files) == sorted(want) and all(
+            np.array_equal(z[k], want[k]) for k in want)
+
+
+def serve_workdir(dev, workdir: str, wav, what: str) -> dict:
+    """`load_model(checkpoint=<workdir>, serving=True)` and reconstruct of the
+    64 x 10 s batch with the counters around it (K1 x8, K2 and its split x1,
+    K3 x1). Returns the launches."""
+    import torch
+
+    from nsc_tpu_torch import api, kernels
+    from nsc_tpu_torch.train import checkpoint as ckpt
+
+    serve = api.load_model(ckpt.export_meta(workdir)["config"], checkpoint=workdir,
+                           serving=True, device=dev)
+    kernels.reset_launches()
+    out = serve.model.reconstruct(serve.params, serve.rvq, wav)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    expect = dict.fromkeys(kernels.LAUNCHES, 0)
+    expect.update({"residual_stack": 8, "rvq_quantize": 1, "rvq_split_planes": 1, "rvq_dequantize": 1})
+    finite = bool(torch.isfinite(out).all().item())
+    emit({"phase": what, "what": "serve_workdir", "export": os.path.relpath(
+        ckpt.resolve_export(workdir), workdir), "shape": list(out.shape), "finite": finite,
+        "launches": launches})
+    check(tuple(out.shape) == tuple(wav.shape) and finite, f"{what}: reconstruct output")
+    check(launches == expect, f"{what}: serving launch counts {launches}, expected {expect}")
+    return launches
+
+
+def loop_smoke(dev, wav, tmp, step_ms, card):
+    """The training entry point at full width (base_fast, batch 64 x 1 s)
+    on a WAV directory and on a pool of synthetic2: eviction and the
+    full/inference cadence, best.json, a resume against an uninterrupted
+    run (metrics rows bit for bit, both under `deterministic()`), the
+    threaded snapshot against a synchronous save of the live state, the
+    launches per step, and serving the trained workdir. Returns the
+    launches of the training runs and of the serving reconstruct."""
+    import numpy as np
+    import torch
+
+    from nsc_tpu_torch import api, canonical, kernels
+    from nsc_tpu_torch.train import checkpoint as ckpt
+    from nsc_tpu_torch.train import data as data_lib
+    from nsc_tpu_torch.train import loop as L
+    from nsc_tpu_torch.train import train as T
+    from nsc_tpu_torch.utils import audio
+
+    argv = ["--config", FLAGSHIP, "--checkpoint-every", "1", "--full-state-every", "2", *LOOP_ARGS]
+    cfg, tcfg, _ = L.parse_args(argv)
+    sr, seg = cfg.sample_rate, L.segment_length(cfg, tcfg.segment_seconds)
+    # the WAV directory: synthetic2 rows of 3 s, the speech probe's first
+    # row, and its second row at 22.05 kHz in stereo (resample, mono)
+    wav_dir = os.path.join(tmp, "wavs")
+    os.makedirs(wav_dir)
+    for i, row in enumerate(next(data_lib.make_source("synthetic2", sr, 11).batches(6, 3 * sr))):
+        audio.save_wav(os.path.join(wav_dir, f"synthetic2_{i}.wav"), row, sr)
+    speech = canonical.speech_probe_input(cfg, 2)
+    audio.save_wav(os.path.join(wav_dir, "speech_0.wav"), speech[0], sr)
+    other = audio.resample(speech[1], sr, 22_050)
+    audio.save_wav(os.path.join(wav_dir, "speech_1_stereo_22k.wav"),
+                   np.stack([other, 0.5 * other], axis=1), 22_050)
+    pool_spec = f"synthetic2:pool={LOOP_POOL}"
+
+    # host sources: seconds per batch of 64 x 1 s (the pool's build apart)
+    host = {}
+    for name, spec in (("wav_directory", wav_dir), ("synthetic2", "synthetic2"),
+                       ("synthetic2_pool", pool_spec)):
+        t0 = time.perf_counter()
+        it = data_lib.make_source(spec, sr, 0).batches(tcfg.batch_size, seg)
+        next(it)
+        first = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for _ in range(SOURCE_BATCHES):
+            next(it)
+        host[name] = {"first_batch_seconds": first,
+                      "seconds_per_batch": (time.perf_counter() - t0) / SOURCE_BATCHES}
+    emit({"phase": "loop", "what": "host_sources", "batch": tcfg.batch_size, "segment_samples": seg,
+          **host, "train_step_ms": step_ms, "card": card})
+
+    # the threaded snapshot's cost to the step: windows of SNAPSHOT_WINDOW
+    # steps without a snapshot and with one submitted after the first step
+    # (its write a torch.save of the host copy, overlapping the next steps),
+    # in turns whose order alternates; the writer is joined after each
+    # snapshot window, outside the window's time. The cost is the mean
+    # difference of the windows, resolved where it exceeds twice its
+    # standard error.
+    model, state = T.init_train_state(cfg, tcfg, dev)
+    step_fn = T.make_train_step(model, tcfg)
+    batch = torch.from_numpy(next(data_lib.make_source(pool_spec, sr, 0).batches(
+        tcfg.batch_size, seg))).to(dev)
+    writer, writes, joins = L.SnapshotWriter(dev), [], []
+
+    def write(host):
+        t0 = time.perf_counter()
+        torch.save(host, os.path.join(tmp, "snapshot.pt"))
+        writes.append(time.perf_counter() - t0)
+
+    state, _ = step_fn(state, batch)
+    walls = {"plain": [], "snapshot": []}
+    for turn in range(SNAPSHOT_TURNS):
+        for mode in (("plain", "snapshot") if turn % 2 == 0 else ("snapshot", "plain")):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(SNAPSHOT_WINDOW):
+                state, metrics = step_fn(state, batch)
+                if mode == "snapshot" and i == 0:
+                    writer.submit(state, write)
+            float(metrics["loss/g_total"])
+            walls[mode].append(time.perf_counter() - t0)
+            if mode == "snapshot":
+                t0 = time.perf_counter()
+                writer.join()
+                joins.append(time.perf_counter() - t0)
+    p_w, s_w = np.array(walls["plain"]), np.array(walls["snapshot"])
+    cost = float(s_w.mean() - p_w.mean())
+    cost_se = float(math.sqrt(p_w.var(ddof=1) / p_w.size + s_w.var(ddof=1) / s_w.size))
+    emit({"phase": "loop", "what": "snapshot_cost", "window_steps": SNAPSHOT_WINDOW,
+          "window_wall_seconds": walls, "join_wait_seconds": joins, "torch_save_seconds": writes,
+          "cost_seconds": cost, "cost_standard_error": cost_se,
+          "resolved": abs(cost) > 2 * cost_se,
+          "full_state_values": sum(x.numel() for x in T.tree_leaves(state)
+                                   if isinstance(x, torch.Tensor)), "card": card})
+    del model, state, step_fn, batch, writer
+    torch.cuda.empty_cache()
+
+    full_steps = [1, 3, LOOP_STEPS]  # the first boundary, then every 2 since the last full save
+    launches_all = dict.fromkeys(kernels.LAUNCHES, 0)
+
+    def rows(wd):
+        with open(os.path.join(wd, "metrics.jsonl")) as f:
+            out = [json.loads(line) for line in f]
+        return out
+
+    def call(wd, spec, steps):
+        # the entry point's arguments; LOOP_KEEP full states kept and a
+        # metrics row per step, which the CLI does not set
+        _, tcfg_run, kwargs = L.parse_args(argv + ["--data", spec, "--workdir", wd,
+                                                   "--steps", str(steps)])
+        tcfg_run = dataclasses.replace(tcfg_run, keep_checkpoints=LOOP_KEEP, log_every=1)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        L.run(cfg, tcfg_run, **kwargs)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        got = dict(kernels.LAUNCHES)
+        for k, v in got.items():
+            launches_all[k] += v
+        return got, seconds
+
+    served = None
+    for name, spec in (("wav_directory", wav_dir), ("synthetic2_pool", pool_spec)):
+        wd_a, wd_b = os.path.join(tmp, f"{name}_a"), os.path.join(tmp, f"{name}_b")
+        with deterministic():
+            with recording_states(full_at={3}) as live:
+                got_a, sec_a = call(wd_a, spec, LOOP_STEPS)
+            got_b1, sec_b1 = call(wd_b, spec, 3)
+            got_b2, sec_b2 = call(wd_b, spec, LOOP_STEPS)
+        init_k2 = cfg.num_quantizers * 3
+        for got, steps, init in ((got_a, LOOP_STEPS, True), (got_b1, 3, True),
+                                 (got_b2, LOOP_STEPS - 3, False)):
+            expect = dict.fromkeys(kernels.LAUNCHES, 0)
+            k2 = steps + (init_k2 if init else 0)
+            expect.update({"rvq_quantize": k2, "rvq_split_planes": k2, "stft_magnitude": 12 * steps})
+            check(got == expect, f"loop {name}: launches {got}, expected {expect}")
+        train_a, train_b = os.path.join(wd_a, "train"), os.path.join(wd_b, "train")
+        kept = ckpt.kept_steps(full_steps, LOOP_KEEP)
+        infer_kept = list(range(LOOP_STEPS - ckpt.INFER_KEEP + 1, LOOP_STEPS + 1))
+        steps_seen = {"train_a": ckpt.all_steps(train_a), "train_b": ckpt.all_steps(train_b),
+                      "infer_a": ckpt.export_steps(os.path.join(wd_a, "infer")),
+                      "infer_b": ckpt.export_steps(os.path.join(wd_b, "infer")),
+                      "infer_best_a": ckpt.export_steps(os.path.join(wd_a, "infer_best"))}
+        with open(os.path.join(wd_a, "best.json")) as f:
+            best = json.load(f)
+        ra, rb = rows(wd_a), rows(wd_b)
+        walls = [1.0 / r.pop("steps_per_sec") for r in ra]
+        for r in rb:
+            r.pop("steps_per_sec")
+        differ = [(x["step"], k) for x, y in zip(ra, rb) for k in x if x[k] != y.get(k)]
+        # the threaded snapshot of step 3 against a synchronous save of the
+        # live state at step 3; and run B's step 3, its final (inline) save
+        sync_path = os.path.join(tmp, f"{name}_sync_3.pt")
+        torch.save(live[3], sync_path)
+        async_blob = torch.load(ckpt.path_for(train_a, 3), map_location="cpu", weights_only=True)
+        sync_state = torch.load(sync_path, map_location="cpu", weights_only=True)
+        async_equal = trees_equal(async_blob["state"], sync_state)
+        b3_equal = trees_equal(async_blob["state"], torch.load(
+            ckpt.path_for(train_b, 3), map_location="cpu", weights_only=True)["state"]) if 3 in \
+            steps_seen["train_b"] else None
+        final = live[LOOP_STEPS]
+        best_equal = export_equals(os.path.join(wd_a, "infer_best", str(best["step"])),
+                                   live[best["step"]]["params_g"], live[best["step"]]["rvq"])
+        infer_equal = export_equals(os.path.join(wd_a, "infer", str(LOOP_STEPS)),
+                                    final["params_g"], final["rvq"])
+        emit({"phase": "loop", "what": "entry_point", "data": name, "steps": steps_seen,
+              "expected_train": kept, "expected_infer": infer_kept, "best": best,
+              "rows_equal": not differ and len(ra) == len(rb) == LOOP_STEPS,
+              "rows_differing": differ[:20], "row_wall_seconds": walls,
+              "async_snapshot_equals_sync_save": async_equal,
+              "resumed_run_step3_equals_async_step3": b3_equal,
+              "infer_best_equals_live_state": best_equal, "infer_equals_final_state": infer_equal,
+              "full_state_bytes": os.path.getsize(ckpt.path_for(train_a, LOOP_STEPS)),
+              "export_bytes": os.path.getsize(os.path.join(wd_a, "infer", str(LOOP_STEPS),
+                                                           ckpt.EXPORT_WEIGHTS)),
+              "seconds": {"a": sec_a, "b": sec_b1, "b_resume": sec_b2},
+              "launches": {"a": got_a, "b": got_b1, "b_resume": got_b2}})
+        check(steps_seen["train_a"] == steps_seen["train_b"] == kept,
+              f"loop {name}: full states {steps_seen}, expected {kept}")
+        check(steps_seen["infer_a"] == steps_seen["infer_b"] == infer_kept,
+              f"loop {name}: exports {steps_seen}, expected {infer_kept}")
+        check(math.isfinite(best["value"]) and 1 <= best["step"] <= LOOP_STEPS
+              and steps_seen["infer_best_a"][-1] == best["step"], f"loop {name}: best.json {best}")
+        check(not differ and len(ra) == len(rb) == LOOP_STEPS,
+              f"loop {name}: the resumed run's metrics rows differ: {differ[:20]}")
+        check(async_equal, f"loop {name}: the threaded step-3 snapshot differs from a synchronous save")
+        check(best_equal, f"loop {name}: infer_best/{best['step']} differs from the live state")
+        check(infer_equal, f"loop {name}: infer/{LOOP_STEPS} differs from the final state")
+        if served is None:
+            # the float32 bundle of infer/ against the final live state, and
+            # the serving bundle of the workdir (infer_best)
+            f32 = api.load_model(FLAGSHIP, checkpoint=os.path.join(wd_a, "infer"), device=dev)
+            mine = api.bundle_from_jax(cfg, final["params_g"], final["rvq"], device=dev)
+            probe = canonical.speech_probe_input(cfg, 2)
+            idx_equal = bool(np.array_equal(api.encode(f32, probe), api.encode(mine, probe)))
+            emit({"phase": "loop", "what": "float32_bundle_vs_final_state", "rows": 2,
+                  "indices_equal": idx_equal})
+            check(idx_equal, f"loop {name}: the float32 bundle's indices differ from the final state's")
+            del f32, mine
+            served = serve_workdir(dev, wd_a, wav, "loop")
+        del live, final, async_blob, sync_state
+        torch.cuda.empty_cache()
+    return launches_all, served
+
+
+def refit_smoke(dev, card):
+    """The flagship's codebook refit: latents of synthetic2 batches through
+    the float32 bundle, refit_codebooks (k-means 10) between two
+    pool_reports, the residual MSE falling at every depth, every K2 search
+    of the refit against quantize_plain (near-tie rule) and the launch
+    counts. Returns the launches."""
+    import numpy as np
+    import torch
+
+    from nsc_tpu_torch import api, kernels
+    from nsc_tpu_torch.kernels import rvq as KR
+    from nsc_tpu_torch.train import data as data_lib
+    from nsc_tpu_torch.train import refit
+
+    f32 = api.load_model(FLAGSHIP, checkpoint=EXPORT, device=dev)
+    cfg = f32.cfg
+    t0 = time.perf_counter()
+    batches = data_lib.make_source("synthetic2", cfg.sample_rate, REFIT_SEED).batches(
+        REFIT_BATCH, cfg.sample_rate)
+    pool = refit.collect_latents(f32, batches, REFIT_BATCHES)
+    torch.cuda.synchronize()
+    collect_s = time.perf_counter() - t0
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    before = refit.pool_report(f32.rvq, pool)
+    with recording(KR, ("quantize",)) as calls:
+        new = refit.refit_codebooks(f32.rvq, pool, kmeans_iters=REFIT_ITERS, seed=REFIT_SEED)
+    after = refit.pool_report(new, pool)
+    torch.cuda.synchronize()
+    refit_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    n_q = cfg.num_quantizers
+    searches = n_q * (REFIT_ITERS + 1)
+    expect = dict.fromkeys(kernels.LAUNCHES, 0)
+    expect.update({"rvq_quantize": searches + 2, "rvq_split_planes": searches + 2})
+    flips = {"searches": len(calls["quantize"]), "frames": 0, "index_mismatches": 0,
+             "frames_differing": 0, "near_ties": 0, "k2_errors": 0,
+             "worst_first_mismatch_margin": 0.0, "past_near_tie": []}
+    for (books, z), idx in calls["quantize"]:
+        rec = hold_refit_search(books, z, idx)
+        flips["frames"] += z.shape[0]
+        for key in ("index_mismatches", "frames_differing", "near_ties", "k2_errors"):
+            flips[key] += rec[key]
+        flips["worst_first_mismatch_margin"] = max(flips["worst_first_mismatch_margin"],
+                                                   rec["worst_first_mismatch_margin"])
+        flips["past_near_tie"] += rec["past_near_tie"]
+    del calls
+    emit({"phase": "refit", "frames": int(pool.shape[0]), "kmeans_iters": REFIT_ITERS,
+          "before": before, "after": after, "collect_seconds": collect_s,
+          "refit_seconds": refit_s, "launches": launches, "card": card})
+    emit({"phase": "kernel_check", "kernel": "rvq_quantize", "on": "the refit's k-means searches "
+          "(trained flagship books)", **flips})
+    check(pool.shape[0] >= 25_000, f"refit: {pool.shape[0]} frames")
+    check(all(a < b for a, b in zip(after["residual_mse_per_depth"],
+                                     before["residual_mse_per_depth"])),
+          f"refit: residual MSE did not fall at every depth: {before} -> {after}")
+    check(flips["k2_errors"] == 0, "K2 refit search: an index differs where the plain version's "
+          f"margin is not below {K2_NEAR_TIE} and K2's pick is not within it of the float64 best: "
+          f"{flips['past_near_tie'][:8]}")
+    check(flips["searches"] == searches, f"refit: {flips['searches']} K2 searches, expected {searches}")
+    check(launches == expect, f"refit: launches {launches}, expected {expect}")
+    check(bool(np.isfinite(new["codebooks"].cpu().numpy()).all()), "refit: non-finite codebooks")
+    del f32, pool, new
+    return launches
+
+
+def finetune_smoke(dev, wav, tmp, card):
+    """run_finetune on the flagship's export at full width (batch 64 x 1 s,
+    synthetic2 pool, 4 steps, held-out eval every 2): the encoder and the
+    codebooks bit for bit unchanged, only decoder leaves moved, the launch
+    counts, and serving the finetuned workdir. Returns (the finetune's
+    launches, the serving launches)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from nsc_tpu_torch import kernels
+    from nsc_tpu_torch.train import checkpoint as ckpt
+    from nsc_tpu_torch.train import finetune
+
+    wd = os.path.join(tmp, "finetune")
+    tcfg = dataclasses.replace(finetune.finetune_config(FINETUNE_STEPS, batch_size=64),
+                               **FINETUNE_OVERRIDES)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    out, meta = finetune.run_finetune(EXPORT, workdir=wd, steps=FINETUNE_STEPS, tcfg=tcfg,
+                                      data_spec=f"synthetic2:pool={LOOP_POOL}", eval_every=2,
+                                      device=dev)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    # per step the frozen forward's K2 (+ split) and the losses' 12 STFTs;
+    # once, the held-out batch's frozen forward (its mel is the plain one)
+    expect = dict.fromkeys(kernels.LAUNCHES, 0)
+    expect.update({"rvq_quantize": FINETUNE_STEPS + 1, "rvq_split_planes": FINETUNE_STEPS + 1,
+                   "stft_magnitude": 12 * FINETUNE_STEPS})
+    with open(os.path.join(wd, "metrics.jsonl")) as f:
+        held = [json.loads(line) for line in f if "heldout/mel" in line]
+    final = os.path.join(wd, "infer", str(FINETUNE_STEPS))
+    with np.load(os.path.join(EXPORT, ckpt.EXPORT_WEIGHTS)) as a, \
+            np.load(os.path.join(final, ckpt.EXPORT_WEIGHTS)) as b:
+        same_keys = sorted(a.files) == sorted(b.files)
+        moved = sorted(k for k in a.files if not np.array_equal(a[k], b[k]))
+    emit({"phase": "finetune", "steps": FINETUNE_STEPS, "batch": tcfg.batch_size,
+          "heldout_mel": [(r["step"], r["heldout/mel"]) for r in held], "out": out,
+          "leaves_moved": len(moved), "moved_outside_decoder": [k for k in moved
+                                                                if not k.startswith("params/decoder/")],
+          "infer_best": ckpt.export_steps(os.path.join(wd, "infer_best")),
+          "seconds": seconds, "launches": launches, "card": card})
+    check(same_keys and moved and all(k.startswith("params/decoder/") for k in moved),
+          f"finetune: leaves moved outside the decoder or none moved: {moved[:8]}")
+    check(all(math.isfinite(r["heldout/mel"]) for r in held) and len(held) == FINETUNE_STEPS // 2,
+          f"finetune: held-out rows {held}")
+    check(launches == expect, f"finetune: launches {launches}, expected {expect}")
+    return launches, serve_workdir(dev, wd, wav, "finetune")
+
+
 def main() -> int:
     t_start = time.perf_counter()
+    # cuBLAS reads its workspace setting once; deterministic() needs this one
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
 
     if not torch.cuda.is_available():
@@ -1548,10 +2066,35 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     with torch.enable_grad():
-        k4_summaries, train_launches = train_smoke(dev, card, events_ms)
+        k4_summaries, train_launches, step_ms = train_smoke(dev, card, events_ms)
+
+    # the training loop, the refit and the finetune; serving their workdirs
+    import shutil
+    import tempfile
+
+    wav = torch.from_numpy(wav_np).to(dev)
+    tmp = tempfile.mkdtemp(prefix="nsc_loop_")
+    try:
+        t0 = time.perf_counter()
+        with torch.enable_grad():
+            loop_launches, loop_serving = loop_smoke(dev, wav, tmp, step_ms, card)
+        t1 = time.perf_counter()
+        refit_launches = refit_smoke(dev, card)
+        t2 = time.perf_counter()
+        with torch.enable_grad():
+            finetune_launches, finetune_serving = finetune_smoke(dev, wav, tmp, card)
+        emit({"phase": "timing", "what": "loop_refit_finetune", "loop_seconds": t1 - t0,
+              "refit_seconds": t2 - t1, "finetune_seconds": time.perf_counter() - t2})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del wav
+    torch.cuda.empty_cache()
 
     by_path = {**serving_launches, "flagship": flagship_launches,
-               "streaming": streaming_launches, "training": train_launches}
+               "streaming": streaming_launches, "training": train_launches,
+               "training_loop": loop_launches, "training_loop_serving": loop_serving,
+               "refit": refit_launches, "finetune": finetune_launches,
+               "finetune_serving": finetune_serving}
 
     def stage_entry(kernel, source, replaces):
         acc = timing[kernel]

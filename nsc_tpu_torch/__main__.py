@@ -8,8 +8,10 @@
   python -m nsc_tpu_torch info       in.nsc
   python -m nsc_tpu_torch models
 
-Commands that run the model take --checkpoint (an export of a JAX package
-checkpoint, `scripts/export_torch_checkpoint.py`), --seed, --serving and
+Commands that run the model take --checkpoint (an export directory, of a JAX
+package checkpoint by `scripts/export_torch_checkpoint.py` or of the port's
+trainer, or a training workdir of the port, read from its `infer_best/`,
+else its `infer/`), --seed, --serving and
 --device (default cuda; there is no move to the CPU unless `--device cpu`
 is given). `eval` with one file scores a codec round trip of it; with two
 files it scores deg against ref directly.
@@ -28,7 +30,8 @@ def _build_parser() -> argparse.ArgumentParser:
     def add_model_args(sp):
         sp.add_argument("--model", default="base", help="config name")
         sp.add_argument("--checkpoint", default=None,
-                        help="exported checkpoint directory (weights.npz, meta.json)")
+                        help="an export directory (weights.npz, meta.json) or a training "
+                        "workdir of the port (its newest infer_best/, else infer/ export)")
         sp.add_argument("--seed", type=int, default=0)
         sp.add_argument(
             "--serving", action="store_true",

@@ -95,9 +95,12 @@ def load_model(
     serving: bool = False,
     device=None,
 ) -> ModelBundle:
-    """Build a codec by config name, with the weights of `checkpoint` (an
-    export of a JAX package checkpoint, `scripts/export_torch_checkpoint.py`;
-    its config must be `name`) or, without one, weights made from `seed`.
+    """Build a codec by config name, with the weights of `checkpoint` or,
+    without one, weights made from `seed`. `checkpoint` is an export (of a
+    JAX package checkpoint, `scripts/export_torch_checkpoint.py`, or one the
+    port's trainer wrote) or a training workdir of the port, which reads
+    the newest export of its `infer_best/`, else of its `infer/`
+    (`train.checkpoint.resolve_export`); its config must be `name`.
     serving=True applies `serving_config`. device=None means CUDA."""
     cfg = get_config(name)
     if serving:

@@ -93,9 +93,7 @@ class TrainConfig:
     its value: the wrapper launches the CUDA kernel on a card and runs its
     plain version on CPU tensors. The JAX package's values ("xla",
     "pallas", "pallas_interpret") choose its own lowerings in the parity
-    tests. Fields the port does not read yet (`full_state_every`,
-    `keep_checkpoints`, `keep_period`, `best_metric`) are kept so the two
-    configs stay identical.
+    tests.
     """
 
     batch_size: int = 64

@@ -1,17 +1,37 @@
 """The training loop and its entry point (counterpart of
 `nsc_tpu/train/loop.py`).
 
-    python -m nsc_tpu_torch.train --config base_fast --data synthetic \
-        --steps N --workdir DIR [--device cpu]
+    python -m nsc_tpu_torch.train --config base_fast --data synthetic2:pool=8192 \
+        --steps N --workdir DIR [--checkpoint-every K] [--full-state-every F] [--device cpu]
 
 Runs on CUDA unless `--device cpu` is given, and raises when CUDA is asked
-for and absent. Fresh runs start from seeded weights with the step-0
-data-driven codebook init; a workdir with a checkpoint resumes from it
-(parameters, optimizers, RVQ state, step and data stream), bit-exactly on
-the CPU. Metrics go to `<workdir>/metrics.jsonl`; checkpoints to
-`<workdir>/train/`. Not ported yet: data parallelism, asynchronous
-snapshots, keep-best and eviction, inference-only exports, WAV-directory
-data.
+for and absent. Data: 'synthetic', 'synthetic2', a directory of WAVs,
+'grain:<dir>' (the port's on-demand reader) and a ':pool=N' suffix
+(`train/data.py`); batches are built on a background thread and copied to
+the device one step ahead (pinned host memory, non-blocking copies).
+
+Fresh runs start from seeded weights with the step-0 data-driven codebook
+init; a workdir with a full checkpoint resumes from it (parameters,
+optimizers, RVQ state, step and the data stream's position), bit-exactly
+on the CPU. In `<workdir>`:
+
+  metrics.jsonl   one row per logged step
+  train/          full train states every `full_state_every` steps counted
+                  from the last full save (forced at a fresh run's first
+                  checkpoint boundary and at the end), evicted with
+                  `keep_checkpoints` / `keep_period`
+  infer/          an inference export at every checkpoint boundary (the
+                  newest 3 kept), which `api.load_model(checkpoint=<workdir>)`
+                  and the CLI read
+  infer_best/     an export whenever the mean of `best_metric` over the log
+                  rows since the last boundary improves; `best.json` records
+                  it and survives restarts
+
+On a CUDA device the snapshots are written by a thread (`SnapshotWriter`),
+inline on the CPU; the final save is inline everywhere. Not ported yet:
+data parallelism (A14); the liveness probe, heartbeat, host-RSS guard and
+`--debug-nans` (A17); the tensorboard writer of the JAX package's
+`MetricsLogger`.
 """
 
 from __future__ import annotations
@@ -19,12 +39,16 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import os
+import threading
 import time
-from typing import Optional
+from typing import Callable, Optional
 
+import numpy as np
 import torch
 
+from nsc_tpu_torch import weights
 from nsc_tpu_torch.api import resolve_device
 from nsc_tpu_torch.configs import CodecConfig, TrainConfig, get_config
 from nsc_tpu_torch.ops import rvq as rvq_ops
@@ -56,28 +80,114 @@ class MetricsLogger:
         self._f.close()
 
 
+class SnapshotWriter:
+    """Writes checkpoints of a state that the train step keeps updating in
+    place. On a CUDA device `submit` clones the tree on the device in the
+    current stream, records an event, and a thread copies the clone to the
+    host on its own stream (after waiting on the event) and calls `write`
+    with it; elsewhere, and with sync=True, `write` runs inline on the live
+    tree. At most one write is in flight: `submit` first joins the previous
+    one, which bounds device memory at the state plus one copy. A writer's
+    exception is raised again on the caller's thread by the next `submit`
+    or `join`."""
+
+    def __init__(self, device: torch.device):
+        self.threaded = device.type == "cuda"
+        self._stream = torch.cuda.Stream(device) if self.threaded else None
+        self._thread: Optional[threading.Thread] = None
+        self._err: list = []
+
+    def wait(self) -> None:
+        """Wait for the write in flight, if any."""
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+
+    def join(self) -> None:
+        """`wait`, then raise the writer's exception, if any."""
+        self.wait()
+        if self._err:
+            raise self._err.pop()
+
+    def submit(self, tree, write: Callable, *, sync: bool = False) -> None:
+        self.join()
+        if sync or not self.threaded:
+            write(weights.tree_map(_to_host, tree))
+            return
+        snap = weights.tree_map(_clone, tree)
+        ready = torch.cuda.Event()
+        ready.record()
+
+        def work():
+            try:
+                with torch.cuda.stream(self._stream):
+                    self._stream.wait_event(ready)
+                    host = weights.tree_map(_to_host, snap)
+                    self._stream.synchronize()
+                write(host)
+            except BaseException as e:  # raised again on the training thread
+                self._err.append(e)
+
+        self._thread = threading.Thread(target=work, daemon=True)
+        self._thread.start()
+
+
+def _clone(x):
+    return x.detach().clone() if isinstance(x, torch.Tensor) else x
+
+
+def _to_host(x):
+    return x.detach().to("cpu") if isinstance(x, torch.Tensor) else x
+
+
 def segment_length(cfg: CodecConfig, seconds: float) -> int:
     """Samples per training segment: a whole number of hops, at least one."""
     seg = int(seconds * cfg.sample_rate)
     return max(cfg.hop, (seg // cfg.hop) * cfg.hop)
 
 
+def warm_batch(cfg: CodecConfig, tcfg: TrainConfig, data_spec: str) -> np.ndarray:
+    """The data init's batch: min(batch, 16) segments of the fixed-seed
+    source without its ':pool=' suffix (one batch must not build a pool),
+    the JAX package's warm batch."""
+    source = data_lib.make_source(data_lib.strip_pool(data_spec), cfg.sample_rate, tcfg.seed)
+    return next(source.batches(min(tcfg.batch_size, 16), segment_length(cfg, tcfg.segment_seconds)))
+
+
 @torch.no_grad()
 def data_init_codebooks(model, state: dict, tcfg: TrainConfig, data_spec: str) -> None:
-    """Step-0 codebook init from a warm batch of min(batch, 16) segments of
-    the fixed-seed source (the first rows the training stream will see), in
-    full float32 like the step."""
-    cfg = model.cfg
-    warm = next(
-        data_lib.make_source(data_spec, cfg.sample_rate, tcfg.seed)
-        .batches(min(tcfg.batch_size, 16), segment_length(cfg, tcfg.segment_seconds))
-    )
+    """Step-0 codebook init from `warm_batch`, in full float32 like the
+    step."""
+    warm = warm_batch(model.cfg, tcfg, data_spec)
     dev = state["rvq"]["codebooks"].device
     with float32_numerics():
         z = model.train_latents(state["params_g"], torch.from_numpy(warm).to(dev))
         state["rvq"] = rvq_ops.init_codebooks_from_data(
             state["rvq"], z, generator=torch.Generator().manual_seed(tcfg.seed + 77)
         )
+
+
+def batch_to_device(item, dev: torch.device):
+    """(numpy batch, data state) -> (batch tensor on `dev`, data state); to
+    a card through pinned host memory, without waiting for the copy."""
+    batch, data_state = item
+    t = torch.from_numpy(batch)
+    if dev.type == "cuda":
+        t = t.pin_memory().to(dev, non_blocking=True)
+    return t, data_state
+
+
+def export_fields(cfg: CodecConfig, workdir: str, data_spec: str) -> dict:
+    """The meta.json fields of a run's inference exports (step, fingerprint,
+    sha256 and size are added per export)."""
+    return {"config": cfg.name, "source": os.path.abspath(workdir), "data": data_spec}
+
+
+def write_json(path: str, obj: dict) -> None:
+    tmp = path + ".tmp"
+    with open(tmp, "w") as f:
+        json.dump(obj, f)
+    os.replace(tmp, path)
 
 
 def run(
@@ -95,10 +205,14 @@ def run(
     steps = tcfg.steps if steps is None else steps
     train_dir = os.path.join(workdir, "train")
     source = data_lib.make_source(data_spec, cfg.sample_rate, tcfg.seed)
+    if hasattr(source, "set_cache_dir"):
+        source.set_cache_dir(workdir)
+    start = 0
     if resume and ckpt.latest_step(train_dir) is not None:
         start, trees, data_state = ckpt.restore(train_dir)
         model, state = model_for(cfg), state_from_trees(trees, dev, step=start)
-        source.set_state(data_state)
+        if data_state is not None:
+            source.set_state(data_state)
         print(f"resumed from step {start}")
     else:
         model, state = init_train_state(cfg, tcfg, dev)
@@ -106,36 +220,88 @@ def run(
             data_init_codebooks(model, state, tcfg, data_spec)
             print("codebooks: data-driven init (residual sampling + k-means)")
     step_fn = make_train_step(model, tcfg)
-    batches = source.batches(tcfg.batch_size, segment_length(cfg, tcfg.segment_seconds))
+    seg = segment_length(cfg, tcfg.segment_seconds)
+    batches = data_lib.Prefetcher(data_lib.batches_with_state(source, tcfg.batch_size, seg))
     logger = MetricsLogger(workdir)
+    writer = SnapshotWriter(dev)
+    meta = export_fields(cfg, workdir, data_spec)
+    best_path = os.path.join(workdir, "best.json")
+    best = math.inf
+    if resume and os.path.exists(best_path):
+        with open(best_path) as f:
+            best = float(json.load(f)["value"])
+
+    def write(host, step1, full, improved, best_val, data_state):
+        if full:
+            ckpt.save(train_dir, step1, host, data_state, max_to_keep=tcfg.keep_checkpoints,
+                      keep_period=tcfg.keep_period or None)
+        ckpt.save_inference(os.path.join(workdir, "infer"), step1,
+                            host["params_g"], host["rvq"], meta)
+        if improved:
+            ckpt.save_inference(os.path.join(workdir, "infer_best"), step1,
+                                host["params_g"], host["rvq"], meta)
+            write_json(best_path, {"metric": tcfg.best_metric, "value": best_val, "step": step1})
+
+    # the best metric is compared as a mean over the rows logged since the
+    # last checkpoint boundary, not one batch's value; full saves count
+    # steps since the last full save (a resume starts at one), and a fresh
+    # run's first boundary is a full save
+    window: list = []
+    last_full, have_full = start, start > 0
     metrics: dict = {}
     t0 = time.time()
     try:
-        for step in range(state["step"], steps):
-            batch = torch.from_numpy(next(batches)).to(dev)
-            state, metrics = step_fn(state, batch)
+        pending = batch_to_device(next(batches), dev) if start < steps else None
+        for step in range(start, steps):
+            batch, data_state = pending
             last = step + 1 == steps
+            if not last:
+                pending = batch_to_device(next(batches), dev)
+            state, metrics = step_fn(state, batch)
             if (step + 1) % tcfg.log_every == 0 or last:
                 m = {k: float(v) for k, v in metrics.items()}
                 m["steps_per_sec"] = tcfg.log_every / max(time.time() - t0, 1e-9)
                 t0 = time.time()
                 logger.log(step + 1, m)
+                if tcfg.best_metric in m:
+                    window.append(m[tcfg.best_metric])
                 print(
                     f"step {step + 1}: g={m['loss/g_total']:.4f} "
                     f"d={m.get('loss/d_total', 0.0):.4f} mel={m['loss/mel']:.4f}"
                 )
             if (step + 1) % tcfg.checkpoint_every == 0 or last:
-                ckpt.save(train_dir, step + 1, state, source.get_state())
+                if not window:
+                    window.append(float(metrics.get(tcfg.best_metric, math.inf)))
+                val = float(np.mean(window))
+                window = []
+                improved = bool(np.isfinite(val) and val < best)
+                if improved:
+                    best = val
+                full = (not tcfg.full_state_every or not have_full or last
+                        or step + 1 - last_full >= tcfg.full_state_every)
+                if full:
+                    last_full, have_full = step + 1, True
+                tree = state if full else {"params_g": state["params_g"], "rvq": state["rvq"]}
+                writer.submit(tree, lambda host, a=(step + 1, full, improved, best, data_state):
+                              write(host, *a), sync=last)
+        writer.join()
     finally:
+        writer.wait()
+        batches.close()
         logger.close()
     return {k: float(v) for k, v in metrics.items()}
 
 
-def main(argv=None) -> int:
+def parse_args(argv=None) -> tuple[CodecConfig, TrainConfig, dict]:
+    """The entry point's arguments -> (config, train config, the keyword
+    arguments of `run` besides those two)."""
     p = argparse.ArgumentParser(prog="nsc_tpu_torch.train")
     p.add_argument("--config", default="base")
     p.add_argument("--workdir", default="./runs/nsc")
-    p.add_argument("--data", default="synthetic", help="'synthetic' or 'synthetic2'")
+    p.add_argument("--data", default="synthetic",
+                   help="'synthetic', 'synthetic2', a directory of WAVs or 'grain:<dir>' "
+                   "(read on demand by the port's own reader); ':pool=N' pre-generates N "
+                   "segments and samples them")
     p.add_argument("--steps", type=int, default=None)
     p.add_argument("--batch-size", type=int, default=None)
     p.add_argument("--segment-seconds", type=float, default=None)
@@ -144,6 +310,12 @@ def main(argv=None) -> int:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--warmup-steps", type=int, default=2000,
                    help="linear LR warmup steps")
+    p.add_argument("--checkpoint-every", type=int, default=None,
+                   help="checkpoint cadence in steps (TrainConfig.checkpoint_every)")
+    p.add_argument("--full-state-every", type=int, default=None,
+                   help="full train-state cadence in steps since the last full save; other "
+                   "boundaries write the inference export only (0 = every boundary is full); "
+                   "a resume starts from a full save")
     p.add_argument("--lr-decay-steps", type=int, default=-1,
                    help="cosine-decay horizon; -1 = the full run, 0 = constant LR")
     p.add_argument("--device", default=None,
@@ -158,10 +330,19 @@ def main(argv=None) -> int:
         overrides["segment_seconds"] = args.segment_seconds
     if args.no_gan:
         overrides["use_gan"] = False
+    if args.checkpoint_every is not None:
+        overrides["checkpoint_every"] = args.checkpoint_every
+    if args.full_state_every is not None:
+        overrides["full_state_every"] = args.full_state_every
     tcfg = dataclasses.replace(TrainConfig(), **overrides)
     total = args.steps if args.steps is not None else tcfg.steps
     decay = total if args.lr_decay_steps < 0 else args.lr_decay_steps
     tcfg = dataclasses.replace(tcfg, lr_decay_steps=decay)
-    run(cfg, tcfg, workdir=args.workdir, data_spec=args.data, steps=args.steps,
-        resume=not args.no_resume, device=args.device)
+    return cfg, tcfg, {"workdir": args.workdir, "data_spec": args.data, "steps": args.steps,
+                       "resume": not args.no_resume, "device": args.device}
+
+
+def main(argv=None) -> int:
+    cfg, tcfg, kwargs = parse_args(argv)
+    run(cfg, tcfg, **kwargs)
     return 0

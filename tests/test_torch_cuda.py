@@ -627,3 +627,35 @@ def test_load_model_checkpoint_puts_every_tensor_on_the_card(dev):
                          (b.params, b.rvq))
         assert devices == {"cuda:0"}
         assert api.codebook_fingerprint(b.rvq) == ckpt.export_meta(export)["fingerprint"]
+
+
+def test_snapshot_writer_keeps_the_state_at_submit(dev):
+    """The loop's threaded writer copies the state as it was at `submit`,
+    though the caller updates it in place right after (as the train step
+    does); a write's exception comes back on the caller's thread."""
+    from nsc_tpu_torch import weights
+    from nsc_tpu_torch.train.loop import SnapshotWriter
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    state = {"step": 3, "w": torch.randn(1 << 24, device=dev, generator=g),
+             "m": [torch.randn(1000, device=dev, generator=g), None]}
+    want = weights.tree_map(lambda x: x.cpu() if isinstance(x, torch.Tensor) else x, state)
+    got = []
+    writer = SnapshotWriter(dev)
+    assert writer.threaded
+    writer.submit(state, got.append)
+    for _ in range(20):
+        state["w"].mul_(1.5).add_(1.0)
+    state["m"][0].zero_()
+    writer.join()
+    assert got[0]["step"] == 3 and got[0]["m"][1] is None
+    assert got[0]["w"].device.type == "cpu"
+    assert torch.equal(got[0]["w"], want["w"]) and torch.equal(got[0]["m"][0], want["m"][0])
+
+    def fail(host):
+        raise OSError("disk full")
+
+    writer.submit(state, fail)
+    with pytest.raises(OSError, match="disk full"):
+        writer.join()
+    writer.join()  # raised once

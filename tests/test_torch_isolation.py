@@ -1,6 +1,6 @@
 """The port stands alone: nothing under nsc_tpu_torch/, and not
-chip_smoke.py or scripts/torch_write_gpu_pin.py, imports JAX or the JAX
-package; entry points never move to the CPU silently; the CPU paths launch
+chip_smoke.py, scripts/torch_write_gpu_pin.py or
+scripts/torch_refit_flips.py, imports JAX or the JAX package; entry points never move to the CPU silently; the CPU paths launch
 no kernel and build nothing."""
 
 import ast
@@ -19,7 +19,8 @@ _FORBIDDEN = {"jax", "jaxlib", "nsc_tpu"}
 
 def _port_files():
     out = [os.path.join(ROOT, "chip_smoke.py"),
-           os.path.join(ROOT, "scripts", "torch_write_gpu_pin.py")]
+           os.path.join(ROOT, "scripts", "torch_write_gpu_pin.py"),
+           os.path.join(ROOT, "scripts", "torch_refit_flips.py")]
     for dirpath, _, names in os.walk(os.path.join(ROOT, "nsc_tpu_torch")):
         out += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
     return sorted(out)
