@@ -22,15 +22,17 @@ every plain version compared here run their float32 work under
               launch plans, counted with `cuobjdump -sass`: above 0 in the
               bf16 snake_fast (tensor-core) instantiations of K1, K5 and K6
               and in both K2 plans, exactly 0 in every float32 stage
-              instantiation (no TF32)
+              instantiation (no TF32); K2's two plans' registers and spills
+              (the resident plan must not spill)
   3. kernels  each kernel against its plain version at the main paths'
               shapes: residual_stack (K1) and residual_stack_cl (K6) on all
               8 stages (B=64, full T) in bf16 and f32; fused_stage (K5) on
               all 8 stages with their real heads (strides 2/4/5 in) and
               tails (5/4/2 out) in bf16 and f32; rvq_quantize /
               rvq_dequantize at M=32000, 16 x 1024 x 128 (with K2's launch
-              plan and its winning scores against float64 scores, and the
-              codebook split bit-exact against its plain version); K2's
+              plan and its winning scores against float64 scores, gated at
+              K2_SCORE_ULPS float32 ulps, and the codebook split bit-exact
+              against its plain version); K2's
               streamed plan at M=32000 on 8 x 1024 x 256 and 4 x 1024 x 384
               (N(0, 1) books and frames); K3 also at a ragged M, at an odd
               D (4-byte rows), with indices outside [0, K), and the earlier
@@ -63,6 +65,21 @@ every plain version compared here run their float32 work under
               books (index agreement, decode divergence, margin
               percentiles, and the latents' relative error of K1 and of
               the serving config with its units op by op; reported).
+              int8 (flagship): quantize_model of the serving bundle
+              (default calibration), its reconstruct of the batch with the
+              counters around it (K2 + split x1, K3 x1, the int8 product
+              once per conv site, no stage kernel); the int8 product
+              (im2col + torch._int_mm) bit-exact against its plain version
+              at every conv site shape of 8 x 10 s, and timed at the
+              batch's; drift against the float32 and "auto" paths
+              (reported); the float32 int8 path with nsc_tpu's scales on
+              both probes against reference_int8.npz (frame by frame
+              reported; its agreement with nsc_tpu's float32 indices gated
+              within INT8_AGREEMENT_TOL of nsc_tpu's int8 path's); the
+              port's calibration against nsc_tpu's scales (reported).
+              stacked: the float32 flagship with conv_backend "stacked",
+              latents within STACKED_LATENT_TOL x max|z| of "reference",
+              indices by the margin rule.
               streaming (flagship, 30 s of the speech probe in 1 s chunks):
               streaming_compress against compress (float32: the margin
               rule; serving: reported), streaming_decompress against
@@ -76,7 +93,13 @@ every plain version compared here run their float32 work under
               --streaming 1.0), decompress and eval --ceiling --json on a
               10 s WAV of the speech probe: each stream's indices and the
               decoded WAV against the same calls in this process, eval's
-              metrics finite.
+              metrics finite; compress and decompress --int8 against the
+              int8 bundle's calls in this process.
+              trace (reported): profiling.trace around one "auto" and one
+              int8 reconstruct of the batch and one streaming dispatch at
+              queue 1, each window's top 10 kernels and idle share.
+              doctor: `python3 -m nsc_tpu_torch doctor --json` in a fresh
+              process: rc 0, device "ok", the card's name.
               training: seeded full-width state, step-0 data init of the
               codebooks, 2 + 5 steps with the counters reset just before
               the data init and read after the last step; then the entry
@@ -96,17 +119,19 @@ every plain version compared here run their float32 work under
               steps, the float32 bundle of infer/ encoding as the final
               state, K2 + split x1 and K4 x12 per step (+ K2 x48 per data
               init), and the workdir served (K1 x8, K2 + split x1, K3 x1).
-              refit: 25,600 frames of synthetic2 through the flagship's
-              float32 encoder, refit_codebooks (k-means 10) between two
-              pool_reports: the residual MSE falls at every depth, every
-              K2 search held against plain and float64
-              (`hold_refit_search`), K2 + split x (16 x 11 + 2).
+              refit, for seeds 7 and 8: 25,600 frames of synthetic2 through
+              the flagship's float32 encoder, refit_codebooks (k-means 10)
+              between two pool_reports: the residual MSE falls at every
+              depth, every K2 search held against plain and float64
+              (`hold_refit_search`, 0 K2 errors), K2 + split x (16 x 11 + 2)
+              per seed.
               finetune: run_finetune on the flagship export, 4 steps at
               batch 64 x 1 s on synthetic2:pool=256, held-out mel every 2:
               only decoder leaves move, K2 + split x1 and K4 x12 per step
               (+ K2 x1 for the held-out batch), the workdir served
   5. timing   reconstruct wall time and real-time factor of each serving
-              path; streaming_compress and streaming_decompress real-time
+              path, of the flagship's "auto" and int8 serving bundles, and
+              of its float32 bundle with "reference" and "stacked" convs; streaming_compress and streaming_decompress real-time
               factors of the flagship's serving bundle at queue_chunks 4
               and 1, and K2 and K3 beside their plain versions (in turns)
               on one dispatch's inputs at each; the wall seconds of each
@@ -170,6 +195,11 @@ PEAK_BYTES = 3.35e12
 # the mel loss's gradient 1e-4 x max|g| against the plain path's.
 K1_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2e-2, 1e-3)}
 K2_NEAR_TIE = 1e-3
+# K2 rescores its shortlist exactly (float64 dot and score, rounded once),
+# so its winning scores lie within half a float32 ulp of the float64 score
+# of the same (frame, book, index) but for the float64 sum's own rounding:
+# gated at 2 ulps
+K2_SCORE_ULPS = 2.0
 K4_TOL = 1e-4
 LOSS_RTOL = 1e-5
 LOSS_GRAD_TOL = {"mel": 1e-4}
@@ -228,9 +258,29 @@ LOOP_STEPS, LOOP_KEEP, LOOP_POOL, SOURCE_BATCHES = 5, 2, 256, 2
 LOOP_ARGS = []
 SNAPSHOT_TURNS, SNAPSHOT_WINDOW = 6, 2
 # The flagship's refit (`refit_smoke`): REFIT_BATCHES x REFIT_BATCH x 1 s of
-# synthetic2 from REFIT_SEED (25,600 frames), k-means REFIT_ITERS
-# iterations, as the flagship's own refit (artifacts/.../meta.json: 10)
-REFIT_SEED, REFIT_BATCH, REFIT_BATCHES, REFIT_ITERS = 7, 64, 8, 10
+# synthetic2 from each of REFIT_SEEDS (25,600 frames), k-means REFIT_ITERS
+# iterations, as the flagship's own refit (artifacts/.../meta.json: 10).
+# Seed 8 is the refit on which K2 without its rescoring missed the float64
+# argmin (ROADMAP.md, C6).
+REFIT_SEEDS, REFIT_BATCH, REFIT_BATCHES, REFIT_ITERS = (7, 8), 64, 8, 10
+# int8 serving (`int8_smoke`): the int8 product held against its plain
+# version bit for bit at the conv sites of INT8_CHECK_ROWS x 10 s. The
+# int8 tensor-core peak (dense) bounds its operations.
+INT8_CHECK_ROWS = 8
+PEAK_INT8_OPS = 1979e12
+# The float32 int8 path with nsc_tpu's scales against nsc_tpu's CPU int8
+# reference (reference_int8.npz). Not frame by frame: each conv re-quantizes
+# its input, so a one-ulp float difference on a rounding boundary moves a
+# code by a step that spreads through the later convs, and nsc_tpu's own
+# int8 path, jitted against eager on the same CPU, differs on most frames of
+# 2 s of the noise probe (scripts/int8_reference_spread.py). Gated instead:
+# each path's index agreement with nsc_tpu's float32 reference
+# (reference_f32.npz), over all books and over book 0, within this of the
+# other's (on the CPU, 2 rows: 0.0003-0.0015 apart).
+INT8_AGREEMENT_TOL = 0.02
+# conv_backend "stacked" (`stacked_smoke`): the same float32 sums in another
+# order, ~1e-7 relative per conv through 30 convs
+STACKED_LATENT_TOL = 1e-5
 # The decoder finetune (`finetune_smoke`): FINETUNE_STEPS steps of
 # finetune_config(batch_size=64), held-out eval every 2 steps
 FINETUNE_STEPS = 4
@@ -239,6 +289,14 @@ FINETUNE_OVERRIDES = {}
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def f32_ulp(x):
+    """The float32 spacing at |x| (a float64 tensor), as float64."""
+    import torch
+
+    a = x.abs().float()
+    return (torch.nextafter(a, torch.full_like(a, float("inf"))) - a).double()
 
 
 def card_line() -> str:
@@ -1028,7 +1086,7 @@ def streaming_smoke(serve, f32, card, events_ms):
     return launches
 
 
-def cli_smoke(serve):
+def cli_smoke(serve, qserve):
     """`python3 -m nsc_tpu_torch` in subprocesses on a 10 s WAV of the
     speech probe: compress (batch and streaming) of the serving bundle, each
     stream's indices against the same encode in this process; decompress
@@ -1079,6 +1137,21 @@ def cli_smoke(serve):
         equal = got.shape == want.shape == wav.shape and bool(np.array_equal(got, want))
         emit({"phase": "cli", "what": "decompress_vs_in_process", "samples": got.shape[0], "equal": equal})
         check(equal, "CLI decompress: the WAV differs from the in-process decompress")
+        # --int8: the stream and the decoded WAV of the int8 serving bundle
+        # (quantize_model's default calibration) against the same calls here
+        int8_path, int8_wav = os.path.join(tmp, "int8.nsc"), os.path.join(tmp, "int8.wav")
+        run("compress", wav_path, int8_path, *model, "--int8")
+        run("decompress", int8_path, int8_wav, *model, "--int8")
+        blob = api.compress(qserve, wav)
+        with open(int8_path, "rb") as f:
+            same_stream = f.read() == blob
+        audio.save_wav(want_path, api.decompress(qserve, blob), serve.cfg.sample_rate)
+        got, want = audio.load_wav(int8_wav)[0], audio.load_wav(want_path)[0]
+        same_wav = got.shape == want.shape and bool(np.array_equal(got, want))
+        emit({"phase": "cli", "what": "int8_vs_in_process", "stream_equal": same_stream,
+              "wav_equal": same_wav})
+        check(same_stream and same_wav, "CLI --int8: the stream or the WAV differs from the "
+              "in-process calls")
         metrics = json.loads(run("eval", wav_path, "--ceiling", "--json", *model).strip().splitlines()[-1])
         emit({"phase": "cli", "what": "eval", "metrics": metrics})
         check(all(math.isfinite(v) for v in metrics.values() if isinstance(v, float)),
@@ -1394,11 +1467,12 @@ def loop_smoke(dev, wav, tmp, step_ms, card):
 
 
 def refit_smoke(dev, card):
-    """The flagship's codebook refit: latents of synthetic2 batches through
-    the float32 bundle, refit_codebooks (k-means 10) between two
-    pool_reports, the residual MSE falling at every depth, every K2 search
-    of the refit against quantize_plain (near-tie rule) and the launch
-    counts. Returns the launches."""
+    """The flagship's codebook refit, once per seed of REFIT_SEEDS: latents
+    of synthetic2 batches through the float32 bundle, refit_codebooks
+    (k-means 10) between two pool_reports, the residual MSE falling at
+    every depth, every K2 search of the refit against quantize_plain and,
+    past the near-tie rule, against float64 (`hold_refit_search`: 0 K2
+    errors), and the launch counts. Returns the launches of all seeds."""
     import numpy as np
     import torch
 
@@ -1409,54 +1483,61 @@ def refit_smoke(dev, card):
 
     f32 = api.load_model(FLAGSHIP, checkpoint=EXPORT, device=dev)
     cfg = f32.cfg
-    t0 = time.perf_counter()
-    batches = data_lib.make_source("synthetic2", cfg.sample_rate, REFIT_SEED).batches(
-        REFIT_BATCH, cfg.sample_rate)
-    pool = refit.collect_latents(f32, batches, REFIT_BATCHES)
-    torch.cuda.synchronize()
-    collect_s = time.perf_counter() - t0
-    kernels.reset_launches()
-    t0 = time.perf_counter()
-    before = refit.pool_report(f32.rvq, pool)
-    with recording(KR, ("quantize",)) as calls:
-        new = refit.refit_codebooks(f32.rvq, pool, kmeans_iters=REFIT_ITERS, seed=REFIT_SEED)
-    after = refit.pool_report(new, pool)
-    torch.cuda.synchronize()
-    refit_s = time.perf_counter() - t0
-    launches = dict(kernels.LAUNCHES)
-    n_q = cfg.num_quantizers
-    searches = n_q * (REFIT_ITERS + 1)
-    expect = dict.fromkeys(kernels.LAUNCHES, 0)
-    expect.update({"rvq_quantize": searches + 2, "rvq_split_planes": searches + 2})
-    flips = {"searches": len(calls["quantize"]), "frames": 0, "index_mismatches": 0,
-             "frames_differing": 0, "near_ties": 0, "k2_errors": 0,
-             "worst_first_mismatch_margin": 0.0, "past_near_tie": []}
-    for (books, z), idx in calls["quantize"]:
-        rec = hold_refit_search(books, z, idx)
-        flips["frames"] += z.shape[0]
-        for key in ("index_mismatches", "frames_differing", "near_ties", "k2_errors"):
-            flips[key] += rec[key]
-        flips["worst_first_mismatch_margin"] = max(flips["worst_first_mismatch_margin"],
-                                                   rec["worst_first_mismatch_margin"])
-        flips["past_near_tie"] += rec["past_near_tie"]
-    del calls
-    emit({"phase": "refit", "frames": int(pool.shape[0]), "kmeans_iters": REFIT_ITERS,
-          "before": before, "after": after, "collect_seconds": collect_s,
-          "refit_seconds": refit_s, "launches": launches, "card": card})
-    emit({"phase": "kernel_check", "kernel": "rvq_quantize", "on": "the refit's k-means searches "
-          "(trained flagship books)", **flips})
-    check(pool.shape[0] >= 25_000, f"refit: {pool.shape[0]} frames")
-    check(all(a < b for a, b in zip(after["residual_mse_per_depth"],
-                                     before["residual_mse_per_depth"])),
-          f"refit: residual MSE did not fall at every depth: {before} -> {after}")
-    check(flips["k2_errors"] == 0, "K2 refit search: an index differs where the plain version's "
-          f"margin is not below {K2_NEAR_TIE} and K2's pick is not within it of the float64 best: "
-          f"{flips['past_near_tie'][:8]}")
-    check(flips["searches"] == searches, f"refit: {flips['searches']} K2 searches, expected {searches}")
-    check(launches == expect, f"refit: launches {launches}, expected {expect}")
-    check(bool(np.isfinite(new["codebooks"].cpu().numpy()).all()), "refit: non-finite codebooks")
-    del f32, pool, new
-    return launches
+    total = dict.fromkeys(kernels.LAUNCHES, 0)
+    for seed in REFIT_SEEDS:
+        t0 = time.perf_counter()
+        batches = data_lib.make_source("synthetic2", cfg.sample_rate, seed).batches(
+            REFIT_BATCH, cfg.sample_rate)
+        pool = refit.collect_latents(f32, batches, REFIT_BATCHES)
+        torch.cuda.synchronize()
+        collect_s = time.perf_counter() - t0
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        before = refit.pool_report(f32.rvq, pool)
+        with recording(KR, ("quantize",)) as calls:
+            new = refit.refit_codebooks(f32.rvq, pool, kmeans_iters=REFIT_ITERS, seed=seed)
+        after = refit.pool_report(new, pool)
+        torch.cuda.synchronize()
+        refit_s = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        n_q = cfg.num_quantizers
+        searches = n_q * (REFIT_ITERS + 1)
+        expect = dict.fromkeys(kernels.LAUNCHES, 0)
+        expect.update({"rvq_quantize": searches + 2, "rvq_split_planes": searches + 2})
+        flips = {"searches": len(calls["quantize"]), "frames": 0, "index_mismatches": 0,
+                 "frames_differing": 0, "near_ties": 0, "k2_errors": 0,
+                 "worst_first_mismatch_margin": 0.0, "past_near_tie": []}
+        for (books, z), idx in calls["quantize"]:
+            rec = hold_refit_search(books, z, idx)
+            flips["frames"] += z.shape[0]
+            for key in ("index_mismatches", "frames_differing", "near_ties", "k2_errors"):
+                flips[key] += rec[key]
+            flips["worst_first_mismatch_margin"] = max(flips["worst_first_mismatch_margin"],
+                                                       rec["worst_first_mismatch_margin"])
+            flips["past_near_tie"] += rec["past_near_tie"]
+        del calls
+        emit({"phase": "refit", "seed": seed, "frames": int(pool.shape[0]),
+              "kmeans_iters": REFIT_ITERS, "before": before, "after": after,
+              "collect_seconds": collect_s, "refit_seconds": refit_s, "launches": launches,
+              "card": card})
+        emit({"phase": "kernel_check", "kernel": "rvq_quantize", "on": "the refit's k-means "
+              "searches (trained flagship books)", "seed": seed, **flips})
+        check(pool.shape[0] >= 25_000, f"refit: {pool.shape[0]} frames")
+        check(all(a < b for a, b in zip(after["residual_mse_per_depth"],
+                                         before["residual_mse_per_depth"])),
+              f"refit seed {seed}: residual MSE did not fall at every depth: {before} -> {after}")
+        check(flips["k2_errors"] == 0, f"K2 refit search, seed {seed}: an index differs where "
+              f"the plain version's margin is not below {K2_NEAR_TIE} and K2's pick is not "
+              f"within it of the float64 best: {flips['past_near_tie'][:8]}")
+        check(flips["searches"] == searches,
+              f"refit: {flips['searches']} K2 searches, expected {searches}")
+        check(launches == expect, f"refit: launches {launches}, expected {expect}")
+        check(bool(np.isfinite(new["codebooks"].cpu().numpy()).all()), "refit: non-finite codebooks")
+        for key, n in launches.items():
+            total[key] += n
+        del pool, new
+    del f32
+    return total
 
 
 def finetune_smoke(dev, wav, tmp, card):
@@ -1509,6 +1590,305 @@ def finetune_smoke(dev, wav, tmp, card):
           f"finetune: held-out rows {held}")
     check(launches == expect, f"finetune: launches {launches}, expected {expect}")
     return launches, serve_workdir(dev, wd, wav, "finetune")
+
+
+def drift(idx_a, idx_b, dec_a, dec_b) -> dict:
+    """Index agreement of two paths, and the divergence of their decodes of
+    the same indices."""
+    ref_rms = dec_b.pow(2).mean().sqrt().item()
+    return {"index_agreement": (idx_a == idx_b).float().mean().item(),
+            "decode_only_max_abs": (dec_a - dec_b).abs().max().item(),
+            "decode_only_rel_rms": ((dec_a - dec_b).pow(2).mean().sqrt().item()
+                                    / max(ref_rms, 1e-12))}
+
+
+def reconstruct_rtf(b, wav, reps=3) -> dict:
+    """Wall time and real-time factor of `b`'s reconstruct of `wav` (after
+    one warm call), host clock to a synchronize, mean of `reps`."""
+    import torch
+
+    b.model.reconstruct(b.params, b.rvq, wav)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        b.model.reconstruct(b.params, b.rvq, wav)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / reps
+    seconds = wav.shape[0] * wav.shape[1] / b.cfg.sample_rate
+    return {"wall_ms": wall * 1e3, "rtf": seconds / wall}
+
+
+def int8_product_shapes(dev, bundle, wav, events_ms, plain: bool) -> dict:
+    """The int8 product of every conv site of `bundle` (an int8 bundle) on
+    `wav`: one reconstruct, with the route's calls recorded by shape
+    (kind, x8, w8, stride, dilation) and counted. For each distinct shape:
+    the route's time, its bound (bytes: codes read once, int32 sums written
+    once, at the HBM rate; operations: the MACs at the int8 tensor-core
+    rate), and with `plain` its plain version's time and whether the two
+    agree bit for bit. Returns the per-shape records and per-reconstruct
+    sums (each shape's times its count)."""
+    import torch
+
+    from nsc_tpu_torch.ops import quant as Q
+
+    seen, counts = {}, {}
+    originals = (Q.int_conv1d, Q.int_conv_transpose1d)
+
+    def record(kind, fn):
+        def call(x8, w8, stride=1, dilation=1):
+            key = (kind, tuple(x8.shape), tuple(w8.shape), stride, dilation)
+            counts[key] = counts.get(key, 0) + 1
+            if key not in seen:
+                seen[key] = (x8.clone(), w8.clone())
+            return fn(x8, w8, stride, dilation) if kind == "conv" else fn(x8, w8, stride)
+        return call
+
+    Q.int_conv1d = record("conv", originals[0])
+    Q.int_conv_transpose1d = record("transpose", originals[1])
+    try:
+        bundle.model.reconstruct(bundle.params, bundle.rvq, wav)
+        torch.cuda.synchronize()
+    finally:
+        Q.int_conv1d, Q.int_conv_transpose1d = originals
+    rows, sums = [], {"ms": 0.0, "plain_ms": 0.0 if plain else None, "bound_ms": 0.0,
+                      "bytes_ms": 0.0, "ops_ms": 0.0, "bit_exact": True if plain else None}
+    for key, (x8, w8) in seen.items():
+        kind, _, _, stride, dilation = key
+        if kind == "conv":
+            route = lambda: Q.int_conv1d_mm(x8, w8, stride, dilation)  # noqa: E731
+            ref_fn = lambda: Q.int_conv1d_plain(x8, w8, stride, dilation)  # noqa: E731
+        else:
+            route = lambda: Q.int_conv_transpose1d_mm(x8, w8, stride)  # noqa: E731
+            ref_fn = lambda: Q.int_conv_transpose1d_plain(x8, w8, stride)  # noqa: E731
+        out = route()
+        torch.cuda.synchronize()
+        macs = out.numel() * (w8.numel() // out.shape[1]) if kind == "conv" else (
+            x8.shape[0] * x8.shape[2] * w8.numel())
+        b_ms = (x8.numel() + w8.numel() + 4 * out.numel()) / PEAK_BYTES * 1e3
+        o_ms = 2 * macs / PEAK_INT8_OPS * 1e3
+        rec = {"kind": kind, "x8": list(x8.shape), "w8": list(w8.shape), "stride": stride,
+               "dilation": dilation, "count": counts[key], "ms": events_ms(route, reps=5),
+               "bound_ms": max(b_ms, o_ms), "bound_by": "bytes" if b_ms > o_ms else "operations"}
+        if plain:
+            ref = ref_fn()
+            torch.cuda.synchronize()
+            rec["bit_exact"] = bool(torch.equal(out, ref))
+            rec["plain_ms"] = events_ms(ref_fn, reps=2)
+            sums["bit_exact"] &= rec["bit_exact"]
+            sums["plain_ms"] += counts[key] * rec["plain_ms"]
+            del ref
+        for k2, v in (("ms", rec["ms"]), ("bound_ms", rec["bound_ms"]), ("bytes_ms", b_ms),
+                      ("ops_ms", o_ms)):
+            sums[k2] += counts[key] * v
+        rows.append(rec)
+        del out
+    sums["sites"] = sum(counts.values())
+    sums["shapes"] = len(seen)
+    del seen
+    return {"shapes": rows, "per_reconstruct": sums}
+
+
+def int8_smoke(dev, serve, f32, wav_np, card, events_ms):
+    """int8 serving on the flagship: `quantize_model` of the serving bundle
+    (default calibration), its reconstruct of the 64 x 10 s batch with the
+    counters around it (K2 + split x1, K3 x1, the int8 product once per
+    conv site, no stage kernel); the int8 product against its plain version
+    bit for bit at every distinct conv site shape at B 8 x 10 s, and timed
+    at the 64 x 10 s batch's; index agreement and decode divergence against
+    the float32 and the bf16 "auto" paths (reported); the float32 int8 path
+    with nsc_tpu's scales (reference_int8.npz) on both probes under the
+    margin rule; the port's own scales against nsc_tpu's (reported).
+    Returns (the int8 serving bundle, its launches, its summary)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from nsc_tpu_torch import api, canonical, kernels
+    from nsc_tpu_torch.models.codec import NeuralSpeechCodec
+    from nsc_tpu_torch.ops import quant as Q
+
+    t0 = time.perf_counter()
+    qserve = api.quantize_model(serve)
+    torch.cuda.synchronize()
+    cal_s = time.perf_counter() - t0
+    n_sites = len(list(Q._conv_sites(qserve.params)))
+    check(qserve.model.kernels.units == "reference" and qserve.model.kernels.rvq
+          and qserve.cfg.compute_dtype == "bfloat16",
+          f"int8 serving bundle: {qserve.model.kernels}, {qserve.cfg.compute_dtype}")
+    wav = torch.from_numpy(wav_np).to(dev)
+    kernels.reset_launches()
+    out = qserve.model.reconstruct(qserve.params, qserve.rvq, wav)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    expect = dict.fromkeys(kernels.LAUNCHES, 0)
+    expect.update({"rvq_quantize": 1, "rvq_split_planes": 1, "rvq_dequantize": 1,
+                   "int_mm": n_sites})
+    emit({"phase": "int8", "what": "reconstruct", "sites": n_sites, "calibration_seconds": cal_s,
+          "shape": list(out.shape), "finite": bool(torch.isfinite(out).all().item()),
+          "launches": launches})
+    check(tuple(out.shape) == tuple(wav.shape) and torch.isfinite(out).all().item(),
+          "int8 reconstruct output")
+    check(launches == expect, f"int8 launch counts {launches}, expected {expect}")
+    del out
+
+    # the int8 product: bit-exact at every conv site shape of B 8 x 10 s,
+    # timed at the serving batch's
+    small = int8_product_shapes(dev, qserve, wav[:INT8_CHECK_ROWS], events_ms, plain=True)
+    for rec in small["shapes"]:
+        emit({"phase": "kernel_check", "kernel": "int8_product", "batch": INT8_CHECK_ROWS, **rec})
+    emit({"phase": "kernel_check", "kernel": "int8_product", "batch": INT8_CHECK_ROWS,
+          "per_reconstruct": small["per_reconstruct"], "card": card})
+    check(small["per_reconstruct"]["bit_exact"] and small["per_reconstruct"]["sites"] == n_sites,
+          "int8 product: the route differs from its plain version at a site shape")
+    full = int8_product_shapes(dev, qserve, wav, events_ms, plain=False)
+    emit({"phase": "timing", "kernel": "int8_product", "batch": wav.shape[0],
+          "shapes": full["shapes"], "per_reconstruct": full["per_reconstruct"], "card": card})
+
+    # drift against the float32 and the bf16 "auto" paths (reported)
+    idx_f = f32.model.encode(f32.params, f32.rvq, wav)
+    idx_q = qserve.model.encode(qserve.params, qserve.rvq, wav)
+    idx_s = serve.model.encode(serve.params, serve.rvq, wav)
+    dec_f = f32.model.decode(f32.params, f32.rvq, idx_f)
+    dec_q = qserve.model.decode(qserve.params, qserve.rvq, idx_f)
+    dec_s = serve.model.decode(serve.params, serve.rvq, idx_f)
+    emit({"phase": "int8", "what": "int8_vs_float32_and_auto",
+          "vs_float32": drift(idx_q, idx_f, dec_q, dec_f),
+          "vs_auto": drift(idx_q, idx_s, dec_q, dec_s),
+          "auto_vs_float32": drift(idx_s, idx_f, dec_s, dec_f)})
+    del idx_f, idx_q, idx_s, dec_f, dec_q, dec_s
+
+    # the float32 int8 path with nsc_tpu's scales against nsc_tpu's CPU
+    # int8 reference: frame by frame (reported), and by its fidelity to
+    # nsc_tpu's float32 indices (gated, see INT8_AGREEMENT_TOL)
+    with np.load(os.path.join(EXPORT, "reference_int8.npz"), allow_pickle=False) as z:
+        ref = {k: z[k] for k in z.files}
+    with np.load(os.path.join(EXPORT, "reference_f32.npz"), allow_pickle=False) as z:
+        ref_f32 = {k: z[k] for k in z.files}
+    check(int(ref["fingerprint"]) == api.codebook_fingerprint(f32.rvq),
+          "reference_int8.npz: other codebooks")
+    jax_scales = [torch.from_numpy(ref[f"a_s_{i}"]) for i in range(n_sites)]
+    q32 = api.ModelBundle(NeuralSpeechCodec(dataclasses.replace(f32.cfg, quant="int8")),
+                          Q.with_scales(f32.params, jax_scales), f32.rvq)
+    probes = {"noise": canonical.probe_input(f32.cfg), "speech": canonical.speech_probe_input(f32.cfg)}
+    for name, x in probes.items():
+        idx = api.encode(q32, x)
+        r8, rf = ref[f"indices_{name}"], ref_f32[f"indices_{name}"]
+        rec = first_flips(idx, r8, ref[f"margins_{name}"])
+        fidelity = {"port_int8": float((idx == rf).mean()), "nsc_tpu_int8": float((r8 == rf).mean()),
+                    "port_int8_book0": float((idx[..., 0] == rf[..., 0]).mean()),
+                    "nsc_tpu_int8_book0": float((r8[..., 0] == rf[..., 0]).mean())}
+        emit({"phase": "int8", "what": "float32_int8_vs_nsc_tpu_cpu_reference", "probe": name,
+              "rows": x.shape[0], **rec, "entries_equal": float((idx == r8).mean()),
+              "book0_equal": float((idx[..., 0] == r8[..., 0]).mean()),
+              "agreement_with_nsc_tpu_float32": fidelity})
+        for key in ("", "_book0"):
+            gap = abs(fidelity[f"port_int8{key}"] - fidelity[f"nsc_tpu_int8{key}"])
+            check(gap <= INT8_AGREEMENT_TOL, f"float32 int8 {name} probe: agreement with "
+                  f"nsc_tpu's float32 indices{key} {fidelity}, more than {INT8_AGREEMENT_TOL} "
+                  "from nsc_tpu's own int8 path's")
+
+    # the port's own calibration against nsc_tpu's scales (reported)
+    def scale_diff(b):
+        got = [s["a_s"].float().cpu() for s in Q._conv_sites(b.params)]
+        rel = [((g - j).abs() / j.abs().clamp_min(1e-30)).max().item()
+               for g, j in zip(got, jax_scales)]
+        return {"max_rel": max(rel), "median_rel": float(np.median(rel))}
+
+    emit({"phase": "int8", "what": "calibration_vs_nsc_tpu",
+          "float32": scale_diff(api.quantize_model(f32)), "serving_bf16": scale_diff(qserve)})
+    del q32
+    return qserve, launches, {"product": small["per_reconstruct"],
+                              "product_serving": full["per_reconstruct"]}
+
+
+def stacked_smoke(dev, f32, wav_np, card) -> dict:
+    """The float32 flagship with conv_backend "stacked": latents within
+    STACKED_LATENT_TOL x max|z| of "reference" on the 64 x 10 s batch,
+    indices by the margin rule against the reference path's, and both
+    paths' reconstruct RTF. Returns the RTFs."""
+    import dataclasses
+
+    import torch
+
+    from nsc_tpu_torch import api
+    from nsc_tpu_torch.models.codec import NeuralSpeechCodec
+    from nsc_tpu_torch.ops import rvq as rvq_ops
+
+    stk = api.ModelBundle(NeuralSpeechCodec(dataclasses.replace(f32.cfg, conv_backend="stacked")),
+                          f32.params, f32.rvq)
+    wav = torch.from_numpy(wav_np).to(dev)
+    z_ref = f32.model.latents(f32.params, wav)
+    z_stk = stk.model.latents(stk.params, wav)
+    err = (z_stk - z_ref).abs().max().item()
+    top = z_ref.abs().max().item()
+    margins = rvq_ops.argmin_margins(f32.rvq, z_ref).cpu().numpy()
+    rec = first_flips(stk.model.encode(stk.params, stk.rvq, wav).cpu().numpy(),
+                      f32.model.encode(f32.params, f32.rvq, wav).cpu().numpy(), margins)
+    rtf = {"reference": reconstruct_rtf(f32, wav), "stacked": reconstruct_rtf(stk, wav)}
+    emit({"phase": "stacked", "latent_max_abs_err": err, "latent_max_abs": top,
+          "latent_err_over_max": err / top, **rec})
+    emit({"phase": "timing", "what": "reconstruct", "path": "float32", "conv_backend": rtf,
+          "card": card})
+    check(err <= STACKED_LATENT_TOL * top,
+          f"stacked latents {err} from reference's, above {STACKED_LATENT_TOL} x {top}")
+    check(rec["ok"], f"stacked: an index differs from reference's where its margin is not "
+          f"below {K2_NEAR_TIE}")
+    del z_ref, z_stk, stk
+    return rtf
+
+
+def doctor_smoke(card) -> dict:
+    """`python3 -m nsc_tpu_torch doctor --json` in a fresh process: rc 0,
+    device_status "ok", the card's name."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "nsc_tpu_torch", "doctor", "--json"], cwd=root,
+                          capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    out = json.loads(proc.stdout.strip().splitlines()[-1]) if proc.stdout.strip() else {}
+    emit({"phase": "doctor", "rc": proc.returncode, "wall_seconds": wall, "report": out,
+          "stderr_tail": proc.stderr[-400:]})
+    check(proc.returncode == 0 and out.get("device_status") == "ok",
+          f"doctor: rc {proc.returncode}, {out}")
+    check(card.split(",")[0].strip() in out.get("devices", []), f"doctor: devices {out}")
+    return out
+
+
+def trace_smoke(serve, qserve, wav_np, card) -> dict:
+    """`profiling.trace` around one "auto" reconstruct of the batch, one
+    int8 reconstruct, and one streaming dispatch at queue 1 (after a warm
+    call of each): each window's top kernels by self time and its idle
+    share (`profiling.summarize`; reported, not gated)."""
+    import tempfile
+
+    import torch
+
+    from nsc_tpu_torch import api, canonical
+    from nsc_tpu_torch.utils import profiling
+
+    wav = torch.from_numpy(wav_np).to(serve.device)
+    one_s = canonical.speech_probe_input(serve.cfg, 1)[0, : int(STREAM_CHUNK_SECONDS * serve.cfg.sample_rate)]
+    runs = {
+        "auto_reconstruct": lambda: serve.model.reconstruct(serve.params, serve.rvq, wav),
+        "int8_reconstruct": lambda: qserve.model.reconstruct(qserve.params, qserve.rvq, wav),
+        "streaming_dispatch_queue1": lambda: api.streaming_compress(
+            serve, one_s, STREAM_CHUNK_SECONDS, queue_chunks=1),
+    }
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="nsc_trace_") as tmp:
+        for name, fn in runs.items():
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with profiling.trace(os.path.join(tmp, name)) as prof:
+                fn()
+            wall = time.perf_counter() - t0
+            summary = profiling.summarize(prof, top=10)
+            out[name] = summary
+            emit({"phase": "trace", "what": name, "traced_wall_ms": wall * 1e3, **summary,
+                  "card": card})
+    return out
 
 
 def main() -> int:
@@ -1575,6 +1955,15 @@ def main() -> int:
     for plan in ("resident", "streamed"):
         check(hmma.get(f"rvq_quantize<{plan}>", 0) > 0,
               f"rvq_quantize: no HMMA in the {plan} plan's kernel")
+    # K2's two plans after the rescoring: the resident plan must not spill
+    k2_plans = {plan: {"ptxas": [ln for ln in ptxas if ln.startswith(f"rvq_quantize<{plan}>")],
+                       "spill_bytes": spills.get(f"rvq_quantize<{plan}>")}
+                for plan in ("resident", "streamed")}
+    emit({"phase": "build", "kernel": "rvq_quantize", "plans": k2_plans,
+          "library": "built here" if ptxas else "reused (no ptxas output)"})
+    if ptxas:
+        check(k2_plans["resident"]["spill_bytes"] == [0, 0],
+              f"rvq_quantize<resident> spills: {k2_plans['resident']}")
 
     def events_ms(fn, reps=5):
         fn()
@@ -1712,16 +2101,19 @@ def main() -> int:
     csq = KR.codeword_sq_norms(books)
 
     def score_err(idx, best):
-        r, errs, top = z2d, [], 0.0
+        r, errs, ulps, top = z2d, [], [], 0.0
         for q in range(books.shape[0]):
             i = idx[:, q].long()
             c = books[q][i]
             s64 = csq[q][i].double() - 2.0 * (r.double() * c.double()).sum(-1)
-            errs.append((best[:, q].double() - s64).abs())
+            e = (best[:, q].double() - s64).abs()
+            errs.append(e)
+            ulps.append(e / f32_ulp(s64))
             top = max(top, s64.abs().max().item())
             r = r - c
-        e = torch.cat(errs)
-        return {"max": e.max().item(), "mean": e.mean().item(), "max_abs_score": top}
+        e, u = torch.cat(errs), torch.cat(ulps)
+        return {"max": e.max().item(), "mean": e.mean().item(), "max_abs_score": top,
+                "max_ulps": u.max().item()}
 
     with float32_numerics():
         r, best_p = z2d, []
@@ -1731,9 +2123,11 @@ def main() -> int:
             r = r - books[q][idx_p[:, q].long()]
             del sc
         best_p = torch.stack(best_p, dim=1)
+    k2_scores = {"kernel": score_err(idx_k, best_k), "plain": score_err(idx_p, best_p)}
     emit({"phase": "kernel_check", "kernel": "rvq_quantize", "plan": plan,
-          "score_abs_err_vs_float64": {"kernel": score_err(idx_k, best_k),
-                                       "plain": score_err(idx_p, best_p)}})
+          "score_abs_err_vs_float64": k2_scores})
+    check(k2_scores["kernel"]["max_ulps"] <= K2_SCORE_ULPS,
+          f"K2's winning scores lie {k2_scores['kernel']['max_ulps']} float32 ulps from float64")
     del idx_s, best_k, best_p, r
     # K2's first launch, the codebook split, against its plain version
     lib = _build.library()
@@ -1865,13 +2259,6 @@ def main() -> int:
     lat_f = f32.model.latents(f32.params, wav)
     margins = rvq_ops.argmin_margins(f32.rvq, lat_f).flatten()
 
-    def drift(idx_a, idx_b, dec_a, dec_b):
-        ref_rms = dec_b.pow(2).mean().sqrt().item()
-        return {"index_agreement": (idx_a == idx_b).float().mean().item(),
-                "decode_only_max_abs": (dec_a - dec_b).abs().max().item(),
-                "decode_only_rel_rms": ((dec_a - dec_b).pow(2).mean().sqrt().item()
-                                        / max(ref_rms, 1e-12))}
-
     idx_auto = model.encode(params, rvq, wav)
     dec_auto = model.decode(params, rvq, idx_f)
     for path, backend, _ in SERVING_PATHS:
@@ -1893,23 +2280,11 @@ def main() -> int:
     rtf = {}
     for path, backend, _ in SERVING_PATHS:
         b = bundles[path]
-
-        def recon():
-            return b.model.reconstruct(b.params, b.rvq, wav)
-
-        recon()
-        torch.cuda.synchronize()
-        reps = 3
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            recon()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) / reps
-        ev_ms = events_ms(recon, reps=reps)
-        rtf[path] = BATCH * SECONDS / wall
+        rec = reconstruct_rtf(b, wav)
+        ev_ms = events_ms(lambda: b.model.reconstruct(b.params, b.rvq, wav), reps=3)
+        rtf[path] = rec["rtf"]
         emit({"phase": "timing", "what": "reconstruct", "path": path, "unit_backend": backend,
-              "batch": BATCH, "seconds": SECONDS, "wall_ms": wall * 1e3, "event_ms": ev_ms,
-              "rtf": rtf[path], "card": card})
+              "batch": BATCH, "seconds": SECONDS, **rec, "event_ms": ev_ms, "card": card})
 
     def add(acc, ms, plain_ms, bytes_ms, ops_ms):
         for key, v in (("ms", ms), ("plain_ms", plain_ms), ("bytes_ms", bytes_ms),
@@ -1979,7 +2354,7 @@ def main() -> int:
               "card": card})
 
     m = z2d.shape[0]
-    q_ms = events_ms(lambda: KR.quantize(books, z2d))
+    q_ms = events_ms(lambda: KR.quantize(books, z2d), reps=20)
     q_plain = events_ms(lambda: KR.quantize_plain(books, z2d))
     q_bytes = (z2d.numel() + books.numel() + m * n_q) * 4
     # the dot products as six bf16 MMAs each (the planes the kernel runs) at
@@ -2055,14 +2430,27 @@ def main() -> int:
     # the trained flagship, streaming on it, and the CLI --------------------
     t_phase = time.perf_counter()
     serve, f32, flagship_launches = flagship_smoke(dev, wav_np)
+    t_int8 = time.perf_counter()
+    qserve, int8_launches, int8_summary = int8_smoke(dev, serve, f32, wav_np, card, events_ms)
+    stacked_rtf = stacked_smoke(dev, f32, wav_np, card)
+    wav = torch.from_numpy(wav_np).to(dev)
+    serving_rtf = {"auto": reconstruct_rtf(serve, wav), "int8": reconstruct_rtf(qserve, wav)}
+    emit({"phase": "timing", "what": "reconstruct", "bundle": "flagship serving",
+          "batch": BATCH, "seconds": SECONDS, **serving_rtf, "card": card})
+    del wav
+    t_stream = time.perf_counter()
     streaming_launches = streaming_smoke(serve, f32, card, events_ms)
     del f32
     t_cli = time.perf_counter()
-    cli_smoke(serve)
-    emit({"phase": "timing", "what": "flagship_streaming_cli",
-          "flagship_and_streaming_seconds": t_cli - t_phase,
-          "cli_seconds": time.perf_counter() - t_cli})
-    del serve
+    cli_smoke(serve, qserve)
+    t_trace = time.perf_counter()
+    trace_smoke(serve, qserve, wav_np, card)
+    doctor_smoke(card)
+    emit({"phase": "timing", "what": "flagship_int8_stacked_streaming_cli_trace_doctor",
+          "flagship_seconds": t_int8 - t_phase, "int8_and_stacked_seconds": t_stream - t_int8,
+          "streaming_seconds": t_cli - t_stream, "cli_seconds": t_trace - t_cli,
+          "trace_and_doctor_seconds": time.perf_counter() - t_trace})
+    del serve, qserve
     torch.cuda.empty_cache()
 
     with torch.enable_grad():
@@ -2090,7 +2478,7 @@ def main() -> int:
     del wav
     torch.cuda.empty_cache()
 
-    by_path = {**serving_launches, "flagship": flagship_launches,
+    by_path = {**serving_launches, "flagship": flagship_launches, "int8": int8_launches,
                "streaming": streaming_launches, "training": train_launches,
                "training_loop": loop_launches, "training_loop_serving": loop_serving,
                "refit": refit_launches, "finetune": finetune_launches,
@@ -2134,7 +2522,8 @@ def main() -> int:
         entry["launches_by_path"] = {path: n[entry["name"]] for path, n in by_path.items()}
         entry["launches"] = sum(entry["launches_by_path"].values())
     emit({"phase": "total", "seconds": time.perf_counter() - t_start,
-          "rtf": rtf})
+          "rtf": rtf, "flagship_rtf": serving_rtf, "float32_rtf_by_conv_backend": stacked_rtf,
+          "int8_product": int8_summary})
     emit(summary)
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

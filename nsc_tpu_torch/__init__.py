@@ -8,7 +8,9 @@ unless the caller passes `device="cpu"`. Importing the package builds
 nothing: the kernels are compiled on their first launch.
 """
 
-from nsc_tpu_torch.api import (  # noqa: F401
+__version__ = "0.1.0"
+
+from nsc_tpu_torch.api import (  # noqa: F401,E402
     ModelBundle,
     codebook_fingerprint,
     compress,
@@ -17,6 +19,7 @@ from nsc_tpu_torch.api import (  # noqa: F401
     encode,
     list_models,
     load_model,
+    quantize_model,
     serving_config,
     streaming_compress,
     streaming_decompress,

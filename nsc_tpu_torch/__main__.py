@@ -7,14 +7,23 @@
   python -m nsc_tpu_torch eval       ref.wav [deg.wav] [--model base] [--ceiling] [--json]
   python -m nsc_tpu_torch info       in.nsc
   python -m nsc_tpu_torch models
+  python -m nsc_tpu_torch doctor     [--timeout S] [--json] [--device cuda]
 
 Commands that run the model take --checkpoint (an export directory, of a JAX
 package checkpoint by `scripts/export_torch_checkpoint.py` or of the port's
 trainer, or a training workdir of the port, read from its `infer_best/`,
-else its `infer/`), --seed, --serving and
+else its `infer/`), --seed, --serving, --int8 (W8A8 int8 convs with
+statically calibrated activation scales, `api.quantize_model`) and
 --device (default cuda; there is no move to the CPU unless `--device cpu`
 is given). `eval` with one file scores a codec round trip of it; with two
 files it scores deg against ref directly.
+
+`doctor` reports versions, CUDA_VISIBLE_DEVICES and the kernel build
+directory, then touches the device twice under a deadline (its count and
+name, then a tiny op with a host readback): exit 0 when it answered, 97
+when it hung (`utils.liveness.EXIT_DEVICE_WEDGED`), 2 when the backend
+failed, CUDA being absent included. It never moves to the CPU unless
+`--device cpu` is given.
 """
 
 from __future__ import annotations
@@ -41,6 +50,11 @@ def _build_parser() -> argparse.ArgumentParser:
         )
         sp.add_argument("--device", default="cuda",
                         help="torch device; raises when CUDA is asked for and absent")
+        sp.add_argument(
+            "--int8", action="store_true",
+            help="W8A8 int8 convs with statically calibrated activation scales "
+            "(nsc_tpu_torch.quantize_model)",
+        )
 
     c = sub.add_parser("compress", help="wav -> nsc bitstream")
     c.add_argument("input"), c.add_argument("output")
@@ -100,6 +114,18 @@ def _build_parser() -> argparse.ArgumentParser:
     i.add_argument("input")
 
     sub.add_parser("models", help="list model configs")
+
+    doc = sub.add_parser(
+        "doctor",
+        help="environment and device diagnostics, each device touch under a deadline",
+    )
+    doc.add_argument(
+        "--timeout", type=float, default=None,
+        help="deadline of each device touch in seconds "
+        "(default NSC_DEVICE_CHECK_TIMEOUT or 420)",
+    )
+    doc.add_argument("--json", action="store_true")
+    doc.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
     return p
 
 
@@ -135,8 +161,76 @@ def _print_quality(ref, deg, sample_rate, as_json, extra=None) -> int:
     return 0
 
 
+def _doctor(args) -> int:
+    """Environment diagnostics with deadline-guarded device touches (see the
+    module doc). Exit 0, 97 (hung) or 2 (backend failed)."""
+    import json
+    import os
+
+    import numpy as np
+    import torch
+
+    import nsc_tpu_torch
+    from nsc_tpu_torch.kernels import _build
+    from nsc_tpu_torch.utils import liveness
+
+    built = sorted(str(p) for p in _build.BUILD_DIR.glob(f"*/{_build.LIB_NAME}"))
+    out: dict = {
+        "nsc_tpu_torch": getattr(nsc_tpu_torch, "__version__", "unknown"),
+        "torch": torch.__version__,
+        "cuda": torch.version.cuda,
+        "cudnn": torch.backends.cudnn.version(),
+        "numpy": np.__version__,
+        "cuda_visible_devices": os.environ.get("CUDA_VISIBLE_DEVICES"),
+        "kernel_build_dir": str(_build.BUILD_DIR),
+        "kernel_library_built": bool(built),
+        "kernel_libraries": built,
+    }
+    timeout = args.timeout if args.timeout is not None else float(
+        os.environ.get("NSC_DEVICE_CHECK_TIMEOUT", "420"))
+    dev = torch.device(args.device)
+
+    def touch():
+        if dev.type == "cuda":
+            if not torch.cuda.is_available():
+                raise RuntimeError("CUDA is not available (pass --device cpu for the CPU)")
+            n = torch.cuda.device_count()
+            return {"backend": "cuda", "device_count": n,
+                    "devices": [torch.cuda.get_device_name(i) for i in range(n)]}
+        return {"backend": dev.type, "device_count": 1, "devices": [str(dev)]}
+
+    # two touches, each under the deadline: the device query, then a tiny op
+    # with a host readback (a launch alone can return while the device is
+    # hung; the readback cannot)
+    rc = 0
+    status, value, _ = liveness.run_with_deadline(touch, timeout)
+    if status == "ok":
+        out.update(value)
+        status, value, _ = liveness.run_with_deadline(
+            lambda: liveness._default_probe(dev), timeout)
+    if status == "timeout":
+        out["device_status"] = "wedged"
+        out["device_detail"] = f"the device gave no answer in {timeout:.0f}s"
+        rc = liveness.EXIT_DEVICE_WEDGED
+    elif status == "error":
+        out["device_status"] = "error"
+        out["device_error"] = str(value)
+        rc = 2
+    else:
+        out["device_status"] = "ok"
+    if args.json:
+        print(json.dumps(out))
+    else:
+        for k, v in out.items():
+            print(f"{k:26s} {v}")
+    return rc
+
+
 def main(argv=None) -> int:
     args = _build_parser().parse_args(argv)
+
+    if args.cmd == "doctor":
+        return _doctor(args)
 
     if args.cmd == "models":
         from nsc_tpu_torch.configs import get_config, list_configs
@@ -182,6 +276,8 @@ def main(argv=None) -> int:
         args.model, checkpoint=args.checkpoint, seed=args.seed,
         serving=args.serving, device=args.device,
     )
+    if args.int8:
+        bundle = nt.quantize_model(bundle)
     sr = bundle.cfg.sample_rate
 
     if args.cmd == "compress":

@@ -118,6 +118,35 @@ def load_model(
     return bundle_from_jax(cfg, params, rvq, device=dev)
 
 
+def quantize_model(
+    bundle: ModelBundle, calibration_wavs=None, *, seconds: float = 2.0,
+    per_channel: bool = False,
+) -> ModelBundle:
+    """An int8 W8A8 serving bundle with statically calibrated activation
+    scales (`ops.quant`): the bundle's model with quant "int8" runs once,
+    eagerly on the bundle's device, over `calibration_wavs` (an iterable of
+    (N, T) float32 arrays; by default three batches of 2 x `seconds` of
+    `train.data.SyntheticSource(sample_rate, seed=0)`, as the JAX package
+    takes), and each conv site's input amax lands in the params as an "a_s"
+    leaf (per-channel vectors with per_channel=True). The convs then
+    quantize with those constant scales; the RVQ search and sum stay
+    float32 (K2, K3 where the bundle runs them)."""
+    from nsc_tpu_torch.ops import quant as Q
+
+    model = NeuralSpeechCodec(dataclasses.replace(bundle.cfg, quant="int8"))
+    if calibration_wavs is None:
+        from nsc_tpu_torch.train.data import SyntheticSource
+
+        cfg = bundle.cfg
+        src = SyntheticSource(cfg.sample_rate, seed=0)
+        seg = max(cfg.hop, int(seconds * cfg.sample_rate) // cfg.hop * cfg.hop)
+        it = src.batches(2, seg)
+        calibration_wavs = [next(it) for _ in range(3)]
+    params = Q.calibrate_codec(model, bundle.params, bundle.rvq, calibration_wavs,
+                               per_channel=per_channel)
+    return ModelBundle(model, params, bundle.rvq)
+
+
 # ---------------------------------------------------------------------------
 # padding
 # ---------------------------------------------------------------------------

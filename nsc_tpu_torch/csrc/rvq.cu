@@ -20,7 +20,17 @@
 // float32, and the score is one exact doubling and one rounded subtraction,
 // as in the plain version; what differs from it is the dot's summation
 // order and the tensor cores' accumulation, which need not round each
-// addition to nearest.
+// addition to nearest. Those differ from the float32 dot by up to a few
+// ulps of the score, biased toward zero on raw trained latents, so the
+// argmin of these scores alone can miss the float32 one by more than a
+// near-tie (refit searches of the trained flagship). So the tensor cores
+// only shortlist: each thread keeps, per frame, its best (score, index)
+// among its even codes and among its odd codes, so the book's codes fall
+// in 16 subsets of 64, each with its best; the frame's two best of those
+// 16 are scored again from the tile's exact float32 residual: the dot in float64 (each product exact, one rounding per
+// addition), ||c||^2 - 2 dot in float64, rounded once to float32. The
+// frame takes the lowest of those scores, lowest index on ties, and
+// best_out returns it.
 //
 // What bounds it on the H100: 2*M*K*D*n_q FLOP per plane product, six of
 // them at the bf16 tensor-core rate, against a few MB of device memory
@@ -46,18 +56,30 @@
 //     residual planes of its 64 dims beside the code planes (48 + 48 KB).
 //     The stage that opens a book is issued without its residual part,
 //     which is copied once the update has written it. So shared memory is
-//     199,168 bytes at every width, and no width is refused; the residual
-//     planes are read from L2 once per 128-code chunk. (ptxas, sm_90a: 241
-//     registers for the resident plan; 255 and a 232-byte spill for the
-//     streamed one.)
+//     213,504 bytes at every width, and no width is refused; the residual
+//     planes are read from L2 once per 128-code chunk. (ptxas, sm_90a,
+//     before the rescoring: 241 registers for the resident plan; 255 and a
+//     232-byte spill for the streamed one. chip_smoke.py's build line prints
+//     today's.)
 // The 8 warps are 4 (32 frames each) x 2 (64 codes of the chunk each);
 // fragments come by ldmatrix from XOR-swizzled rows (stage_units.cuh's
 // TmBuf), and those of the next 16-dim step are loaded between the plane
 // products of this one. After each chunk a warp turns its accumulators
-// into scores (with ||c||^2 loaded at the chunk's start) and keeps a
-// running (score, lowest index) per frame in registers; after the book the
-// four lanes that share a frame reduce by shuffles and the two warps that
-// share it through shared memory. The residual update gathers the chosen
+// into scores (with ||c||^2 loaded at the chunk's start) and keeps the
+// best (score, lowest index) of its even and of its odd codes per frame in
+// registers (the two indices packed in one word, so K <= 65,536: a score
+// costs the thread one compare and two selects, as a single running best
+// did); after the book every thread writes them to shared memory, and two
+// threads per frame take the frame's two best of its 16 and rescore one
+// each (the codeword from L2, the residual from its planes), then agree by
+// one shuffle. The shortlist always holds the
+// tensor-core argmin; it misses the tensor-core runner-up only where that
+// shares the argmin's subset (63 of the other 1,023 codes). A true top-2
+// per thread (two compares and up to six selects a score) cost 0.34 ms a
+// call at the serving shape on the H100. What the rescoring costs: two
+// codeword gathers of D floats and 2 D float64 FMAs per frame and book. A
+// shortlist of two sufficed on the refits of the trained flagship
+// (scripts/torch_refit_flips.py, seeds 7-10, as four did). The residual update gathers the chosen
 // codewords (float32, from L2, 16 bytes a load) with every thread of the
 // block. Codes past K in the last chunk are zero planes and score +inf, so
 // they never win; dims past D are zero planes.
@@ -114,6 +136,7 @@ constexpr int kMI = 2;          // m16 tiles per warp: 32 frames
 constexpr int kNJ = 8;          // n8 tiles per warp: 64 codes
 constexpr int kPlanes = 3;      // hi, mid, lo
 constexpr int kResidentDim = 128;  // widest padded D of the resident plan
+constexpr int kLists = 4 * kWN;    // threads holding a frame's candidates: 4 lanes x kWN warps
 constexpr int kStageElems = kPlanes * kNC * kKC;  // one stage's code (or residual) planes
 constexpr float kInf = __builtin_huge_valf();
 static_assert(kTM == kNC, "a stage's residual planes have the shape of its code planes");
@@ -124,15 +147,30 @@ __host__ __device__ inline bool streamed(int Dp) { return Dp > kResidentDim; }
 
 // shared memory of one block: the residuals' planes (resident plan), two
 // stages (code planes, and in the streamed plan the residual planes of the
-// same dims), and the cross-warp argmin scratch
+// same dims), the frames' candidate lists (kLists pairs of score and index
+// each) and the chosen indices
 __host__ __device__ inline int quantize_smem(int Dp) {
   const int resident = streamed(Dp) ? 0 : kTM * Dp * 2 * kPlanes;
   const int stage = (streamed(Dp) ? 2 : 1) * kStageElems * 2;
-  return resident + 2 * stage + kTM * (2 * kWN + 1) * 4;
+  return resident + 2 * stage + kTM * (2 * 2 * kLists + 1) * 4;
 }
 
 __device__ __forceinline__ bool better(float s, int k, float bs, int bk) {
   return s < bs || (s == bs && k < bk);
+}
+
+// 8 floats of a codeword row from d0 on (16-byte loads where D % 8 == 0),
+// 0 past D (no load at all from d0 >= D)
+__device__ __forceinline__ void load_code8(const float* src, int d0, int D, float (&c)[8]) {
+  if (D % 8 == 0 && d0 < D) {
+    const float4 lo = __ldg(reinterpret_cast<const float4*>(src));
+    const float4 hi = __ldg(reinterpret_cast<const float4*>(src + 4));
+    c[0] = lo.x; c[1] = lo.y; c[2] = lo.z; c[3] = lo.w;
+    c[4] = hi.x; c[5] = hi.y; c[6] = hi.z; c[7] = hi.w;
+  } else {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) c[e] = d0 + e < D ? __ldg(src + e) : 0.f;
+  }
 }
 
 // v -> bf16 bits of hi, mid, lo with hi + mid + lo == v (truncation)
@@ -282,6 +320,31 @@ __device__ __forceinline__ int group_off(const TmBuf& rb, int Dp, int row, int c
   return kStream ? row * Dp + c8 * 8 : rb.off(row, c8);
 }
 
+// The float64 dot of row `row` of the tile's residuals (its planes, as
+// store_group left them) with a codeword of D floats: each product exact,
+// one rounding per addition. 32 dims a round, the round's codeword loads
+// (from L2) issued before its products.
+template <bool kStream>
+__device__ __forceinline__ double exact_dot(const bf16* R, const TmBuf& rb, int Dp, int row,
+                                            const float* code, int D) {
+  double dot = 0.0;
+  for (int c0 = 0; c0 * 8 < D; c0 += 4) {
+    float c[4][8];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) load_code8(code + (c0 + u) * 8, (c0 + u) * 8, D, c[u]);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      if ((c0 + u) * 8 >= D) break;
+      float r[8];
+      load_group(R, Dp, group_off<kStream>(rb, Dp, row, c0 + u), r);
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        dot = fma(static_cast<double>(r[e]), static_cast<double>(c[u][e]), dot);
+    }
+  }
+  return dot;
+}
+
 // kStream: the streamed plan (Dp > kResidentDim), with rscratch one
 // [3][kTM][Dp] bf16 slot per block; the resident plan ignores rscratch.
 template <bool kStream>
@@ -293,9 +356,9 @@ __global__ void __launch_bounds__(kQThreads, 1) rvq_quantize_kernel(
   extern __shared__ __align__(16) unsigned char smraw[];
   bf16* Rp = reinterpret_cast<bf16*>(smraw);  // resident: [3][kTM][Dp], swizzled
   bf16* Cs = kStream ? Rp : Rp + kPlanes * kTM * Dp;  // [2][kStage], swizzled
-  float* red_s = reinterpret_cast<float*>(Cs + 2 * kStage);  // [kTM][kWN]
-  int* red_k = reinterpret_cast<int*>(red_s + kWN * kTM);    // [kTM][kWN]
-  int* chosen = red_k + kWN * kTM;                           // [kTM]
+  float* cand_s = reinterpret_cast<float*>(Cs + 2 * kStage);  // [kTM][kLists][2]
+  int* cand_k = reinterpret_cast<int*>(cand_s + kTM * kLists * 2);  // [kTM][kLists][2]
+  int* chosen = cand_k + kTM * kLists * 2;                            // [kTM]
   // where the residual groups live: this block's device-memory slot, or Rp
   bf16* Rg = kStream ? rscratch + static_cast<size_t>(blockIdx.x) * kPlanes * kTM * Dp : nullptr;
   bf16* R = kStream ? Rg : Rp;
@@ -325,8 +388,8 @@ __global__ void __launch_bounds__(kQThreads, 1) rvq_quantize_kernel(
     issue_stage<kStream>(Cs, planes, Rg, st, Kp, Dp, true);
 
     float acc[kMI][kNJ][4];
-    float bs[kMI][2];  // running best score and index of this thread's frames
-    int bk[kMI][2];
+    float bs[kMI][2][2];  // per frame, the best score of this thread's even and odd codes
+    uint32_t bk[kMI][2];  // and their indices, the even's | the odd's << 16
     float c2[kNJ][2];  // ||c||^2 of this thread's codes of the chunk, +inf past K
 #pragma unroll
     for (int mi = 0; mi < kMI; ++mi) {
@@ -334,8 +397,11 @@ __global__ void __launch_bounds__(kQThreads, 1) rvq_quantize_kernel(
       for (int j = 0; j < kNJ; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[mi][j][e] = 0.f;
-      bs[mi][0] = bs[mi][1] = kInf;
-      bk[mi][0] = bk[mi][1] = 0;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        bs[mi][h][0] = bs[mi][h][1] = kInf;
+        bk[mi][h] = 0;
+      }
     }
 
     for (int s = 0; s < total; ++s, st = st.next(nch, nkd, Dp)) {
@@ -415,9 +481,10 @@ __global__ void __launch_bounds__(kQThreads, 1) rvq_quantize_kernel(
 #pragma unroll
               for (int h = 0; h < 2; ++h) {
                 const float sc = fmaf(-2.0f, acc[mi][j][2 * h + e], c2[j][e]);
-                if (sc < bs[mi][h]) {
-                  bs[mi][h] = sc;
-                  bk[mi][h] = code;
+                if (sc < bs[mi][h][e]) {
+                  bs[mi][h][e] = sc;
+                  bk[mi][h] = e ? (bk[mi][h] & 0xffffu) | (static_cast<uint32_t>(code) << 16)
+                                : (bk[mi][h] & 0xffff0000u) | static_cast<uint32_t>(code);
                 }
               }
           }
@@ -430,44 +497,63 @@ __global__ void __launch_bounds__(kQThreads, 1) rvq_quantize_kernel(
       }
 
       if (st.c == nch - 1 && st.kd == nkd - 1) {
-        // the book's argmin: the 4 lanes of a frame, then its kWN warps
+        // every thread's best even and odd code of each of its frames into
+        // the frame's lists (one that never took a code scores +inf)
 #pragma unroll
         for (int mi = 0; mi < kMI; ++mi)
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
-            float v = bs[mi][h];
-            int k = bk[mi][h];
-#pragma unroll
-            for (int o = 1; o <= 2; o <<= 1) {
-              const float ov = __shfl_xor_sync(0xffffffffu, v, o);
-              const int ok = __shfl_xor_sync(0xffffffffu, k, o);
-              if (better(ov, ok, v, k)) {
-                v = ov;
-                k = ok;
-              }
-            }
-            if ((lane & 3) == 0) {
-              const int row = wm * 32 + mi * 16 + (lane >> 2) + 8 * h;
-              red_s[row * kWN + wn] = v;
-              red_k[row * kWN + wn] = k;
-            }
-            bs[mi][h] = kInf;
+            const int row = wm * 32 + mi * 16 + (lane >> 2) + 8 * h;
+            const int at = (row * kLists + wn * 4 + (lane & 3)) * 2;
+            cand_s[at] = bs[mi][h][0];
+            cand_s[at + 1] = bs[mi][h][1];
+            cand_k[at] = static_cast<int>(bk[mi][h] & 0xffffu);
+            cand_k[at + 1] = static_cast<int>(bk[mi][h] >> 16);
+            bs[mi][h][0] = bs[mi][h][1] = kInf;
             bk[mi][h] = 0;
           }
         __syncthreads();
-        if (tid < kTM) {
-          float v = red_s[tid * kWN];
-          int k = red_k[tid * kWN];
-#pragma unroll
-          for (int w = 1; w < kWN; ++w)
-            if (better(red_s[tid * kWN + w], red_k[tid * kWN + w], v, k)) {
-              v = red_s[tid * kWN + w];
-              k = red_k[tid * kWN + w];
+        {
+          // two threads per frame: both take the frame's two best of its
+          // 2 x kLists by tensor-core score, and each rescores one of them
+          const int row = tid >> 1, part = tid & 1;
+          float ts[2] = {kInf, kInf};
+          int tk[2] = {0x7fffffff, 0x7fffffff};
+          for (int i = 0; i < 2 * kLists; ++i) {
+            const float cs_i = cand_s[row * 2 * kLists + i];
+            const int ck_i = cand_k[row * 2 * kLists + i];
+            if (!(cs_i < kInf)) continue;
+            if (better(cs_i, ck_i, ts[0], tk[0])) {
+              ts[1] = ts[0];
+              tk[1] = tk[0];
+              ts[0] = cs_i;
+              tk[0] = ck_i;
+            } else if (better(cs_i, ck_i, ts[1], tk[1])) {
+              ts[1] = cs_i;
+              tk[1] = ck_i;
             }
-          chosen[tid] = k;
-          if (m0 + tid < M) {
-            idx[static_cast<size_t>(m0 + tid) * n_q + st.q] = k;
-            if (best_out != nullptr) best_out[static_cast<size_t>(m0 + tid) * n_q + st.q] = v;
+          }
+          float v = kInf;
+          int k = part ? tk[1] : tk[0];
+          if ((part ? ts[1] : ts[0]) < kInf) {
+            const double dot = exact_dot<kStream>(
+                R, rb, Dp, row, cb + (static_cast<size_t>(st.q) * K + k) * D, D);
+            v = __double2float_rn(static_cast<double>(__ldg(csq + static_cast<size_t>(st.q) * K + k)) -
+                                  2.0 * dot);
+          }
+          const float ov = __shfl_xor_sync(0xffffffffu, v, 1);
+          const int ok = __shfl_xor_sync(0xffffffffu, k, 1);
+          if (better(ov, ok, v, k)) {
+            v = ov;
+            k = ok;
+          }
+          if (k == 0x7fffffff) k = 0;  // no code scored below +inf
+          if (part == 0) {
+            chosen[row] = k;
+            if (m0 + row < M) {
+              idx[static_cast<size_t>(m0 + row) * n_q + st.q] = k;
+              if (best_out != nullptr) best_out[static_cast<size_t>(m0 + row) * n_q + st.q] = v;
+            }
           }
         }
         __syncthreads();
@@ -485,15 +571,7 @@ __global__ void __launch_bounds__(kQThreads, 1) rvq_quantize_kernel(
               const int g = g0 + u * kQThreads;
               const int row = g / c8n, d0 = (g - row * c8n) * 8;
               const float* src = book + static_cast<size_t>(chosen[row < kTM ? row : 0]) * D + d0;
-              if (g < kTM * c8n && d0 < D && D % 8 == 0) {
-                const float4 lo = __ldg(reinterpret_cast<const float4*>(src));
-                const float4 hi = __ldg(reinterpret_cast<const float4*>(src + 4));
-                c[u][0] = lo.x; c[u][1] = lo.y; c[u][2] = lo.z; c[u][3] = lo.w;
-                c[u][4] = hi.x; c[u][5] = hi.y; c[u][6] = hi.z; c[u][7] = hi.w;
-              } else {
-#pragma unroll
-                for (int e = 0; e < 8; ++e) c[u][e] = g < kTM * c8n && d0 + e < D ? src[e] : 0.f;
-              }
+              load_code8(src, g < kTM * c8n ? d0 : D, D, c[u]);
             }
 #pragma unroll
             for (int u = 0; u < kG; ++u) {
@@ -686,13 +764,15 @@ bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 // scratch: for Dp > 128 (the streamed plan) scratch_blocks slots of
 // 3 x 128 x Dp bf16, and the grid takes at most scratch_blocks blocks;
 // ignored otherwise (may be null); idx (M, n_q) int32; best (M, n_q)
-// float32, the winning scores, or null. Kp a multiple of 128, Dp a
-// multiple of 16, Dp >= D. Returns the launch's cudaError_t.
+// float32, the winning (rescored) scores, or null. Kp a multiple of 128
+// and at most 65,536, Dp a multiple of 16, Dp >= D.
+// Returns the launch's cudaError_t.
 extern "C" int nsc_rvq_quantize(const void* z, const void* planes, const void* cb,
                                 const void* csq, void* scratch, void* idx, void* best, int M,
                                 int n_q, int K, int D, int Kp, int Dp, int scratch_blocks,
                                 void* stream) {
-  if (M < 1 || n_q < 1 || K < 1 || D < 1 || Dp < D || Dp % 16 != 0 || Kp < K || Kp % kNC != 0)
+  if (M < 1 || n_q < 1 || K < 1 || D < 1 || Dp < D || Dp % 16 != 0 || Kp < K || Kp % kNC != 0 ||
+      Kp > 65536)
     return static_cast<int>(cudaErrorInvalidValue);
   if (streamed(Dp) && (scratch == nullptr || scratch_blocks < 1))
     return static_cast<int>(cudaErrorInvalidValue);

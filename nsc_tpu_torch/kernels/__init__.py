@@ -7,6 +7,9 @@ or raises. `LAUNCHES` counts kernel launches per wrapper, so a run can show
 that it went through the kernels.
 """
 
+# "int_mm" counts the int8 products of `ops.quant` on CUDA: library calls
+# (torch._int_mm), not kernels of this package; the JAX package computes
+# that product outside any Pallas kernel.
 LAUNCHES = {
     "residual_stack": 0,
     "rvq_quantize": 0,
@@ -16,6 +19,7 @@ LAUNCHES = {
     "stft_magnitude_dft": 0,
     "residual_stack_cl": 0,
     "fused_stage": 0,
+    "int_mm": 0,
 }
 
 

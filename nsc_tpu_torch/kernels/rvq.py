@@ -11,9 +11,14 @@ splits the codebooks into exact bf16 planes hi + mid + lo (once per call,
 with a small split kernel; `codebook_planes` is its plain version), the
 kernel splits each book's residuals the same way, and six of the nine
 plane products (lo.hi, hi.lo, mid.mid, mid.hi, hi.mid, hi.hi, smallest
-first) are accumulated in float32. So the kernel's dot differs from the
-float32 one by its summation order, the tensor cores' accumulation and the
-three dropped products (below ~3 x 2^-24 of |r||c|). It takes every width:
+first) are accumulated in float32. Those scores only shortlist: they
+differ from the float32 ones by the summation order, the tensor cores'
+accumulation and the three dropped products, by up to a few ulps on raw
+trained latents. The best code of each of 16 subsets of the book (a
+thread's even or odd codes) goes on a list, the frame's two best of the
+list are scored again from the exact float32 residual (the dot and
+||c||^2 - 2 dot in float64, rounded once to float32), and the frame takes
+the lowest of those, lowest index on ties. It takes every width:
 padded widths up to RESIDENT_DIM keep the tile's residual planes in shared
 memory, wider ones stream them from a scratch in device memory that the
 wrapper allocates (`quantize_plan`).
@@ -43,6 +48,8 @@ DIM_ALIGN = 16
 # copied from a slot of 3 x TILE_M x Dp bf16 per block in device memory that
 # the wrapper allocates ("streamed").
 RESIDENT_DIM = 128
+# The kernel packs two code indices into one 32-bit word.
+MAX_CODES = 65536
 
 
 def codeword_sq_norms(codebooks: torch.Tensor) -> torch.Tensor:
@@ -129,8 +136,9 @@ def _check_quantize(codebooks: torch.Tensor, z: torch.Tensor) -> None:
     and (M, D) float32 frames, both contiguous on z's device."""
     _check_books(codebooks, z.device)
     n_q, k, d = codebooks.shape
-    if min(n_q, k, d) < 1:
-        raise ValueError(f"quantize kernel takes n_q, K, D >= 1, got {tuple(codebooks.shape)}")
+    if min(n_q, k, d) < 1 or padded_shape(k, d)[0] > MAX_CODES:
+        raise ValueError(f"quantize kernel takes n_q, K, D >= 1 and K <= {MAX_CODES}, got "
+                         f"{tuple(codebooks.shape)}")
     if z.dim() != 2 or z.shape[1] != d or z.dtype != torch.float32:
         raise ValueError(f"z must be (M, {d}) float32, got {tuple(z.shape)} {z.dtype}")
     if not z.is_contiguous():

@@ -64,10 +64,8 @@ class NeuralSpeechCodec:
     kernels: Optional[KernelOptions] = None
 
     def __post_init__(self):
-        if self.cfg.quant != "none":
-            raise NotImplementedError(
-                f"quant={self.cfg.quant!r} is not ported yet"
-            )
+        if self.cfg.quant not in ("none", "int8"):
+            raise ValueError(f"quant must be 'none' or 'int8', got {self.cfg.quant!r}")
         if self.kernels is None:
             object.__setattr__(self, "kernels", KernelOptions.for_config(self.cfg))
 

@@ -19,7 +19,12 @@ package's gates and names where the stages' residual units run:
   "reference"          op by op (also where a gate fails).
 
 The standalone activations and convs between kernels stay plain PyTorch
-ops.
+ops. Each conv goes through `_conv` / `_conv_transpose`, the JAX package's
+dispatch: int8 W8A8 (`ops.quant`) when cfg.quant is "int8", else the
+stacked matmul forms (`ops.fastconv`) for causal convs when
+cfg.conv_backend is "stacked", else `ops.conv`. An int8 or "stacked"
+config runs its units op by op or, with "stacked", through K1/K6 (which
+take the units' convs themselves); K5 needs "reference" convs.
 
 Params (see `nsc_tpu_torch.weights`): conv {'w': (Cout, Cin, K), 'b'},
 transposed conv {'w': (Cin, Cout, K), 'b'}, activation alpha (C,) or None,
@@ -40,6 +45,8 @@ from nsc_tpu_torch.configs import CodecConfig
 from nsc_tpu_torch.kernels import fused_stage as FS
 from nsc_tpu_torch.kernels import residual_stack as RS
 from nsc_tpu_torch.ops import conv as C
+from nsc_tpu_torch.ops import fastconv as FC
+from nsc_tpu_torch.ops import quant as Q
 
 Params = Dict[str, Any]
 
@@ -50,6 +57,27 @@ def _pad_mode(cfg: CodecConfig) -> str:
 
 def _act(cfg: CodecConfig, x: torch.Tensor, alpha) -> torch.Tensor:
     return C.activation(cfg.activation, x, alpha)
+
+
+def _conv(cfg: CodecConfig, x: torch.Tensor, p: Params, *, stride: int = 1,
+          dilation: int = 1, padding: str = "causal") -> torch.Tensor:
+    """Conv dispatch: int8 W8A8, the stacked matmul (causal only), or the
+    plain conv."""
+    if cfg.quant == "int8":
+        return Q.conv1d_int8(x, p, stride=stride, dilation=dilation, padding=padding)
+    if cfg.conv_backend == "stacked" and padding == "causal":
+        return FC.stacked_conv1d(x, p, stride=stride, dilation=dilation, stack=cfg.conv_stack)
+    return C.conv1d(x, p, stride=stride, dilation=dilation, padding=padding)
+
+
+def _conv_transpose(cfg: CodecConfig, x: torch.Tensor, p: Params, *, stride: int) -> torch.Tensor:
+    """Transposed conv dispatch: int8 or polyphase when causal, else the
+    plain one."""
+    if cfg.quant == "int8" and cfg.causal:
+        return Q.conv_transpose1d_int8(x, p, stride=stride)
+    if cfg.conv_backend == "stacked" and cfg.causal:
+        return FC.polyphase_conv_transpose1d(x, p, stride=stride)
+    return C.conv_transpose1d(x, p, stride=stride, causal=cfg.causal)
 
 
 UNIT_ROUTES = ("reference", "residual_stack", "residual_stack_cl", "fused_stage")
@@ -133,9 +161,9 @@ def _apply_residual_unit(
     p: Params, x: torch.Tensor, dilation: int, cfg: CodecConfig, padding: str
 ) -> torch.Tensor:
     h = _act(cfg, x, p["act1"])
-    h = C.conv1d(h, p["conv1"], dilation=dilation, padding=padding)
+    h = _conv(cfg, h, p["conv1"], dilation=dilation, padding=padding)
     h = _act(cfg, h, p["act2"])
-    h = C.conv1d(h, p["conv2"], padding=padding)
+    h = _conv(cfg, h, p["conv2"], padding=padding)
     return x + h
 
 
@@ -210,15 +238,15 @@ def apply_encoder(
     """(N, 1, T) waveform -> (N, latent_dim, T/hop) latents; `units` is the
     route of the residual units (`unit_route`)."""
     pad = _pad_mode(cfg)
-    h = C.conv1d(x, p["stem"], padding=pad)
+    h = _conv(cfg, x, p["stem"], padding=pad)
     if units == "fused_stage":
         return apply_encoder_fused(p, h, cfg)
     for stage, stride in zip(p["stages"], cfg.strides):
         h = _unit_stack(cfg, h, stage, pad, units)
         h = _act(cfg, h, stage["down_act"])
-        h = C.conv1d(h, stage["down"], stride=stride, padding=pad)
+        h = _conv(cfg, h, stage["down"], stride=stride, padding=pad)
     h = _act(cfg, h, p["final_act"])
-    return C.conv1d(h, p["final"], padding=pad)
+    return _conv(cfg, h, p["final"], padding=pad)
 
 
 def apply_encoder_fused(p: Params, h: torch.Tensor, cfg: CodecConfig) -> torch.Tensor:
@@ -243,13 +271,13 @@ def apply_decoder(
     if units == "fused_stage":
         return apply_decoder_fused(p, z, cfg)
     pad = _pad_mode(cfg)
-    h = C.conv1d(z, p["stem"], padding=pad)
+    h = _conv(cfg, z, p["stem"], padding=pad)
     for stage, stride in zip(p["stages"], reversed(cfg.strides)):
         h = _act(cfg, h, stage["up_act"])
-        h = C.conv_transpose1d(h, stage["up"], stride=stride, causal=cfg.causal)
+        h = _conv_transpose(cfg, h, stage["up"], stride=stride)
         h = _unit_stack(cfg, h, stage, pad, units)
     h = _act(cfg, h, p["final_act"])
-    h = C.conv1d(h, p["final"], padding=pad)
+    h = _conv(cfg, h, p["final"], padding=pad)
     return torch.tanh(h)
 
 

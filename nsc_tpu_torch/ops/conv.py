@@ -54,17 +54,26 @@ def materialize_weight(params: Params) -> torch.Tensor:
     return v * (g[None, None, :] / norm)
 
 
+def _with_scale(out: Params, p: Params) -> Params:
+    """Carry an int8 calibration leaf ("a_s", `ops.quant`) across."""
+    if "a_s" in p:
+        out["a_s"] = p["a_s"]
+    return out
+
+
 def conv_params(p: Params) -> Params:
     """A conv in the JAX package's layout ({'v', 'g', 'b'} or {'w', 'b'},
-    weight (K, Cin, Cout)) -> {'w': (Cout, Cin, K), 'b'}. Differentiable:
-    training materializes weight-norm on every step through it."""
-    return {"w": materialize_weight(p).permute(2, 1, 0).contiguous(), "b": p["b"]}
+    weight (K, Cin, Cout), and an "a_s" leaf if calibrated) -> {'w': (Cout,
+    Cin, K), 'b'[, 'a_s']}. Differentiable: training materializes
+    weight-norm on every step through it."""
+    return _with_scale({"w": materialize_weight(p).permute(2, 1, 0).contiguous(), "b": p["b"]}, p)
 
 
 def conv_transpose_params(p: Params) -> Params:
     """A transposed conv in the JAX package's layout -> {'w': (Cin, Cout, K),
-    'b'}; the weight-norm is per output channel, as in the JAX package."""
-    return {"w": materialize_weight(p).permute(1, 2, 0).contiguous(), "b": p["b"]}
+    'b'[, 'a_s']}; the weight-norm is per output channel, as in the JAX
+    package."""
+    return _with_scale({"w": materialize_weight(p).permute(1, 2, 0).contiguous(), "b": p["b"]}, p)
 
 
 def conv1d(

@@ -17,6 +17,12 @@ go through `ops.rvq` with the model's RVQ kernel option, as
 `NeuralSpeechCodec.encode`/`decode` do: a serving bundle launches K2 and K3
 once per push. Each push runs under `float32_numerics` (no TF32).
 
+The streaming convs are the float convs whatever the config's `quant` and
+`conv_backend`, as the JAX package's streaming convs (which call
+`ops.conv.conv1d` directly): an int8 bundle streams through its float
+weights (its "a_s" leaves unread), so it gives what its float bundle
+streams, not what its int8 batch path gives.
+
 A bf16 config's convs take their operands, the bf16 activations and the
 weights rounded to bf16, exactly into float32, sum the products in float32
 and round the result to bf16 once: a bf16 conv's arithmetic, with a

@@ -10,7 +10,9 @@ Inference exports, in the format `scripts/export_torch_checkpoint.py`
 writes for a JAX package checkpoint: `weights.npz` (float32 arrays keyed by
 their tree path, "params/encoder/stem/v", "rvq/codebooks") and `meta.json`
 (config, step, source, codebook fingerprint, the npz's sha256, the number
-of values, and for a training run its data spec). `save_inference` writes
+of values, and for a training run its data spec). A conv of an int8
+calibrated tree carries its "a_s" leaf (`ops.quant`) through the export:
+a scalar, or one value per input channel. `save_inference` writes
 one under `<directory>/<step>/` and keeps the newest 3, as orbax's default
 does. `restore_inference` and `export_meta` take an export directory, such
 a step directory's parent, or a training workdir, which resolves to the
@@ -247,7 +249,17 @@ def restore_inference(directory: str) -> Tuple[dict, dict]:
 
     def fill(tree, prefix):
         if isinstance(tree, dict):
-            return {k: fill(v, f"{prefix}/{k}") for k, v in tree.items()}
+            out = {k: fill(v, f"{prefix}/{k}") for k, v in tree.items()}
+            scale = arrays.pop(f"{prefix}/a_s", None)
+            if scale is not None:
+                w = tree.get("v", tree.get("w"))
+                if w is None or scale.dtype != np.float32 or scale.shape not in ((), np.shape(w)[1:2]):
+                    raise ValueError(
+                        f"{path}: {prefix}/a_s is {scale.dtype}{list(scale.shape)}, not the "
+                        f"calibration scale of a conv"
+                    )
+                out["a_s"] = scale
+            return out
         if isinstance(tree, (list, tuple)):
             return type(tree)(fill(v, f"{prefix}/{i}") for i, v in enumerate(tree))
         if tree is None:

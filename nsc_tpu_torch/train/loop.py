@@ -28,16 +28,34 @@ on the CPU. In `<workdir>`:
                   it and survives restarts
 
 On a CUDA device the snapshots are written by a thread (`SnapshotWriter`),
-inline on the CPU; the final save is inline everywhere. Not ported yet:
-data parallelism (A14); the liveness probe, heartbeat, host-RSS guard and
-`--debug-nans` (A17); the tensorboard writer of the JAX package's
-`MetricsLogger`.
+inline on the CPU; the final save is inline everywhere.
+
+Liveness (`utils/liveness.py`, the JAX package's guards): a deadline-
+guarded probe of the device before any start-up work (exit 97 when it
+hangs); on a CUDA device, where the snapshots run on a thread, a
+`Heartbeat` beaten at every log row and checkpoint boundary (exit 98 after
+a silence); and at each checkpoint boundary before the last, when the
+host's RSS is above `rss_exit_limit_gb()`, a synchronous full save and
+exit 99, for a relaunch that resumes.
+
+`--debug-nans` (the counterpart of `jax_debug_nans`): every step runs
+under `torch.autograd.detect_anomaly`, so a backward function that returns
+a NaN raises, and every step's losses and metrics are read back and checked;
+the first non-finite one raises `FloatingPointError` naming the step (and
+the metric, or the backward function). What it does not see, unlike
+`jax_debug_nans`: a NaN or inf in forward values that no metric reports
+and no gradient carries (the RVQ's EMA statistics, the optimizer's
+update), until it reaches a metric in a later step.
+
+Not ported yet: data parallelism (A14); the tensorboard writer of the JAX
+package's `MetricsLogger`.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -61,6 +79,7 @@ from nsc_tpu_torch.train.train import (
     model_for,
     state_from_trees,
 )
+from nsc_tpu_torch.utils import liveness
 
 
 class MetricsLogger:
@@ -199,9 +218,16 @@ def run(
     steps: Optional[int] = None,
     resume: bool = True,
     device=None,
+    debug_nans: bool = False,
 ) -> dict:
-    """Train to `steps` (default tcfg.steps); returns the last metrics."""
+    """Train to `steps` (default tcfg.steps); returns the last metrics.
+    Exits 97 when the device does not answer its probe, 98 when a CUDA run
+    stalls, 99 after a full save when the host's RSS passes its limit (see
+    the module doc); `debug_nans` raises FloatingPointError at the first
+    non-finite loss, metric or gradient."""
     dev = resolve_device(device)
+    # before any start-up work: a hung device fails here in bounded time
+    liveness.device_liveness_check(probe=functools.partial(liveness._default_probe, dev))
     steps = tcfg.steps if steps is None else steps
     train_dir = os.path.join(workdir, "train")
     source = data_lib.make_source(data_spec, cfg.sample_rate, tcfg.seed)
@@ -249,6 +275,9 @@ def run(
     window: list = []
     last_full, have_full = start, start > 0
     metrics: dict = {}
+    # the stall detector where snapshots run on a thread (as the JAX
+    # package's, which runs it with its async checkpoints)
+    hb = liveness.Heartbeat() if writer.threaded else None
     t0 = time.time()
     try:
         pending = batch_to_device(next(batches), dev) if start < steps else None
@@ -257,9 +286,14 @@ def run(
             last = step + 1 == steps
             if not last:
                 pending = batch_to_device(next(batches), dev)
-            state, metrics = step_fn(state, batch)
+            if debug_nans:
+                state, metrics = _checked_step(step_fn, state, batch, step + 1)
+            else:
+                state, metrics = step_fn(state, batch)
             if (step + 1) % tcfg.log_every == 0 or last:
                 m = {k: float(v) for k, v in metrics.items()}
+                if hb is not None:
+                    hb.beat(step + 1)  # float() above waited for the device
                 m["steps_per_sec"] = tcfg.log_every / max(time.time() - t0, 1e-9)
                 t0 = time.time()
                 logger.log(step + 1, m)
@@ -277,19 +311,55 @@ def run(
                 improved = bool(np.isfinite(val) and val < best)
                 if improved:
                     best = val
-                full = (not tcfg.full_state_every or not have_full or last
+                if hb is not None:
+                    hb.beat(step + 1)  # the save below gets a whole deadline
+                # the host-RSS guard: past the limit, a synchronous full save
+                # and exit 99, so a relaunch resumes here
+                rss_limit = liveness.rss_exit_limit_gb()
+                rss_gb = liveness.host_rss_gb() if rss_limit is not None else 0.0
+                rss_exit = rss_limit is not None and rss_gb > rss_limit and not last
+                full = (rss_exit or not tcfg.full_state_every or not have_full or last
                         or step + 1 - last_full >= tcfg.full_state_every)
                 if full:
                     last_full, have_full = step + 1, True
                 tree = state if full else {"params_g": state["params_g"], "rvq": state["rvq"]}
+                sync = last or rss_exit
+                if sync and hb is not None:
+                    hb.stop()  # a long final save is not a stall
                 writer.submit(tree, lambda host, a=(step + 1, full, improved, best, data_state):
-                              write(host, *a), sync=last)
+                              write(host, *a), sync=sync)
+                if rss_exit:
+                    writer.join()
+                    print(f"{liveness._MARKER_RSS}: rss {rss_gb:.1f} GB > limit "
+                          f"{rss_limit:.1f} GB; full state saved at step {step + 1}; exiting "
+                          f"{liveness.EXIT_RSS_LIMIT} for a relaunch that resumes", flush=True)
+                    raise SystemExit(liveness.EXIT_RSS_LIMIT)
         writer.join()
     finally:
+        if hb is not None:
+            hb.stop()
         writer.wait()
         batches.close()
         logger.close()
     return {k: float(v) for k, v in metrics.items()}
+
+
+def _checked_step(step_fn, state, batch, step1: int):
+    """One step under `--debug-nans`: the backward under anomaly detection,
+    then every loss and metric read back; the first non-finite one raises
+    FloatingPointError naming the step."""
+    try:
+        with torch.autograd.detect_anomaly(check_nan=True):
+            state, metrics = step_fn(state, batch)
+    except RuntimeError as e:
+        if "nan" not in str(e).lower():
+            raise
+        raise FloatingPointError(f"step {step1}: non-finite gradient: {e}") from e
+    for name, value in metrics.items():
+        v = torch.as_tensor(value)
+        if not bool(torch.isfinite(v).all()):
+            raise FloatingPointError(f"step {step1}: non-finite {name} = {v.tolist()}")
+    return state, metrics
 
 
 def parse_args(argv=None) -> tuple[CodecConfig, TrainConfig, dict]:
@@ -320,6 +390,10 @@ def parse_args(argv=None) -> tuple[CodecConfig, TrainConfig, dict]:
                    help="cosine-decay horizon; -1 = the full run, 0 = constant LR")
     p.add_argument("--device", default=None,
                    help="'cuda' (the default; raises without CUDA) or 'cpu'")
+    p.add_argument("--debug-nans", action="store_true",
+                   help="anomaly detection in the backward and a finiteness check of every "
+                   "step's losses and metrics: raise FloatingPointError at the first "
+                   "non-finite value instead of training on")
     args = p.parse_args(argv)
 
     cfg = get_config(args.config)
@@ -339,7 +413,8 @@ def parse_args(argv=None) -> tuple[CodecConfig, TrainConfig, dict]:
     decay = total if args.lr_decay_steps < 0 else args.lr_decay_steps
     tcfg = dataclasses.replace(tcfg, lr_decay_steps=decay)
     return cfg, tcfg, {"workdir": args.workdir, "data_spec": args.data, "steps": args.steps,
-                       "resume": not args.no_resume, "device": args.device}
+                       "resume": not args.no_resume, "device": args.device,
+                       "debug_nans": args.debug_nans}
 
 
 def main(argv=None) -> int:

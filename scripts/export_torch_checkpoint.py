@@ -1,6 +1,7 @@
 """Export a trained nsc_tpu inference checkpoint for the PyTorch port.
 
     python scripts/export_torch_checkpoint.py [SRC] [--config base_fast] [--out DIR]
+        [--int8-reference-only]
 
 Restores SRC (an orbax checkpoint directory as `nsc_tpu.load_model` takes
 it; default the refit flagship, artifacts/base_fast_synthetic2_48k_refit)
@@ -16,6 +17,15 @@ DIR (default exports/<name of SRC>):
   reference_f32.npz  nsc_tpu's CPU float32 indices and argmin margins on the
                      canonical noise and speech probes (8 x 10 s each), the
                      reference the port's float32 path is held to
+  reference_int8.npz the same for nsc_tpu's int8 model (`quantize_model` of
+                     the float32 bundle, default calibration), and its
+                     per-site activation scales ("a_s_<i>", in the conv
+                     sites' call order, `ops.quant._conv_sites`): the
+                     reference of the port's float32 int8 path, run with
+                     those scales
+
+--int8-reference-only writes reference_int8.npz alone into an existing
+export (the weights' bytes, and so meta.json's sha256, stay as they are).
 
 `nsc_tpu_torch.train.checkpoint.restore_inference` reads the export with
 numpy alone. This script is the one part of the port's tooling that imports
@@ -37,6 +47,7 @@ sys.path.insert(0, REPO)
 
 FLAGSHIP = os.path.join(REPO, "artifacts", "base_fast_synthetic2_48k_refit")
 WEIGHTS, META, REFERENCE = "weights.npz", "meta.json", "reference_f32.npz"
+REFERENCE_INT8 = "reference_int8.npz"
 REFERENCE_ROWS_PER_CALL = 4
 
 
@@ -123,6 +134,24 @@ def reference_f32(cfg, params, rvq, rows=None):
     return out
 
 
+def reference_int8(cfg, params, rvq, rows=None):
+    """nsc_tpu's int8 model on the canonical probes: `quantize_model` of the
+    float32 bundle with its default calibration, then its CPU indices and
+    argmin margins as `reference_f32` gives them, and the per-site scales
+    as "a_s_<i>" (float32 scalars in call order)."""
+    jax = _jax()
+    import nsc_tpu
+    from nsc_tpu import api
+    from nsc_tpu.models.codec import NeuralSpeechCodec
+    from nsc_tpu.ops import quant as JQ
+
+    qb = nsc_tpu.quantize_model(api.ModelBundle(NeuralSpeechCodec(cfg), params, rvq))
+    out = reference_f32(qb.cfg, qb.params, rvq, rows)
+    for i, site in enumerate(JQ._conv_sites(qb.params)):
+        out[f"a_s_{i}"] = np.asarray(jax.device_get(site["a_s"]), np.float32)
+    return out
+
+
 def restore(src: str, config: str):
     """(params, rvq, step) of the orbax checkpoint at `src`, restored on CPU
     JAX into `config`'s init_codec structure."""
@@ -150,6 +179,8 @@ def main(argv=None) -> int:
     p.add_argument("src", nargs="?", default=FLAGSHIP, help="orbax checkpoint directory")
     p.add_argument("--config", default="base_fast")
     p.add_argument("--out", default=None, help="default: exports/<name of SRC>")
+    p.add_argument("--int8-reference-only", action="store_true",
+                   help="write reference_int8.npz alone into the existing export")
     args = p.parse_args(argv)
 
     from nsc_tpu.configs import get_config
@@ -157,14 +188,26 @@ def main(argv=None) -> int:
     src = os.path.abspath(args.src)
     out = args.out or os.path.join(REPO, "exports", os.path.basename(src.rstrip("/")))
     params, rvq, step = restore(src, args.config)
-    rel = os.path.relpath(src, REPO)
-    meta = export_weights(args.config, params, rvq, out, step=step,
-                          source=rel if not rel.startswith("..") else src)
-    ref = reference_f32(get_config(args.config), params, rvq)
-    np.savez(os.path.join(out, REFERENCE), **ref, fingerprint=np.uint32(meta["fingerprint"]),
-             config=np.array(args.config))
+    cfg = get_config(args.config)
+    meta = None
+    if args.int8_reference_only:
+        with open(os.path.join(out, META)) as f:
+            fingerprint = json.load(f)["fingerprint"]
+        from nsc_tpu import api
+
+        if fingerprint != api.codebook_fingerprint(rvq):
+            raise SystemExit(f"{out} was not exported from {src}")
+    else:
+        rel = os.path.relpath(src, REPO)
+        meta = export_weights(args.config, params, rvq, out, step=step,
+                              source=rel if not rel.startswith("..") else src)
+        fingerprint = meta["fingerprint"]
+        np.savez(os.path.join(out, REFERENCE), **reference_f32(cfg, params, rvq),
+                 fingerprint=np.uint32(fingerprint), config=np.array(args.config))
+    np.savez(os.path.join(out, REFERENCE_INT8), **reference_int8(cfg, params, rvq),
+             fingerprint=np.uint32(fingerprint), config=np.array(args.config))
     size = os.path.getsize(os.path.join(out, WEIGHTS))
-    print(json.dumps({"out": out, "weights_bytes": size, **meta}))
+    print(json.dumps({"out": out, "weights_bytes": size, **(meta or {"fingerprint": fingerprint})}))
     return 0
 
 

@@ -180,11 +180,70 @@ def test_no_cuda_means_no_run(env, tmp_path, monkeypatch):
     assert not os.path.exists(tmp_path / "a.nsc")
 
 
-@pytest.mark.parametrize("argv", [["doctor"], ["compress", "a.wav", "b.nsc", "--int8"]])
-def test_commands_not_ported_are_refused(argv, capsys):
-    """`doctor` and `--int8` wait for the port's liveness probe and int8
-    path; the parser does not offer them."""
-    with pytest.raises(SystemExit) as e:
-        main(argv)
-    assert e.value.code == 2
-    capsys.readouterr()
+def test_doctor_on_the_cpu_reports_and_exits_zero(capsys):
+    rc = main(["doctor", "--json", "--device", "cpu", "--timeout", "60"])
+    assert rc == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["device_status"] == "ok" and out["backend"] == "cpu" and out["device_count"] == 1
+    for key in ("nsc_tpu_torch", "torch", "cuda", "cudnn", "numpy", "cuda_visible_devices",
+                "kernel_build_dir", "kernel_library_built"):
+        assert key in out
+    assert out["torch"] == torch.__version__
+
+
+def test_doctor_wedged_probe_exits_97(capsys, monkeypatch):
+    """A probe that hangs past the deadline (injected, as nsc_tpu's own
+    doctor test does) gives 97 and "wedged"."""
+    import time
+
+    from nsc_tpu_torch.utils import liveness
+
+    monkeypatch.setattr(liveness, "_default_probe", lambda dev=None: time.sleep(30))
+    rc = main(["doctor", "--json", "--device", "cpu", "--timeout", "0.5"])
+    assert rc == liveness.EXIT_DEVICE_WEDGED == 97
+    assert json.loads(capsys.readouterr().out.strip().splitlines()[-1])["device_status"] == "wedged"
+
+
+def test_doctor_without_cuda_fails_with_2(capsys, monkeypatch):
+    """No --device means CUDA; without it doctor says so and exits 2, and
+    runs nothing on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    rc = main(["doctor", "--json", "--timeout", "60"])
+    assert rc == 2
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["device_status"] == "error" and "CUDA is not available" in out["device_error"]
+    assert "backend" not in out
+
+
+@pytest.mark.parametrize("cmd", ["compress", "roundtrip"])
+def test_int8_flag_equals_the_api(env, tmp_path, cmd):
+    """`--int8` serves `quantize_model(load_model(...))` (its default
+    calibration): the stream, and the WAV of a round trip and of a
+    decompress, equal the same calls in process."""
+    qb = PA.quantize_model(env["port"])
+    out = str(tmp_path / ("a.nsc" if cmd == "compress" else "a.wav"))
+    assert main([cmd, env["wav_path"], out, *env["model"], "--int8"]) == 0
+    blob = PA.compress(qb, env["wav"])
+    if cmd == "compress":
+        assert _read(out) == blob
+        back = str(tmp_path / "b.wav")
+        assert main(["decompress", out, back, *env["model"], "--int8"]) == 0
+        got, _ = audio.load_wav(back)
+        want, _ = _wav_roundtrip(tmp_path, PA.decompress(qb, blob))
+    else:
+        got, _ = audio.load_wav(out)
+        want, _ = _wav_roundtrip(tmp_path, PA.decompress(qb, blob))
+    np.testing.assert_array_equal(got, want)
+
+
+def test_int8_eval_codec_mode(env, capsys):
+    assert main(["eval", env["wav_path"], *env["model"], "--int8", "--json"]) == 0
+    m = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert np.isfinite(m["mel_distance"]) and np.isfinite(m["si_snr_db"])
+
+
+def _wav_roundtrip(tmp_path, wav):
+    """`wav` as the CLI writes and reads it (16-bit PCM)."""
+    path = str(tmp_path / "ref.wav")
+    audio.save_wav(path, wav, 16000)
+    return audio.load_wav(path)

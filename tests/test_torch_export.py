@@ -147,10 +147,38 @@ def test_reference_f32_prefix_reencodes(restored):
                                       ref[f"margins_{name}"][:2, :50])
 
 
+def test_reference_int8_prefix_reencodes(restored):
+    """reference_int8.npz: nsc_tpu's int8 model with the stored scales (in
+    the conv sites' call order) re-encodes the first second of two rows of
+    each probe to the stored indices and margins."""
+    import dataclasses
+
+    from nsc_tpu.ops import quant as JQ
+
+    params, rvq, _ = restored
+    cfg = dataclasses.replace(get_config("base_fast"), quant="int8")
+    model = NeuralSpeechCodec(cfg)
+    with np.load(os.path.join(EXPORT, E.REFERENCE_INT8), allow_pickle=False) as z:
+        ref = {k: z[k] for k in z.files}
+    assert int(ref["fingerprint"]) == JA.codebook_fingerprint(rvq)
+    scaled = jax.tree.map(lambda x: x, params)
+    sites = list(JQ._conv_sites(scaled))
+    assert len(sites) == sum(k.startswith("a_s_") for k in ref) == 60
+    for i, site in enumerate(sites):
+        site["a_s"] = jnp.asarray(ref[f"a_s_{i}"])
+    for name, probe in (("noise", JCAN.probe_input), ("speech", JCAN.speech_probe_input)):
+        assert ref[f"indices_{name}"].shape == ref[f"margins_{name}"].shape == (8, 500, 16)
+        wav = probe(cfg)[:2, : cfg.sample_rate]
+        lat = jax.jit(model.latents)(scaled, jnp.asarray(wav))
+        np.testing.assert_array_equal(np.asarray(jax.jit(JR.quantize)(rvq, lat)),
+                                      ref[f"indices_{name}"][:2, :50])
+
+
 def test_export_files_reach_every_checkout():
     """The export sits outside artifacts/ and no ignore file at the repo's
     root (.gitignore and the copy tool's own) drops it."""
-    names = ("weights.npz", "meta.json", "reference_f32.npz", "canonical_idx_gpu.npz")
+    names = ("weights.npz", "meta.json", "reference_f32.npz", "reference_int8.npz",
+             "canonical_idx_gpu.npz")
     rel = [os.path.join("exports", "base_fast_synthetic2_48k_refit", n) for n in names]
     for path in rel:
         assert os.path.exists(os.path.join(ROOT, path)), path
@@ -184,5 +212,10 @@ def test_export_script_writes_every_file(tmp_path):
     with np.load(out / E.REFERENCE) as z:
         assert z["indices_noise"].shape == (8, 40000, 2)
         assert z["margins_speech"].dtype == np.float32
+    with np.load(out / E.REFERENCE_INT8) as z:
+        assert z["indices_speech"].shape == (8, 40000, 2)
+        assert sorted(k for k in z.files if k.startswith("a_s_")) == sorted(
+            f"a_s_{i}" for i in range(24))
+        assert z["a_s_0"].shape == () and z["a_s_0"] > 0
     b = PA.load_model("tiny_test", checkpoint=str(out), device="cpu")
     assert PA.codebook_fingerprint(b.rvq) == JA.codebook_fingerprint(rvq)

@@ -74,6 +74,7 @@ def test_cpu_serving_path_launches_no_kernel_and_builds_nothing(monkeypatch):
     assert kernels.LAUNCHES == {
         "residual_stack": 0, "rvq_quantize": 0, "rvq_split_planes": 0, "rvq_dequantize": 0,
         "stft_magnitude": 0, "stft_magnitude_dft": 0, "residual_stack_cl": 0, "fused_stage": 0,
+        "int_mm": 0,
     }
 
 

@@ -197,7 +197,11 @@ def test_cpu_wrappers_do_not_count_launches():
     cfg, units = _units(8, (1,), "snake_fast", seed=0)
     packed = RS.pack_stage(W.units_from_jax(units), torch.float32)
     RS.residual_stack(torch.randn(1, 8, 50), packed, (1,), True)
+    from nsc_tpu_torch.ops import quant as Q
+
+    Q.int_conv1d(torch.ones(1, 8, 12, dtype=torch.int8), torch.ones(4, 8, 3, dtype=torch.int8))
     assert kernels.LAUNCHES == {
         "residual_stack": 0, "rvq_quantize": 0, "rvq_split_planes": 0, "rvq_dequantize": 0,
         "stft_magnitude": 0, "stft_magnitude_dft": 0, "residual_stack_cl": 0, "fused_stage": 0,
+        "int_mm": 0,
     }

@@ -326,7 +326,56 @@ def test_new_cli_flags(tmp_path):
     _, tcfg, kwargs = L.parse_args(argv)
     assert (tcfg.checkpoint_every, tcfg.full_state_every, tcfg.keep_checkpoints) == (2, 10, 3)
     assert kwargs == {"workdir": str(wd), "data_spec": "synthetic", "steps": 5, "resume": True,
-                      "device": "cpu"}
+                      "device": "cpu", "debug_nans": False}
     assert L.main(argv) == 0
     assert ckpt.all_steps(str(wd / "train")) == [2, 5]
     assert ckpt.export_steps(str(wd / "infer")) == [2, 4, 5]
+
+
+def test_rss_limit_saves_a_full_state_and_exits_99(tmp_path, monkeypatch, capsys):
+    """The host-RSS guard (the JAX loop's): with a limit below this
+    process's RSS, the first checkpoint boundary (step 3) saves a full
+    state synchronously and exits 99; a relaunch without the limit resumes
+    from it."""
+    from nsc_tpu_torch.utils import liveness
+
+    cfg, wd = get_config("tiny_test"), str(tmp_path / "run")
+    monkeypatch.setenv("NSC_RSS_EXIT_GB", "0.001")
+    with pytest.raises(SystemExit) as e:
+        L.run(cfg, TrainConfig(**_FAULT), workdir=wd, data_spec="synthetic", steps=5,
+              device="cpu")
+    assert e.value.code == liveness.EXIT_RSS_LIMIT == 99
+    assert "NSC-LIVENESS: HOST RSS LIMIT" in capsys.readouterr().out
+    step, state, data_state = ckpt.restore(os.path.join(wd, "train"))
+    assert step == 3 and "opt_g" in state and data_state is not None
+    monkeypatch.setenv("NSC_RSS_EXIT_GB", "0")
+    L.run(cfg, TrainConfig(**_FAULT), workdir=wd, data_spec="synthetic", steps=5, device="cpu")
+    assert [r["step"] for r in _rows(wd)] == [1, 2, 3, 4, 5]
+
+
+def test_debug_nans_raises_at_the_poisoned_step(tmp_path, monkeypatch):
+    """`--debug-nans`: a batch of NaNs at step 2 raises FloatingPointError
+    naming step 2 (anomaly detection in the backward, or the metrics'
+    check), before any checkpoint of it; without the flag the loop trains
+    on (no error at that step)."""
+    calls = []
+    real = L.batch_to_device
+
+    def poisoned(item, dev):
+        batch, data_state = real(item, dev)
+        calls.append(1)
+        if len(calls) == 2:
+            batch = torch.full_like(batch, float("nan"))
+        return batch, data_state
+
+    monkeypatch.setattr(L, "batch_to_device", poisoned)
+    cfg = get_config("tiny_test")
+    argv = _CLI + ["--steps", "3", "--workdir", str(tmp_path / "a"), "--debug-nans"]
+    _, tcfg, kwargs = L.parse_args(argv)
+    assert kwargs["debug_nans"] is True
+    with pytest.raises(FloatingPointError, match="step 2"):
+        L.run(cfg, TrainConfig(**_FAULT), **{**kwargs, "steps": 3})
+    assert ckpt.latest_step(str(tmp_path / "a" / "train")) is None
+    calls.clear()
+    L.run(cfg, TrainConfig(**_FAULT), workdir=str(tmp_path / "b"), data_spec="synthetic",
+          steps=2, device="cpu")

@@ -172,9 +172,11 @@ def quantize_smem(dp):
     quantize_smem plans it: the resident plan's three bf16 residual planes of
     the tile, two stages of code planes (128 codes x 64 dims x 3 planes) that
     the streamed plan doubles with the tile's residual planes of the same
-    dims, and the argmin scratch (the card test reads the kernel's own)."""
+    dims, and the argmin scratch: per frame 8 lists (4 lanes x 2 warps) of
+    two (score, index) candidates, and the chosen index (the card test
+    reads the kernel's own)."""
     stage = 3 * KR.CODE_TILE * 64 * 2
-    argmin = KR.TILE_M * 5 * 4
+    argmin = KR.TILE_M * (8 * 2 * 2 + 1) * 4
     if dp > KR.RESIDENT_DIM:
         return 2 * 2 * stage + argmin
     return KR.TILE_M * dp * 2 * 3 + 2 * stage + argmin
@@ -182,10 +184,10 @@ def quantize_smem(dp):
 
 def test_quantize_smem_fits_every_width():
     """Resident planes grow by 768 bytes a dim up to 128; the streamed plan
-    holds 199,168 bytes at every width; all within one Hopper block."""
+    holds 213,504 bytes at every width; all within one Hopper block."""
     from nsc_tpu_torch.kernels.residual_stack import MAX_SMEM
 
     for dp in range(16, 1025, 16):
         assert quantize_smem(dp) <= MAX_SMEM, dp
-    assert quantize_smem(128) == quantize_smem(144) == quantize_smem(1024) == 199168
-    assert quantize_smem(112) == 199168 - 16 * 768
+    assert quantize_smem(128) == quantize_smem(144) == quantize_smem(1024) == 213504
+    assert quantize_smem(112) == 213504 - 16 * 768
