@@ -285,6 +285,23 @@ STACKED_LATENT_TOL = 1e-5
 # finetune_config(batch_size=64), held-out eval every 2 steps
 FINETUNE_STEPS = 4
 FINETUNE_OVERRIDES = {}
+# Data parallelism (`dp_smoke`): DP_STEPS steps of a one-rank group beside
+# the plain step, and the entry point through torch.distributed.run.
+DP_STEPS = 2
+DP_OVERRIDES = {}
+# The bitrate sweep (`sweep_smoke`) of the float32 flagship against
+# nsc_tpu's CPU rows (reference_sweep.json), at each depth where the two
+# index sets are equal: the index-derived fields exactly, and each float
+# field within (rtol, atol). There the two float32 reconstructions differ by
+# float32 rounding only: the port's CPU sweep of these clips moved the
+# smooth metrics by at most 1.7e-6 relative (pesq_proxy) and si_snr_db by
+# 6.8e-7 dB, so 1e-4 relative and 1e-3 dB leave the card's convolutions
+# ~60x room; Taal's STOI drops silent frames by a hard 40 dB threshold, so
+# it is held in absolute terms (2e-3, tests/test_torch_sweep.py).
+SWEEP_INDEX_FIELDS = ("entropy_bitrate_bps", "book_perplexity", "book_usage")
+SWEEP_TOL = {"si_snr_db": (0.0, 1e-3), "mel_distance": (1e-4, 1e-6),
+             "pesq_proxy": (1e-4, 1e-6), "stoi_proxy": (1e-4, 1e-6),
+             "visqol_nsim": (1e-4, 1e-6), "stoi": (0.0, 2e-3)}
 
 
 def emit(obj) -> None:
@@ -1159,24 +1176,15 @@ def cli_smoke(serve, qserve):
         check("ceiling_mel_distance" in metrics and "stoi" in metrics, f"CLI eval: metrics {metrics}")
 
 
-@contextlib.contextmanager
 def deterministic():
     """PyTorch's deterministic algorithms (warnings, not errors, where an op
     has none) and cuDNN's deterministic convolutions while the block runs, so
     that two training runs can be compared bit for bit; the caller's
-    settings come back after it."""
-    import torch
+    settings come back after it (`loop.deterministic_algorithms`, which
+    `--deterministic` turns on)."""
+    from nsc_tpu_torch.train.loop import deterministic_algorithms
 
-    saved = (torch.are_deterministic_algorithms_enabled(),
-             torch.is_deterministic_algorithms_warn_only_enabled(),
-             torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
-    try:
-        yield
-    finally:
-        torch.use_deterministic_algorithms(saved[0], warn_only=saved[1])
-        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved[2:]
+    return deterministic_algorithms()
 
 
 @contextlib.contextmanager
@@ -1891,6 +1899,375 @@ def trace_smoke(serve, qserve, wav_np, card) -> dict:
     return out
 
 
+def dp_smoke(dev, card, step_ms: float) -> dict:
+    """Data parallelism on the card: a one-rank NCCL group (a FileStore in
+    a temporary directory); `make_parallel_train_step` for DP_STEPS steps
+    of the flagship config at full width (TrainConfig defaults) on the
+    training phase's batches, beside the plain step from the same state,
+    both under `deterministic()`: metrics, parameters, optimizer states and
+    codebooks bit-equal, the counters around the data-parallel steps (K2 +
+    split x1 and K4 x12 per step). The two steps timed in turns outside
+    `deterministic()`. Reported between: two gloo ranks on the card against
+    the plain step (`two_gloo_ranks`). Then the entry point twice in
+    subprocesses, DP_STEPS
+    steps each with --deterministic: `python -m torch.distributed.run
+    --nproc_per_node 1 -m nsc_tpu_torch.train --distributed` and the same
+    without the launcher and --distributed; their metrics rows (the last
+    step's at the default log cadence; all keys but steps_per_sec) must be
+    equal. Returns the data-parallel steps' counts."""
+    import copy
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from nsc_tpu_torch import kernels, parallel
+    from nsc_tpu_torch.configs import TrainConfig, get_config
+    from nsc_tpu_torch.train import data as data_lib
+    from nsc_tpu_torch.train import loop as L
+    from nsc_tpu_torch.train import train as T
+
+    cfg, tcfg = get_config(FLAGSHIP), TrainConfig(**DP_OVERRIDES)
+    seg = L.segment_length(cfg, tcfg.segment_seconds)
+    source = data_lib.make_source("synthetic", cfg.sample_rate, tcfg.seed)
+    batches = [torch.from_numpy(next(source.batches(tcfg.batch_size, seg))).to(dev)
+               for _ in range(DP_STEPS)]
+    tmp = tempfile.mkdtemp(prefix="nsc_dp_")
+    first = {}  # the plain step's parameters and codebooks after its first step
+    try:
+        store = dist.FileStore(os.path.join(tmp, "store"), 1)
+        kw = {"device_id": dev} if dev.type == "cuda" else {}
+        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo", store=store,
+                                rank=0, world_size=1, **kw)
+        mesh = parallel.make_mesh(dev)
+        with deterministic():
+            model, plain_state = T.init_train_state(cfg, tcfg, dev)
+            L.data_init_codebooks(model, plain_state, tcfg, "synthetic")
+            dp_state = parallel.replicate(mesh, copy.deepcopy(plain_state))
+            plain = T.make_train_step(model, tcfg)
+            step = parallel.make_parallel_train_step(model, tcfg, mesh)
+            want = []
+            for b in batches:
+                plain_state, m = plain(plain_state, b)
+                want.append({k: float(v) for k, v in m.items()})
+                if not first:
+                    first.update(params_g=[x.detach().cpu() for x in
+                                           T.tree_leaves(plain_state["params_g"])],
+                                 codebooks=plain_state["rvq"]["codebooks"].cpu())
+            kernels.reset_launches()
+            got = []
+            for b in batches:
+                dp_state, m = step(dp_state, parallel.shard_batch(mesh, b))
+                got.append({k: float(v) for k, v in m.items()})
+            torch.cuda.synchronize()
+            launches = dict(kernels.LAUNCHES)
+        same = {part: trees_equal(plain_state[part], dp_state[part])
+                for part in ("params_g", "params_d", "rvq", "opt_g", "opt_d")}
+        emit({"phase": "main", "what": "dp", "world": mesh.size, "backend": dist.get_backend(),
+              "steps": DP_STEPS, "metrics_equal": got == want, "state_equal": same,
+              "launches": launches, "metrics": got})
+        check(got == want, f"dp: one-rank metrics differ from the plain step's: {got} vs {want}")
+        check(all(same.values()), f"dp: state differs from the plain step's: {same}")
+        expect = dict.fromkeys(kernels.LAUNCHES, 0)
+        expect.update({"rvq_quantize": DP_STEPS, "rvq_split_planes": DP_STEPS,
+                       "stft_magnitude": 12 * DP_STEPS})
+        check(launches == expect, f"dp launch counts {launches}, expected {expect}")
+
+        # one step each in turns (plain, dp, dp, plain), PyTorch's defaults
+        def one(fn, state, b):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(state, b)
+            torch.cuda.synchronize()
+            return out[0], (time.perf_counter() - t0) * 1e3
+
+        turns = []
+        for kind in ("plain", "dp", "dp", "plain"):
+            if kind == "plain":
+                plain_state, ms = one(plain, plain_state, batches[0])
+            else:
+                dp_state, ms = one(step, dp_state, parallel.shard_batch(mesh, batches[0]))
+            turns.append((kind, ms))
+        plain_ms = (turns[0][1] + turns[3][1]) / 2
+        dp_ms = (turns[1][1] + turns[2][1]) / 2
+        emit({"phase": "timing", "what": "dp_step", "world": 1, "turns_ms": turns,
+              "plain_ms": plain_ms, "dp_ms": dp_ms, "dp_over_plain": dp_ms / plain_ms,
+              "training_phase_step_ms": step_ms, "card": card})
+        global_batch = batches[0].cpu()
+        del plain_state, dp_state, batches
+        dist.destroy_process_group()
+        torch.cuda.empty_cache()
+        two_gloo_ranks(tmp, global_batch, want[0], first, tcfg)
+
+        # the entry point through the launcher, and without it
+        root = os.path.dirname(os.path.abspath(__file__))
+        env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8",
+                   PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
+        args = ["--config", FLAGSHIP, "--data", "synthetic", "--steps", str(DP_STEPS),
+                "--deterministic", "--no-resume", *LOOP_ARGS]
+        runs = {}
+        for name, cmd in (
+                ("torch.distributed.run", [sys.executable, "-m", "torch.distributed.run",
+                                           "--standalone", "--nproc_per_node", "1", "-m",
+                                           "nsc_tpu_torch.train", "--distributed"]),
+                ("plain", [sys.executable, "-m", "nsc_tpu_torch.train"])):
+            wd = os.path.join(tmp, name)
+            t0 = time.perf_counter()
+            proc = subprocess.run(cmd + args + ["--workdir", wd], cwd=root, env=env,
+                                  capture_output=True, text=True, timeout=900)
+            rows = []
+            if os.path.exists(os.path.join(wd, "metrics.jsonl")):
+                with open(os.path.join(wd, "metrics.jsonl")) as f:
+                    rows = [json.loads(line) for line in f]
+            runs[name] = rows
+            emit({"phase": "main", "what": "dp_entry_point", "run": name, "rc": proc.returncode,
+                  "seconds": time.perf_counter() - t0, "rows": len(rows),
+                  "stderr_tail": proc.stderr[-600:] if proc.returncode else ""})
+            check(proc.returncode == 0, f"dp entry point ({name}): rc {proc.returncode}: "
+                  f"{proc.stderr[-2000:]}")
+        strip = lambda rows: [{k: v for k, v in r.items() if k != "steps_per_sec"}  # noqa: E731
+                              for r in rows]
+        a, b = strip(runs["torch.distributed.run"]), strip(runs["plain"])
+        emit({"phase": "main", "what": "dp_entry_point_rows_equal", "equal": a == b,
+              "steps": [r["step"] for r in a]})
+        check(a and a[-1]["step"] == DP_STEPS and a == b,
+              f"dp entry point: --distributed rows {a} differ from the plain run's {b}")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches
+
+
+def _dp2_rank(rank: int, tmp: str, overrides: dict) -> None:
+    """One of the two gloo ranks of `two_gloo_ranks` (a spawned process on
+    card 0): the flagship config's state from seed, rank 0's data init
+    broadcast, one data-parallel step on its half of the saved batch; its
+    metrics, parameters and codebooks go to `tmp`."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from nsc_tpu_torch import parallel
+    from nsc_tpu_torch.configs import TrainConfig, get_config
+    from nsc_tpu_torch.train import loop as L
+    from nsc_tpu_torch.train import train as T
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", store=dist.FileStore(os.path.join(tmp, "store2"), 2),
+                            rank=rank, world_size=2)
+    try:
+        mesh = parallel.make_mesh(dev)
+        cfg, tcfg = get_config(FLAGSHIP), TrainConfig(**overrides)
+        model, state = T.init_train_state(cfg, tcfg, dev)
+        if rank == 0:
+            L.data_init_codebooks(model, state, tcfg, "synthetic")
+        parallel.replicate(mesh, state)
+        batch = torch.load(os.path.join(tmp, "global_batch.pt"))
+        step = parallel.make_parallel_train_step(model, tcfg, mesh)
+        state, metrics = step(state, parallel.shard_batch(mesh, batch))
+        torch.save({"metrics": {k: float(v) for k, v in metrics.items()},
+                    "params_g": [x.detach().cpu() for x in T.tree_leaves(state["params_g"])],
+                    "codebooks": state["rvq"]["codebooks"].cpu(),
+                    "peak_gb": torch.cuda.max_memory_allocated() / 1e9},
+                   os.path.join(tmp, f"dp2_rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def two_gloo_ranks(tmp: str, global_batch, want: dict, first: dict, tcfg) -> None:
+    """Reported, not gated: two gloo ranks sharing the one card (NCCL takes
+    one rank per device) run one data-parallel step on the halves of the
+    global batch, held to the plain one-process step on the whole batch with
+    the JAX package's DP tolerances (metrics rtol 2e-3 / atol 2e-4,
+    parameters rtol 0.2 / atol 4 x lr, codebooks rtol 1e-4 / atol 1e-5);
+    and the two ranks' codebooks bit for bit."""
+    import multiprocessing as mp
+
+    import torch
+
+    torch.save(global_batch, os.path.join(tmp, "global_batch.pt"))
+    ctx = mp.get_context("spawn")
+    t0 = time.perf_counter()
+    procs = [ctx.Process(target=_dp2_rank, args=(r, tmp, DP_OVERRIDES)) for r in range(2)]
+    for pr in procs:
+        pr.start()
+    for pr in procs:
+        pr.join(timeout=240)
+    for pr in procs:
+        if pr.is_alive():
+            pr.kill()
+            pr.join()
+    codes = [pr.exitcode for pr in procs]
+    paths = [os.path.join(tmp, f"dp2_rank{r}.pt") for r in range(2)]
+    if codes != [0, 0] or not all(map(os.path.exists, paths)):
+        emit({"phase": "main", "what": "dp_two_gloo_ranks", "ran": False, "exit_codes": codes,
+              "seconds": time.perf_counter() - t0})
+        return
+    a, b = (torch.load(p) for p in paths)
+    close = lambda x, y, rtol, atol: bool(torch.allclose(x, y, rtol=rtol, atol=atol))  # noqa: E731
+    metric_err = {k: abs(a["metrics"][k] - v) / max(abs(v), 1e-12) for k, v in want.items()}
+    emit({"phase": "main", "what": "dp_two_gloo_ranks", "ran": True,
+          "seconds": time.perf_counter() - t0, "peak_gb_per_rank": [a["peak_gb"], b["peak_gb"]],
+          "ranks_metrics_equal": a["metrics"] == b["metrics"],
+          "ranks_codebooks_equal": bool(torch.equal(a["codebooks"], b["codebooks"])),
+          "metrics_within_tol": all(abs(a["metrics"][k] - v) <= 2e-4 + 2e-3 * abs(v)
+                                    for k, v in want.items()),
+          "metric_rel_err": metric_err,
+          "params_within_tol": all(close(x, y, 0.2, 4 * tcfg.lr_g)
+                                   for x, y in zip(a["params_g"], first["params_g"])),
+          "codebooks_within_tol": close(a["codebooks"], first["codebooks"], 1e-4, 1e-5),
+          "codebooks_max_abs_diff": float((a["codebooks"] - first["codebooks"]).abs().max())})
+
+
+def sweep_smoke(dev, serve, card, events_ms) -> dict:
+    """The bitrate sweep (`eval.sweep.bitrate_sweep`) on the first clips of
+    the speech probe: the flagship's float32 bundle held to nsc_tpu's CPU
+    float32 rows (reference_sweep.json): n_q and bitrate_bps equal at every
+    depth; at every depth where the port's indices equal the reference's
+    (reference_f32.npz), the index-derived fields equal and the float fields
+    within SWEEP_TOL; then the serving bundle with the counters around the
+    sweep (K2 + split x1 for the one encode; K3 x1 and K1 x4, the decoder's
+    stages, per depth; K1 x4 for the encoder), its indices at every depth d
+    against the first d books of the full encode, and its device time (one
+    encode and a decode per depth) beside one reconstruct of the same clips.
+    Returns the serving sweep's counts."""
+    import numpy as np
+    import torch
+
+    from nsc_tpu_torch import api, canonical, kernels
+    from nsc_tpu_torch.eval.sweep import bitrate_sweep
+
+    with open(os.path.join(EXPORT, "reference_sweep.json")) as f:
+        ref = json.load(f)
+    f32 = api.load_model(FLAGSHIP, checkpoint=EXPORT, device=dev)
+    check(ref["fingerprint"] == api.codebook_fingerprint(f32.rvq),
+          "reference_sweep.json is of other codebooks")
+    clips = ref["clips"]
+    wavs = canonical.speech_probe_input(f32.cfg)[:clips]
+    t0 = time.perf_counter()
+    rows = bitrate_sweep(f32, wavs)
+    f32_s = time.perf_counter() - t0
+    idx = api.encode(f32, wavs)
+    with np.load(os.path.join(EXPORT, "reference_f32.npz")) as z:
+        ref_idx = z["indices_speech"][:clips]
+    check(len(rows) == len(ref["rows"]) == f32.cfg.num_quantizers, "sweep: depth count")
+    held, worst = [], {}
+    for g, w in zip(rows, ref["rows"]):
+        d = g["n_q"]
+        check(d == w["n_q"] and g["bitrate_bps"] == w["bitrate_bps"] and list(g) == list(w),
+              f"sweep depth {d}: n_q/bitrate/keys {g} vs {w}")
+        if not np.array_equal(idx[..., :d], ref_idx[..., :d]):
+            continue
+        held.append(d)
+        for k in SWEEP_INDEX_FIELDS:
+            check(g[k] == w[k], f"sweep depth {d}: {k} {g[k]} vs the reference's {w[k]}")
+        for k, (rtol, atol) in SWEEP_TOL.items():
+            check((k in g) == (k in w), f"sweep depth {d}: {k} present on one side only")
+            if k in w:
+                err = abs(g[k] - w[k])
+                worst[k] = max(worst.get(k, 0.0), err)
+                check(err <= atol + rtol * abs(w[k]),
+                      f"sweep depth {d}: {k} {g[k]} vs the reference's {w[k]}")
+    emit({"phase": "main", "what": "sweep", "bundle": "flagship float32", "clips": clips,
+          "depths_held": held, "worst_abs_diff": worst, "seconds": f32_s,
+          "rows": [{k: r[k] for k in ("n_q", "bitrate_bps", "entropy_bitrate_bps",
+                                      "mel_distance", "si_snr_db")} for r in rows]})
+    check(held, "sweep: the float32 indices differ from the reference's at every depth")
+    del f32
+
+    # the serving bundle, counted
+    n_q = serve.cfg.num_quantizers
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    srows = bitrate_sweep(serve, wavs)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    stages = len(serve.cfg.strides)
+    expect = dict.fromkeys(kernels.LAUNCHES, 0)
+    expect.update({"residual_stack": stages * (1 + n_q), "rvq_quantize": 1,
+                   "rvq_split_planes": 1, "rvq_dequantize": n_q})
+    full = api.encode(serve, wavs)
+    prefix = [d for d in range(1, n_q + 1)
+              if np.array_equal(api.encode(serve, wavs, n_q=d), full[..., :d])]
+    x = torch.from_numpy(wavs).to(dev)
+    p, q = serve.params, serve.rvq
+    enc_ms = events_ms(lambda: serve.model.encode(p, q, x), reps=3)
+    idx_t = serve.model.encode(p, q, x)
+    dec_ms = [events_ms(lambda d=d: serve.model.decode(p, q, idx_t[..., :d]), reps=3)
+              for d in range(1, n_q + 1)]
+    rec_ms = events_ms(lambda: serve.model.reconstruct(p, q, x), reps=3)
+    emit({"phase": "main", "what": "sweep", "bundle": "flagship serving", "launches": launches,
+          "prefix_depths_equal": len(prefix), "seconds": serve_s,
+          "rows": [{k: r[k] for k in ("n_q", "entropy_bitrate_bps", "mel_distance")}
+                   for r in srows]})
+    emit({"phase": "timing", "what": "sweep", "bundle": "flagship serving", "clips": clips,
+          "seconds_f32_sweep": f32_s, "seconds_serving_sweep": serve_s,
+          "encode_ms": enc_ms, "decode_ms_by_depth": dec_ms,
+          "device_ms": enc_ms + sum(dec_ms), "reconstruct_ms": rec_ms,
+          "device_over_reconstruct": (enc_ms + sum(dec_ms)) / rec_ms, "card": card})
+    check(launches == expect, f"serving sweep launch counts {launches}, expected {expect}")
+    check(len(prefix) == n_q, f"serving sweep: depth-d encodes differ from the full encode's "
+          f"first d books (equal at {prefix})")
+    return launches
+
+
+def native_smoke(serve, wav_np, card) -> None:
+    """The C coder (`nsc_tpu_torch.native`) must be the active path; on the
+    flagship's serving indices of the 64 x 10 s batch its packed planes and
+    its arithmetic-coded planes must be byte-identical to the numpy
+    coder's, and decode back to the indices; both timed on the host."""
+    import numpy as np
+
+    from nsc_tpu_torch import api, bitstream, entropy, native
+
+    check(native.available(), f"native coder unavailable: {native.unavailable_reason()}")
+    idx = api.encode(serve, wav_np)
+    bits = serve.cfg.bits_per_codebook
+    k = 2**bits
+    frames, n_q = idx.shape[1:]
+    planes = [(r, q) for r in range(idx.shape[0]) for q in range(n_q)]
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    pk_c, pack_c = timed(lambda: [native.pack_frames(row, bits) for row in idx])
+    pk_n, pack_n = timed(lambda: [bitstream.pack_frames_numpy(row, bits) for row in idx])
+    up_c, unpack_c = timed(lambda: [native.unpack_frames(b, frames, n_q, bits) for b in pk_c])
+    up_n, unpack_n = timed(lambda: [bitstream.unpack_frames_numpy(b, frames, n_q, bits)
+                                    for b in pk_c])
+    ac_c, enc_c = timed(lambda: [native.ac_encode_plane(idx[r, :, q], k, entropy.REBUILD,
+                                                        entropy.RESCALE_AT) for r, q in planes])
+    ac_n, enc_n = timed(lambda: [entropy.encode_plane_numpy(idx[r, :, q], k) for r, q in planes])
+    dc_c, dec_c = timed(lambda: [native.ac_decode_plane(c, frames, k, entropy.REBUILD,
+                                                        entropy.RESCALE_AT) for c in ac_c])
+    dc_n, dec_n = timed(lambda: [entropy.decode_plane_numpy(c, frames, k) for c in ac_c])
+    packed_same = pk_c == pk_n
+    coded_same = ac_c == ac_n
+    unpacked = all(np.array_equal(a, row) and np.array_equal(b, row)
+                   for a, b, row in zip(up_c, up_n, idx))
+    decoded = all(np.array_equal(a, idx[r, :, q]) and np.array_equal(b, idx[r, :, q])
+                  for a, b, (r, q) in zip(dc_c, dc_n, planes))
+    symbols = idx.size
+    emit({"phase": "main", "what": "native", "available": True, "symbols": symbols,
+          "packed_identical": packed_same, "coded_identical": coded_same,
+          "unpacked": unpacked, "decoded": decoded,
+          "packed_bytes": sum(map(len, pk_c)), "coded_bytes": sum(map(len, ac_c))})
+    emit({"phase": "timing", "what": "native_coder", "host": True, "symbols": symbols,
+          "pack_ms": {"c": pack_c, "numpy": pack_n, "speedup": pack_n / pack_c},
+          "unpack_ms": {"c": unpack_c, "numpy": unpack_n, "speedup": unpack_n / unpack_c},
+          "ac_encode_ms": {"c": enc_c, "numpy": enc_n, "speedup": enc_n / enc_c},
+          "ac_decode_ms": {"c": dec_c, "numpy": dec_n, "speedup": dec_n / dec_c},
+          "card": card})
+    check(packed_same and unpacked, "native: packed planes differ from numpy's")
+    check(coded_same and decoded, "native: arithmetic-coded planes differ from numpy's")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     # cuBLAS reads its workspace setting once; deterministic() needs this one
@@ -2446,6 +2823,12 @@ def main() -> int:
     t_trace = time.perf_counter()
     trace_smoke(serve, qserve, wav_np, card)
     doctor_smoke(card)
+    t_sweep = time.perf_counter()
+    sweep_launches = sweep_smoke(dev, serve, card, events_ms)
+    t_native = time.perf_counter()
+    native_smoke(serve, wav_np, card)
+    emit({"phase": "timing", "what": "sweep_native", "sweep_seconds": t_native - t_sweep,
+          "native_seconds": time.perf_counter() - t_native})
     emit({"phase": "timing", "what": "flagship_int8_stacked_streaming_cli_trace_doctor",
           "flagship_seconds": t_int8 - t_phase, "int8_and_stacked_seconds": t_stream - t_int8,
           "streaming_seconds": t_cli - t_stream, "cli_seconds": t_trace - t_cli,
@@ -2455,6 +2838,10 @@ def main() -> int:
 
     with torch.enable_grad():
         k4_summaries, train_launches, step_ms = train_smoke(dev, card, events_ms)
+    t_dp = time.perf_counter()
+    with torch.enable_grad():
+        dp_launches = dp_smoke(dev, card, step_ms)
+    emit({"phase": "timing", "what": "dp", "seconds": time.perf_counter() - t_dp})
 
     # the training loop, the refit and the finetune; serving their workdirs
     import shutil
@@ -2482,7 +2869,8 @@ def main() -> int:
                "streaming": streaming_launches, "training": train_launches,
                "training_loop": loop_launches, "training_loop_serving": loop_serving,
                "refit": refit_launches, "finetune": finetune_launches,
-               "finetune_serving": finetune_serving}
+               "finetune_serving": finetune_serving, "dp": dp_launches,
+               "sweep": sweep_launches}
 
     def stage_entry(kernel, source, replaces):
         acc = timing[kernel]

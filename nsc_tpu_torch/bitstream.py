@@ -22,9 +22,10 @@ Header (little-endian), 20 bytes + name:
   [fingerprint u32]  only when flags & FLAG_FINGERPRINT: CRC-32 of the
       encoder's RVQ codebooks (api.codebook_fingerprint)
 
-Index packing: MSB-first fixed-width bit-packing per plane with numpy
-packbits/unpackbits (the JAX package's native C packer gives the same
-bytes; it is not part of this port).
+Index packing: MSB-first fixed-width bit-packing per plane, by the C
+packer (`native/bitpack.c`, through `nsc_tpu_torch.native`) when it loads,
+else with numpy packbits/unpackbits (`pack_frames_numpy`,
+`unpack_frames_numpy`); the bytes are the same.
 """
 
 from __future__ import annotations
@@ -33,6 +34,8 @@ import dataclasses
 import struct
 
 import numpy as np
+
+from nsc_tpu_torch import native
 
 MAGIC = b"NSC1"
 VERSION = 1
@@ -154,15 +157,28 @@ def unpack_plane(payload: bytes, num_frames: int, bits: int) -> np.ndarray:
     return (bit_arr.astype(np.uint32) * weights).sum(axis=1).astype(np.int32)
 
 
-def pack_frames(indices: np.ndarray, bits: int) -> bytes:
-    """(F, n_q) -> book-major byte-aligned planes."""
-    idx = np.asarray(indices)
+def _check_frames(idx: np.ndarray, bits: int) -> None:
     if idx.ndim != 2:
         raise BitstreamError("expected (frames, n_q)")
     if bits < 1 or bits > 32:
         raise BitstreamError(f"bits out of range: {bits}")
     if idx.size and (int(idx.min()) < 0 or int(idx.max()) >= (1 << bits)):
         raise BitstreamError("index exceeds bit width")
+
+
+def pack_frames(indices: np.ndarray, bits: int) -> bytes:
+    """(F, n_q) -> book-major byte-aligned planes (the C packer when it
+    loads, else `pack_frames_numpy`)."""
+    idx = np.asarray(indices)
+    _check_frames(idx, bits)
+    packed = native.pack_frames(idx, bits)
+    return packed if packed is not None else pack_frames_numpy(idx, bits)
+
+
+def pack_frames_numpy(indices: np.ndarray, bits: int) -> bytes:
+    """`pack_frames` with numpy."""
+    idx = np.asarray(indices)
+    _check_frames(idx, bits)
     return b"".join(pack_plane(idx[:, q], bits) for q in range(idx.shape[1]))
 
 
@@ -171,6 +187,15 @@ def unpack_frames(
 ) -> np.ndarray:
     """Inverse of pack_frames -> (F, n_q) int32. Accepts a payload holding at
     least n_q planes (extra trailing planes/bytes ignored — truncation rule)."""
+    per = plane_nbytes(num_frames, bits)
+    if len(payload) < n_q * per:
+        raise BitstreamError("truncated plane")
+    idx = native.unpack_frames(payload, num_frames, n_q, bits)
+    return idx if idx is not None else unpack_frames_numpy(payload, num_frames, n_q, bits)
+
+
+def unpack_frames_numpy(payload: bytes, num_frames: int, n_q: int, bits: int) -> np.ndarray:
+    """`unpack_frames` with numpy."""
     per = plane_nbytes(num_frames, bits)
     if len(payload) < n_q * per:
         raise BitstreamError("truncated plane")

@@ -1,6 +1,10 @@
 """Adaptive arithmetic coding of RVQ index planes (the port's own copy of
-the JAX package's `nsc_tpu/entropy.py`, on its pure-Python path; coded bytes
-are identical).
+the JAX package's `nsc_tpu/entropy.py`; coded bytes are identical).
+
+`encode_plane` / `decode_plane` run the C coder (`native/entropy.c`,
+through `nsc_tpu_torch.native`) when it loads, else the Python path below
+(`encode_plane_numpy` / `decode_plane_numpy`), which is the specification:
+the two give the same bytes (`tests/test_torch_native.py`).
 
 Coder: CACM87-style 32-bit arithmetic coder with an adaptive per-plane
 frequency model. The model starts uniform (Laplace +1 counts) and adds each
@@ -15,6 +19,8 @@ per-plane, so bitrate truncation by dropping trailing planes still works.
 from __future__ import annotations
 
 import numpy as np
+
+from nsc_tpu_torch import native
 
 _FULL = 0xFFFFFFFF
 _HALF = 0x80000000
@@ -105,7 +111,17 @@ class _AdaptiveModel:
 
 
 def encode_plane(symbols: np.ndarray, k: int) -> bytes:
-    """(F,) ints in [0, k) -> arithmetic-coded bytes."""
+    """(F,) ints in [0, k) -> arithmetic-coded bytes (the C coder when it
+    loads, else `encode_plane_numpy`)."""
+    syms = np.asarray(symbols, np.int64)
+    if syms.size and (syms.min() < 0 or syms.max() >= k):
+        raise ValueError("symbol out of range")
+    coded = native.ac_encode_plane(syms, k, REBUILD, RESCALE_AT)
+    return coded if coded is not None else encode_plane_numpy(syms, k)
+
+
+def encode_plane_numpy(symbols: np.ndarray, k: int) -> bytes:
+    """`encode_plane` on the Python path."""
     syms = np.asarray(symbols, np.int64)
     if syms.size and (syms.min() < 0 or syms.max() >= k):
         raise ValueError("symbol out of range")
@@ -145,7 +161,14 @@ def encode_plane(symbols: np.ndarray, k: int) -> bytes:
 
 
 def decode_plane(data: bytes, n: int, k: int) -> np.ndarray:
-    """Inverse of encode_plane: coded bytes -> (n,) int32 symbols."""
+    """Inverse of encode_plane: coded bytes -> (n,) int32 symbols (the C
+    coder when it loads, else `decode_plane_numpy`)."""
+    out = native.ac_decode_plane(data, n, k, REBUILD, RESCALE_AT)
+    return out if out is not None else decode_plane_numpy(data, n, k)
+
+
+def decode_plane_numpy(data: bytes, n: int, k: int) -> np.ndarray:
+    """`decode_plane` on the Python path."""
     model = _AdaptiveModel(k)
     r = _BitReader(data)
     low, high = 0, _FULL

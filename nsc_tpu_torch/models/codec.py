@@ -122,14 +122,15 @@ class NeuralSpeechCodec:
 
     def forward(
         self, tree: Params, rvq: rvq_ops.RVQState, wav: torch.Tensor,
-        *, depth: Optional[torch.Tensor] = None,
+        *, depth: Optional[torch.Tensor] = None, axis=None,
     ) -> Tuple[torch.Tensor, rvq_ops.RVQForward, torch.Tensor]:
         """The differentiable training pass: encoder -> RVQ forward (straight
         through, EMA stats) -> decoder, residual units op by op (the stack
         kernel has no backward). Returns (reconstruction (N, T), RVQ
-        forward, latents (N, F, D) in codebook space)."""
+        forward, latents (N, F, D) in codebook space). With `axis` (a
+        `parallel.Mesh`) the RVQ's EMA stats are summed over its ranks."""
         z = self.train_latents(tree, wav)
-        fwd = rvq_ops.forward(rvq, z, depth=depth)
+        fwd = rvq_ops.forward(rvq, z, depth=depth, axis=axis)
         zq = self._project_out(tree, fwd.quantized).to(self.compute_dtype)
         dec = seanet.materialize_decoder(tree["decoder"])
         recon = seanet.apply_decoder(dec, zq.transpose(1, 2), self.cfg)

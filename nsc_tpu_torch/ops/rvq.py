@@ -118,6 +118,7 @@ def forward(
     *,
     n_q: Optional[int] = None,
     depth: Optional[torch.Tensor] = None,
+    axis=None,
 ) -> RVQForward:
     """Quantize with a straight-through estimator and collect EMA stats.
 
@@ -130,6 +131,13 @@ def forward(
     The nearest-code search of all books is one call of the quantize
     wrapper (the CUDA kernel on a card). Counts, sums and the output sum
     follow the JAX scan book by book in float32.
+
+    `axis` (a `parallel.Mesh`, data parallelism): counts and sums are
+    summed over its ranks, as the JAX package psums them, and `usage` is
+    taken from the summed counts: the global batch's, as one process on the
+    whole batch reports it (the JAX package takes each replica's own usage
+    before its psum and averages the metric, so its value depends on the
+    world size).
     """
     books = _books(state, n_q).float()
     num_books, k, d = books.shape
@@ -147,7 +155,7 @@ def forward(
         mask = torch.repeat_interleave(per_sample, t, dim=1)  # (n_q, M)
 
     acc = torch.zeros_like(r)
-    counts, sums, usage = [], [], []
+    counts, sums = [], []
     for q in range(num_books):
         cb = books[q].detach()
         iq = idx[:, q]
@@ -161,16 +169,16 @@ def forward(
         r = r - quant
         counts.append(cnt)
         sums.append(sm)
-        usage.append(torch.mean((cnt > 0).float()))
 
+    counts, sums = torch.stack(counts), torch.stack(sums)
+    if axis is not None:
+        axis.psum_([counts, sums])
+    usage = torch.mean((counts > 0).float(), dim=-1)
     zq = acc.reshape(n, t, d)
     commit = torch.mean(torch.square(z.float() - zq))
     zq_ste = z + (zq - z.float()).to(z.dtype).detach()
     indices = idx.to(torch.int32).reshape(n, t, num_books)
-    return RVQForward(
-        zq_ste, indices, commit, torch.stack(counts), torch.stack(sums),
-        torch.stack(usage),
-    )
+    return RVQForward(zq_ste, indices, commit, counts, sums, usage)
 
 
 def init_codebooks_from_data(
@@ -239,13 +247,31 @@ def sample_reseed_candidates(
     *,
     generator: Optional[torch.Generator] = None,
     picks: Optional[torch.Tensor] = None,
+    axis=None,
 ) -> torch.Tensor:
     """(n_q, K, D) random vectors of the (M, D) pool for dead-code
     reseeding: `picks` (n_q, K) pool indices when given, else uniform draws
-    from `generator` (a CPU `torch.Generator`)."""
+    from `generator` (a CPU `torch.Generator`).
+
+    With `axis` (a `parallel.Mesh`) `pool` is this rank's part of the
+    global pool, the ranks' parts in rank order, and `picks` index the
+    global pool [0, M x world). The generator must be the same on every
+    rank: each rank fills the picks it owns, zeros elsewhere, and a sum
+    over the ranks gives every rank the same candidates (the JAX package's
+    psum broadcast), so the codebooks stay bit-identical across ranks."""
+    m = pool.shape[0]
+    world = 1 if axis is None else axis.size
     if picks is None:
-        picks = torch.randint(0, pool.shape[0], (n_q, k), generator=generator)
-    return pool[picks.long().to(pool.device)]
+        picks = torch.randint(0, m * world, (n_q, k), generator=generator)
+    picks = picks.long().to(pool.device)
+    if axis is None:
+        return pool[picks]
+    local = picks - axis.rank * m
+    mine = (local >= 0) & (local < m)
+    cand = torch.where(mine[..., None], pool[local.clamp(0, m - 1)],
+                       torch.zeros((), dtype=pool.dtype, device=pool.device))
+    axis.psum_([cand])
+    return cand
 
 
 def ema_update(

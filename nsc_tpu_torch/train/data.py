@@ -287,8 +287,8 @@ class WavReaderSource:
     position idx = epoch * files + position is cropped with
     RandomState((seed + 7919 * idx) % 2**31), as the JAX package's grain
     pipeline crops its idx-th item. The state is (epoch, position). Without
-    shard arguments the shard is (0, 1): the port has no data parallelism
-    yet."""
+    shard arguments the shard is (0, 1); the training loop's data
+    parallelism gives rank r of W the shard (r, W)."""
 
     def __init__(self, root: str, sample_rate: int = 16_000, seed: int = 0,
                  shard_index: Optional[int] = None, shard_count: Optional[int] = None):
@@ -345,9 +345,11 @@ class WavReaderSource:
             yield np.stack([self._item(segment_len) for _ in range(batch_size)])
 
 
-def make_source(spec: str, sample_rate: int, seed: int = 0):
+def make_source(spec: str, sample_rate: int, seed: int = 0,
+                shard: Optional[Tuple[int, int]] = None):
     """'synthetic', 'synthetic2', a directory of WAVs, or 'grain:<dir>' (the
-    on-demand reader); a ':pool=N' suffix wraps the source in a
+    on-demand reader, which reads shard (index, count) of its file list
+    when `shard` is given); a ':pool=N' suffix wraps the source in a
     `PooledSource` of N segments."""
     pool = 0
     if ":pool=" in spec:
@@ -358,7 +360,9 @@ def make_source(spec: str, sample_rate: int, seed: int = 0):
     elif spec == "synthetic2":
         src = SyntheticSourceV2(sample_rate, seed)
     elif spec.startswith("grain:"):
-        src = WavReaderSource(spec[len("grain:"):], sample_rate, seed)
+        index, count = shard if shard is not None else (None, None)
+        src = WavReaderSource(spec[len("grain:"):], sample_rate, seed,
+                              shard_index=index, shard_count=count)
     else:
         src = WavDirectorySource(spec, sample_rate, seed)
     return PooledSource(src, pool_size=pool, seed=seed) if pool else src

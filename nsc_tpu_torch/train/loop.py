@@ -47,13 +47,29 @@ the metric, or the backward function). What it does not see, unlike
 and no gradient carries (the RVQ's EMA statistics, the optimizer's
 update), until it reaches a metric in a later step.
 
-Not ported yet: data parallelism (A14); the tensorboard writer of the JAX
-package's `MetricsLogger`.
+Data parallelism (`--distributed`, `run(..., distributed=True)`; the
+JAX package's `--multihost` mesh): one process per device, started by
+`torchrun` / `python -m torch.distributed.run`, which sets the `env://`
+variables; NCCL on cards (device `cuda:<LOCAL_RANK>`), gloo with
+`--device cpu`. `batch_size` is the global batch and must divide by the
+world size; each rank reads `batch_size // world` rows from its own stream
+(seed + 1009 x rank; the on-demand reader's shard `rank` of `world`). The
+data init runs on rank 0 and every rank starts from rank 0's state
+(`parallel.replicate`, checked bit for bit). The step keeps the state
+identical across ranks (`parallel.make_parallel_train_step`). Only rank 0
+writes metrics, exports, snapshots and best.json; the liveness guards run
+on every rank (the RSS exit when any rank passes its limit). A full save
+keeps every rank's stream position ({"world": W, "ranks": [...]}), and a
+resume at the same world size continues each rank's stream; at another
+world size the streams start again from their seeds, and the run says so.
+
+Not ported: the tensorboard writer of the JAX package's `MetricsLogger`.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import functools
 import json
@@ -219,36 +235,95 @@ def run(
     resume: bool = True,
     device=None,
     debug_nans: bool = False,
+    distributed: bool = False,
+    deterministic: bool = False,
 ) -> dict:
     """Train to `steps` (default tcfg.steps); returns the last metrics.
     Exits 97 when the device does not answer its probe, 98 when a CUDA run
     stalls, 99 after a full save when the host's RSS passes its limit (see
     the module doc); `debug_nans` raises FloatingPointError at the first
-    non-finite loss, metric or gradient."""
-    dev = resolve_device(device)
+    non-finite loss, metric or gradient. `distributed`: data parallelism
+    over the default process group (initialised from `env://` when it is
+    not yet), see the module doc. `deterministic`: PyTorch's deterministic
+    algorithms and cuDNN's deterministic convolutions for the run, so two
+    runs of the same arguments log the same metrics bit for bit."""
+    if deterministic:
+        os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    with deterministic_algorithms(deterministic):
+        return _run(cfg, tcfg, workdir=workdir, data_spec=data_spec, steps=steps, resume=resume,
+                    device=device, debug_nans=debug_nans, distributed=distributed)
+
+
+@contextlib.contextmanager
+def deterministic_algorithms(on: bool = True):
+    """PyTorch's deterministic algorithms (warnings, not errors, where an op
+    has none) and cuDNN's deterministic convolutions while the block runs;
+    the caller's settings come back after it. cuBLAS needs
+    CUBLAS_WORKSPACE_CONFIG set before its first use."""
+    if not on:
+        yield
+        return
+    saved = (torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled(),
+             torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(saved[0], warn_only=saved[1])
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved[2:]
+
+
+def _run(cfg, tcfg, *, workdir, data_spec, steps, resume, device, debug_nans,
+         distributed) -> dict:
+    mesh = None
+    if distributed:
+        from nsc_tpu_torch import parallel
+
+        mesh = parallel.make_mesh(device)
+        dev = mesh.device
+    else:
+        dev = resolve_device(device)
+    rank, world = (0, 1) if mesh is None else (mesh.rank, mesh.size)
+    lead = rank == 0
+    if tcfg.batch_size % world:
+        raise ValueError(f"batch {tcfg.batch_size} not divisible by {world} ranks")
     # before any start-up work: a hung device fails here in bounded time
     liveness.device_liveness_check(probe=functools.partial(liveness._default_probe, dev))
     steps = tcfg.steps if steps is None else steps
     train_dir = os.path.join(workdir, "train")
-    source = data_lib.make_source(data_spec, cfg.sample_rate, tcfg.seed)
+    # each rank its own stream (the JAX package's per-process seed offset)
+    source = data_lib.make_source(data_spec, cfg.sample_rate, tcfg.seed + 1009 * rank,
+                                  shard=(rank, world) if mesh is not None else None)
     if hasattr(source, "set_cache_dir"):
         source.set_cache_dir(workdir)
     start = 0
     if resume and ckpt.latest_step(train_dir) is not None:
         start, trees, data_state = ckpt.restore(train_dir)
         model, state = model_for(cfg), state_from_trees(trees, dev, step=start)
+        data_state = rank_data_state(data_state, rank, world)
         if data_state is not None:
             source.set_state(data_state)
-        print(f"resumed from step {start}")
+        if lead:
+            print(f"resumed from step {start}")
     else:
         model, state = init_train_state(cfg, tcfg, dev)
-        if tcfg.codebook_init == "data":
+        if tcfg.codebook_init == "data" and lead:
             data_init_codebooks(model, state, tcfg, data_spec)
             print("codebooks: data-driven init (residual sampling + k-means)")
-    step_fn = make_train_step(model, tcfg)
+    if mesh is not None:
+        from nsc_tpu_torch import parallel
+
+        # rank 0's state on every rank (its data init), checked bit for bit
+        parallel.replicate(mesh, state)
+        step_fn = parallel.make_parallel_train_step(model, tcfg, mesh)
+    else:
+        step_fn = make_train_step(model, tcfg)
     seg = segment_length(cfg, tcfg.segment_seconds)
-    batches = data_lib.Prefetcher(data_lib.batches_with_state(source, tcfg.batch_size, seg))
-    logger = MetricsLogger(workdir)
+    batches = data_lib.Prefetcher(
+        data_lib.batches_with_state(source, tcfg.batch_size // world, seg))
+    logger = MetricsLogger(workdir) if lead else None
     writer = SnapshotWriter(dev)
     meta = export_fields(cfg, workdir, data_spec)
     best_path = os.path.join(workdir, "best.json")
@@ -296,13 +371,14 @@ def run(
                     hb.beat(step + 1)  # float() above waited for the device
                 m["steps_per_sec"] = tcfg.log_every / max(time.time() - t0, 1e-9)
                 t0 = time.time()
-                logger.log(step + 1, m)
                 if tcfg.best_metric in m:
                     window.append(m[tcfg.best_metric])
-                print(
-                    f"step {step + 1}: g={m['loss/g_total']:.4f} "
-                    f"d={m.get('loss/d_total', 0.0):.4f} mel={m['loss/mel']:.4f}"
-                )
+                if lead:
+                    logger.log(step + 1, m)
+                    print(
+                        f"step {step + 1}: g={m['loss/g_total']:.4f} "
+                        f"d={m.get('loss/d_total', 0.0):.4f} mel={m['loss/mel']:.4f}"
+                    )
             if (step + 1) % tcfg.checkpoint_every == 0 or last:
                 if not window:
                     window.append(float(metrics.get(tcfg.best_metric, math.inf)))
@@ -318,6 +394,8 @@ def run(
                 rss_limit = liveness.rss_exit_limit_gb()
                 rss_gb = liveness.host_rss_gb() if rss_limit is not None else 0.0
                 rss_exit = rss_limit is not None and rss_gb > rss_limit and not last
+                if mesh is not None:  # every rank exits when one passes its limit
+                    rss_exit = any(mesh.all_gather_object(rss_exit))
                 full = (rss_exit or not tcfg.full_state_every or not have_full or last
                         or step + 1 - last_full >= tcfg.full_state_every)
                 if full:
@@ -326,10 +404,16 @@ def run(
                 sync = last or rss_exit
                 if sync and hb is not None:
                     hb.stop()  # a long final save is not a stall
-                writer.submit(tree, lambda host, a=(step + 1, full, improved, best, data_state):
-                              write(host, *a), sync=sync)
+                saved_data = data_state
+                if mesh is not None and full:  # every rank's stream position
+                    saved_data = {"world": world, "ranks": mesh.all_gather_object(data_state)}
+                if lead:
+                    writer.submit(tree, lambda host, a=(step + 1, full, improved, best, saved_data):
+                                  write(host, *a), sync=sync)
                 if rss_exit:
                     writer.join()
+                    if mesh is not None:
+                        mesh.barrier()  # rank 0's save is on disk
                     print(f"{liveness._MARKER_RSS}: rss {rss_gb:.1f} GB > limit "
                           f"{rss_limit:.1f} GB; full state saved at step {step + 1}; exiting "
                           f"{liveness.EXIT_RSS_LIMIT} for a relaunch that resumes", flush=True)
@@ -340,8 +424,27 @@ def run(
             hb.stop()
         writer.wait()
         batches.close()
-        logger.close()
+        if logger is not None:
+            logger.close()
+    if mesh is not None:
+        mesh.barrier()  # rank 0's final save is on disk when run returns
     return {k: float(v) for k, v in metrics.items()}
+
+
+def rank_data_state(saved, rank: int, world: int):
+    """This rank's stream position from a full save's data state: a
+    distributed run's save holds {"world": W, "ranks": [...]}, another run's
+    the one position. Returns None (the stream starts from its seed, with a
+    message) when the save was made at another world size."""
+    if saved is None:
+        return None
+    ranks = saved["ranks"] if isinstance(saved, dict) and "ranks" in saved else [saved]
+    if len(ranks) == world:
+        return ranks[rank]
+    if rank == 0:
+        print(f"the checkpoint's data streams are of {len(ranks)} ranks, this run has "
+              f"{world}: each rank's stream starts from its seed")
+    return None
 
 
 def _checked_step(step_fn, state, batch, step1: int):
@@ -394,6 +497,14 @@ def parse_args(argv=None) -> tuple[CodecConfig, TrainConfig, dict]:
                    help="anomaly detection in the backward and a finiteness check of every "
                    "step's losses and metrics: raise FloatingPointError at the first "
                    "non-finite value instead of training on")
+    p.add_argument("--distributed", action="store_true",
+                   help="data parallelism over torch.distributed, one process per device, "
+                   "initialised from the env:// variables that torchrun sets (NCCL on cards: "
+                   "cuda:<LOCAL_RANK>; gloo with --device cpu); --batch-size is the global "
+                   "batch")
+    p.add_argument("--deterministic", action="store_true",
+                   help="PyTorch's deterministic algorithms and cuDNN's deterministic "
+                   "convolutions, so that two runs log the same metrics bit for bit")
     args = p.parse_args(argv)
 
     cfg = get_config(args.config)
@@ -414,10 +525,16 @@ def parse_args(argv=None) -> tuple[CodecConfig, TrainConfig, dict]:
     tcfg = dataclasses.replace(tcfg, lr_decay_steps=decay)
     return cfg, tcfg, {"workdir": args.workdir, "data_spec": args.data, "steps": args.steps,
                        "resume": not args.no_resume, "device": args.device,
-                       "debug_nans": args.debug_nans}
+                       "debug_nans": args.debug_nans, "distributed": args.distributed,
+                       "deterministic": args.deterministic}
 
 
 def main(argv=None) -> int:
     cfg, tcfg, kwargs = parse_args(argv)
-    run(cfg, tcfg, **kwargs)
+    started = kwargs["distributed"] and not torch.distributed.is_initialized()
+    try:
+        run(cfg, tcfg, **kwargs)
+    finally:
+        if started and torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
     return 0

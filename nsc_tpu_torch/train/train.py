@@ -30,6 +30,19 @@ for convolutions by default) and restores the caller's settings after.
 Random draws of a step (depths, reseed picks) come from a CPU
 `torch.Generator` seeded from (seed, step), so a resumed run draws what an
 uninterrupted one would; tests pass JAX's own draws in explicitly.
+
+Data parallelism (`make_train_step(..., axis=mesh)`, built by
+`parallel.make_parallel_train_step`; the JAX step's `axis_name`): each rank
+runs the step on its rows of the global batch; the generator's and the
+discriminator's gradients are summed over the ranks and divided by the
+world size before the norm, the clip and Adam; the RVQ forward sums its EMA
+counts and sums (and takes `rvq/usage` from the sums: the global batch's,
+where the JAX step averages the replicas' own); the reseed picks index the
+global pool; every metric is averaged over the ranks. Every rank draws from the same (seed, step)
+generator: the depths of the whole global batch (each rank takes its rows)
+and then the global reseed picks, so a one-rank group draws what the plain
+step draws and is the plain step bit for bit, and N ranks draw what one
+process draws on the global batch.
 """
 
 from __future__ import annotations
@@ -216,20 +229,26 @@ def _split(outs, n):
     return real, fake
 
 
-def make_train_step(model: NeuralSpeechCodec, tcfg: TrainConfig):
+def make_train_step(model: NeuralSpeechCodec, tcfg: TrainConfig, *, axis=None):
     """(state, batch (N, T) float32) -> (state, metrics). Optional keyword
     arguments `depth` (N,) and `reseed_picks` (n_q, K) replace the step's
     own draws; `mark(name)` is called after the generator's gradients
     ("generator"), the discriminator's ("discriminator") and the updates
     ("updates"), so a caller can record timing events between them. The
-    step runs under `float32_numerics()`."""
+    step runs under `float32_numerics()`.
+
+    With `axis` (a `parallel.Mesh`) the batch is this rank's rows of the
+    global batch, and `depth` (N x world,) and `reseed_picks` refer to the
+    global batch and its pool (see the module doc)."""
+    world = 1 if axis is None else axis.size
     cfg = model.cfg
     lr_g = make_lr_schedule(tcfg.lr_g, tcfg)
     lr_d = make_lr_schedule(tcfg.lr_d, tcfg)
     mrstft = spectral.MultiResSTFTConfig(fft_sizes=tcfg.stft_fft_sizes)
 
     def g_loss(state, batch, depth, adv_on):
-        recon, fwd, z = model.forward(state["params_g"], state["rvq"], batch, depth=depth)
+        recon, fwd, z = model.forward(state["params_g"], state["rvq"], batch, depth=depth,
+                                      axis=axis)
         l_time = spectral.time_l1_loss(recon, batch)
         l_mel = spectral.mel_loss(
             recon, batch, sample_rate=cfg.sample_rate, n_fft=tcfg.mel_fft_size,
@@ -274,14 +293,19 @@ def make_train_step(model: NeuralSpeechCodec, tcfg: TrainConfig):
         mark = mark or (lambda _: None)
         step = state["step"]
         gen = step_generator(tcfg.seed, step)
+        n = batch.shape[0]
         if depth is None and tcfg.quantizer_dropout > 0:
-            depth = sample_depths(gen, batch.shape[0], cfg.num_quantizers, tcfg.quantizer_dropout)
+            depth = sample_depths(gen, n * world, cfg.num_quantizers, tcfg.quantizer_dropout)
+        if depth is not None and axis is not None:
+            depth = depth[axis.rank * n:(axis.rank + 1) * n]
         adv_on = 1.0 if step >= tcfg.disc_start_step else 0.0
 
         # --- generator gradients (old discriminator) ---
         g_params = tree_leaves(state["params_g"])
         total, metrics, fwd, z, recon = g_loss(state, batch, depth, adv_on)
         g_grads = list(torch.autograd.grad(total, g_params))
+        if axis is not None:
+            axis.pmean_(g_grads)
         metrics["grad/g_norm"] = global_norm(g_grads)
         fake = recon.detach()
         del total, recon
@@ -296,6 +320,8 @@ def make_train_step(model: NeuralSpeechCodec, tcfg: TrainConfig):
             )
             d_total = gan_losses.discriminator_loss(*_split(outs, batch.shape[0]))
             d_grads = [g * adv_on for g in torch.autograd.grad(d_total, d_params)]
+            if axis is not None:
+                axis.pmean_(d_grads)
             metrics["loss/d_total"] = d_total
             del outs
         mark("discriminator")
@@ -306,7 +332,7 @@ def make_train_step(model: NeuralSpeechCodec, tcfg: TrainConfig):
             pool = z.detach().reshape(-1, z.shape[-1])
             candidates = rvq_ops.sample_reseed_candidates(
                 pool, fwd.counts.shape[0], cfg.codebook_size,
-                generator=gen, picks=reseed_picks,
+                generator=gen, picks=reseed_picks, axis=axis,
             )
             new_rvq, reseed_frac = rvq_ops.ema_update(
                 state["rvq"], fwd.counts, fwd.sums,
@@ -323,7 +349,10 @@ def make_train_step(model: NeuralSpeechCodec, tcfg: TrainConfig):
 
         state["rvq"] = new_rvq
         state["step"] = step + 1
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        if axis is not None:
+            metrics = axis.pmean_metrics(metrics)
         mark("updates")
-        return state, {k: v.detach() for k, v in metrics.items()}
+        return state, metrics
 
     return train_step

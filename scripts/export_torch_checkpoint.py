@@ -1,7 +1,7 @@
 """Export a trained nsc_tpu inference checkpoint for the PyTorch port.
 
     python scripts/export_torch_checkpoint.py [SRC] [--config base_fast] [--out DIR]
-        [--int8-reference-only]
+        [--int8-reference-only | --sweep-reference-only]
 
 Restores SRC (an orbax checkpoint directory as `nsc_tpu.load_model` takes
 it; default the refit flagship, artifacts/base_fast_synthetic2_48k_refit)
@@ -23,9 +23,13 @@ DIR (default exports/<name of SRC>):
                      sites' call order, `ops.quant._conv_sites`): the
                      reference of the port's float32 int8 path, run with
                      those scales
+  reference_sweep.json  nsc_tpu's CPU float32 `bitrate_sweep` rows (every
+                     depth) on the first SWEEP_ROWS clips of the speech
+                     probe, the reference of the port's sweep on the card
 
 --int8-reference-only writes reference_int8.npz alone into an existing
-export (the weights' bytes, and so meta.json's sha256, stay as they are).
+export, --sweep-reference-only reference_sweep.json alone (the weights'
+bytes, and so meta.json's sha256, stay as they are).
 
 `nsc_tpu_torch.train.checkpoint.restore_inference` reads the export with
 numpy alone. This script is the one part of the port's tooling that imports
@@ -48,6 +52,7 @@ sys.path.insert(0, REPO)
 FLAGSHIP = os.path.join(REPO, "artifacts", "base_fast_synthetic2_48k_refit")
 WEIGHTS, META, REFERENCE = "weights.npz", "meta.json", "reference_f32.npz"
 REFERENCE_INT8 = "reference_int8.npz"
+REFERENCE_SWEEP, SWEEP_ROWS = "reference_sweep.json", 2
 REFERENCE_ROWS_PER_CALL = 4
 
 
@@ -152,6 +157,20 @@ def reference_int8(cfg, params, rvq, rows=None):
     return out
 
 
+def reference_sweep(cfg, params, rvq, fingerprint: int) -> dict:
+    """nsc_tpu's CPU float32 bitrate sweep of the first SWEEP_ROWS clips of
+    the speech probe, every depth."""
+    _jax()
+    from nsc_tpu import api, canonical
+    from nsc_tpu.eval.sweep import bitrate_sweep
+    from nsc_tpu.models.codec import NeuralSpeechCodec
+
+    wavs = canonical.speech_probe_input(cfg)[:SWEEP_ROWS]
+    rows = bitrate_sweep(api.ModelBundle(NeuralSpeechCodec(cfg), params, rvq), wavs)
+    return {"config": cfg.name, "fingerprint": int(fingerprint), "probe": "speech",
+            "clips": SWEEP_ROWS, "samples": int(wavs.shape[-1]), "rows": rows}
+
+
 def restore(src: str, config: str):
     """(params, rvq, step) of the orbax checkpoint at `src`, restored on CPU
     JAX into `config`'s init_codec structure."""
@@ -181,6 +200,8 @@ def main(argv=None) -> int:
     p.add_argument("--out", default=None, help="default: exports/<name of SRC>")
     p.add_argument("--int8-reference-only", action="store_true",
                    help="write reference_int8.npz alone into the existing export")
+    p.add_argument("--sweep-reference-only", action="store_true",
+                   help="write reference_sweep.json alone into the existing export")
     args = p.parse_args(argv)
 
     from nsc_tpu.configs import get_config
@@ -190,7 +211,7 @@ def main(argv=None) -> int:
     params, rvq, step = restore(src, args.config)
     cfg = get_config(args.config)
     meta = None
-    if args.int8_reference_only:
+    if args.int8_reference_only or args.sweep_reference_only:
         with open(os.path.join(out, META)) as f:
             fingerprint = json.load(f)["fingerprint"]
         from nsc_tpu import api
@@ -204,8 +225,13 @@ def main(argv=None) -> int:
         fingerprint = meta["fingerprint"]
         np.savez(os.path.join(out, REFERENCE), **reference_f32(cfg, params, rvq),
                  fingerprint=np.uint32(fingerprint), config=np.array(args.config))
-    np.savez(os.path.join(out, REFERENCE_INT8), **reference_int8(cfg, params, rvq),
-             fingerprint=np.uint32(fingerprint), config=np.array(args.config))
+    if not args.sweep_reference_only:
+        np.savez(os.path.join(out, REFERENCE_INT8), **reference_int8(cfg, params, rvq),
+                 fingerprint=np.uint32(fingerprint), config=np.array(args.config))
+    if not args.int8_reference_only:
+        with open(os.path.join(out, REFERENCE_SWEEP), "w") as f:
+            json.dump(reference_sweep(cfg, params, rvq, fingerprint), f, indent=1)
+            f.write("\n")
     size = os.path.getsize(os.path.join(out, WEIGHTS))
     print(json.dumps({"out": out, "weights_bytes": size, **(meta or {"fingerprint": fingerprint})}))
     return 0

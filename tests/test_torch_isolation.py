@@ -1,7 +1,9 @@
 """The port stands alone: nothing under nsc_tpu_torch/, and not
-chip_smoke.py, scripts/torch_write_gpu_pin.py or
-scripts/torch_refit_flips.py, imports JAX or the JAX package; entry points never move to the CPU silently; the CPU paths launch
-no kernel and build nothing."""
+chip_smoke.py, the port's scripts (scripts/torch_*.py but the export
+script, which reads the JAX package's checkpoints) or the data-parallel
+test worker, imports JAX or the JAX package; entry points never move to the
+CPU silently; the CPU paths launch no kernel and build nothing; a wheel
+ships the CUDA sources the kernels build from."""
 
 import ast
 import os
@@ -17,10 +19,14 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _FORBIDDEN = {"jax", "jaxlib", "nsc_tpu"}
 
 
+PORT_SCRIPTS = ("torch_write_gpu_pin.py", "torch_refit_flips.py", "torch_rvq_bench.py",
+                "torch_k4_gradient.py", "torch_refit_flagship.py",
+                "torch_finetune_flagship.py", "torch_rd_ceiling.py")
+
+
 def _port_files():
-    out = [os.path.join(ROOT, "chip_smoke.py"),
-           os.path.join(ROOT, "scripts", "torch_write_gpu_pin.py"),
-           os.path.join(ROOT, "scripts", "torch_refit_flips.py")]
+    out = [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "tests", "torch_dp_worker.py")]
+    out += [os.path.join(ROOT, "scripts", name) for name in PORT_SCRIPTS]
     for dirpath, _, names in os.walk(os.path.join(ROOT, "nsc_tpu_torch")):
         out += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
     return sorted(out)
@@ -42,7 +48,11 @@ def _imported_roots(path):
 
 def test_port_imports_no_jax_and_no_jax_package():
     files = _port_files()
-    assert len(files) > 10
+    assert len(files) > 10 and all(os.path.exists(f) for f in files)
+    names = {os.path.relpath(f, ROOT) for f in files}
+    for module in ("parallel/mesh.py", "eval/sweep.py", "eval/__main__.py", "native.py",
+                   "compat/torch_compat.py"):
+        assert f"nsc_tpu_torch/{module}" in names
     bad = {
         os.path.relpath(f, ROOT): sorted(set(_imported_roots(f)) & _FORBIDDEN)
         for f in files
@@ -101,3 +111,20 @@ def test_chip_smoke_without_cuda_fails_and_prints_no_result(tmp_path):
     )
     assert proc.returncode != 0
     assert proc.stdout == ""
+
+
+def test_wheel_ships_the_cuda_sources_and_the_torch_extra():
+    import glob
+    import tomllib
+
+    with open(os.path.join(ROOT, "pyproject.toml"), "rb") as f:
+        proj = tomllib.load(f)
+    assert set(proj["project"]["optional-dependencies"]["torch"]) >= {"torch", "numpy", "scipy",
+                                                                      "einops"}
+    patterns = proj["tool"]["setuptools"]["package-data"]["nsc_tpu_torch"]
+    pkg = os.path.join(ROOT, "nsc_tpu_torch")
+    shipped = {p for pat in patterns for p in glob.glob(os.path.join(pkg, pat))}
+    needed = {os.path.join(_build.CSRC, n) for n in os.listdir(_build.CSRC)}
+    assert needed and needed <= shipped
+    assert {os.path.basename(p) for p in needed} >= set(_build.SOURCES)
+    assert any(p.endswith(".cuh") for p in needed)

@@ -326,7 +326,8 @@ def test_new_cli_flags(tmp_path):
     _, tcfg, kwargs = L.parse_args(argv)
     assert (tcfg.checkpoint_every, tcfg.full_state_every, tcfg.keep_checkpoints) == (2, 10, 3)
     assert kwargs == {"workdir": str(wd), "data_spec": "synthetic", "steps": 5, "resume": True,
-                      "device": "cpu", "debug_nans": False}
+                      "device": "cpu", "debug_nans": False, "distributed": False,
+                      "deterministic": False}
     assert L.main(argv) == 0
     assert ckpt.all_steps(str(wd / "train")) == [2, 5]
     assert ckpt.export_steps(str(wd / "infer")) == [2, 4, 5]
