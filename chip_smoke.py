@@ -38,12 +38,17 @@ every plain version compared here run their float32 work under
               D (4-byte rows), with indices outside [0, K), and the earlier
               row-warp design (timed beside it) on the serving indices;
               stft_magnitude (the FFT route) at the training step's six
-              launch shapes (B=64, T=16000) and the DFT route at n_fft 400
-              and 2; the spectral losses through the kernel against the
-              plain path (values; the mel gradient), and the
-              multi-resolution gradient of the kernel, the float32
-              matmul-DFT path and the float32 rfft path against a float64
-              matmul-DFT gradient, on five noise seeds
+              launch shapes (B=64, T=16000), at the k4_any bank's six and
+              at K4_MIXED_SHAPES (speech windows, 8192), the DFT remainder
+              at K4_DFT_SHAPES, each with its launch counted and against
+              float64 magnitudes (FFT: 2 float32 ulps; remainder: 2^-23 of
+              the frame's peak, the plain float32 sums' reading beside it
+              as a control); the
+              spectral losses through the kernel against the plain path
+              (values; the mel gradient), and the multi-resolution
+              gradient of the kernel, the float32 matmul-DFT path and the
+              float32 rfft path against a float64 matmul-DFT gradient, on
+              five noise seeds, for the shipped bank and the k4_any bank
   4. main     serving: for each serving path, reconstruct with the launch
               counters reset just before and read just after (its stage
               kernel x8, K2 and its codebook split x1, K3 x1); a
@@ -105,6 +110,11 @@ every plain version compared here run their float32 work under
               the data init and read after the last step; then the entry
               point (`nsc_tpu_torch.train.loop.main`) for 2 steps into a
               temporary workdir and a resume to step 3.
+              k4_any: base_fast at full width with the loss STFTs at n_fft
+              8192/2400/960/480/120 and the mel STFT at 400 (all on K4's
+              FFT route), 2 steps, each beside the same step with the plain
+              STFT (losses within LOSS_RTOL), K4 x12, no DFT, K2 + split x1
+              per step; step time and peak memory.
               loop: the entry point (`loop.parse_args`, then `loop.run`
               with a metrics row per step) at full width on a WAV
               directory (synthetic2 rows and speech-probe rows, one at
@@ -138,7 +148,9 @@ every plain version compared here run their float32 work under
               CLI call; the train step's time, audio seconds per second, peak
               memory and split; each kernel's time beside its plain
               version's, its bound and a PyTorch yardstick where one call
-              computes the same function; K4's backward beside its forward
+              computes the same function (K4 at every shape it checks, the
+              kernel and `torch.stft` + `abs` in turns, and at the k4_any
+              bank's); K4's backward beside its forward
               and beside the plain recompute it replaced; K3 beside the
               row-warp design and beside its L2 gather floor (the bytes it gathers
               over the L2 read rate of one PyTorch reduction of an
@@ -217,9 +229,32 @@ LOSS_GRAD_TOL = {"mel": 1e-4}
 K4_GRAD_SEEDS = (2, 3, 4, 5, 6)
 K4_F64_RATIO = 1.25
 K4_F64_L2_TOL = 1.0315e-2
-# The DFT route's shapes (n_fft, hop): a 25 ms window at 16 kHz, and the
-# smallest n_fft.
-K4_DFT_SHAPES = ((400, 100), (2, 1))
+# K4's two routes beyond the shipped bank, on the 64 x 1 s target. The FFT
+# route (n_fft even, its half 7-smooth, up to 11,622) at the 25 and 20 ms
+# windows of 16 kHz, 20 ms at 24, 44.1 and 48 kHz, and 8192; the DFT
+# remainder at an odd n_fft (441 = 3^2 7^2), a half with a prime factor
+# above 7 (2018 = 2 x 1009), one above the FFT's one-frame limit (12000)
+# and the smallest n_fft. Each against its plain version (K4_TOL) and
+# against float64 magnitudes (float64 rfft of the float64-windowed frames):
+# both routes compute in float64 and round once, so every FFT-route
+# magnitude within K4_F64_ULPS float32 ulps, and every remainder magnitude
+# within K4_DFT_F64_TOL of its frame's float64 peak: one rounding moves a
+# magnitude v by at most 2^-24 v, so a float64 sum reads at most 2^-24 of
+# the peak, and the limit is twice that. The control, printed beside each
+# reading: the plain version's float32 sums against the same float64
+# magnitudes (on the CPU they read 6.1e-7 at 441 and 5.1e-7 at 2018, so
+# the limit lies between a float64 and a float32 sum).
+K4_MIXED_SHAPES = ((400, 100), (320, 80), (480, 120), (882, 220), (960, 240), (8192, 2048))
+K4_DFT_SHAPES = ((441, 110), (2018, 504), (12000, 3000), (2, 1))
+K4_F64_ULPS = 2.0
+K4_DFT_F64_TOL = 2.0 ** -23
+# The k4_any phase: base_fast trained at full width (TrainConfig defaults
+# but the loss STFTs) with a bank whose n_fft are not powers of two, and
+# 8192, all on the FFT route; K4_ANY_STEPS steps, each beside the same step
+# with the plain STFT. Its launch shapes (hop n/4) are also held against
+# plain and float64 in the kernel checks.
+K4_ANY_BANK, K4_ANY_MEL, K4_ANY_STEPS = (8192, 2400, 960, 480, 120), 400, 2
+K4_ANY_SHAPES = tuple((n, n // 4) for n in K4_ANY_BANK + (K4_ANY_MEL,))
 # K2's streamed plan (padded widths over 128): (n_q, K, D) at M frames
 K2_WIDE = ((8, 1024, 256), (4, 1024, 384))
 K2_WIDE_M = 32000
@@ -373,12 +408,99 @@ def hmma_counts(lib_path: str, cuda_bin: str) -> dict:
     return counts
 
 
+# K4's bound is the least work |STFT| needs, the function the TPU kernel
+# computes: each input sample read once, each magnitude written once, and
+# per frame the operations of a real FFT (2.5 n log2 n, half of a complex
+# FFT's 5 n log2 n), the window (n) and the magnitudes (4 per bin), at the
+# float32 rate of the function's data. Returned beside it and not in the
+# bound: the port's own extra work, the spectrum (re, im) that the
+# reconstruction's launches also write for the backward (spectrum_bytes_ms)
+# and the FFT's operations at the float64 rate it computes in (f64_ops_ms).
+def k4_bound(b, t, n_fft, hop):
+    frames, bins = 1 + t // hop, n_fft // 2 + 1
+    flops = b * frames * (2.5 * n_fft * math.log2(n_fft) + n_fft + 4 * bins)
+    nbytes = 4 * (b * t + b * frames * bins + n_fft)
+    spectrum_bytes = 4 * 2 * b * frames * bins
+    return (flops, nbytes, nbytes / PEAK_BYTES * 1e3, flops / PEAK_F32_FLOPS * 1e3,
+            spectrum_bytes / PEAK_BYTES * 1e3, flops / PEAK_F64_FLOPS * 1e3)
+
+
+def torch_stft_abs(x, n_fft, hop, win):
+    """The library yardstick of K4: one `torch.stft` and its `abs`."""
+    import torch
+
+    return torch.stft(x, n_fft, hop_length=hop, window=win, center=True, pad_mode="reflect",
+                      return_complex=True).abs()
+
+
+def k4_float64(x, n_fft, hop):
+    """Float64 magnitudes of float64 `torch.fft.rfft` of x's frames times the
+    float64 window (the yardstick of K4's float64 contract; the port never
+    calls it)."""
+    import torch
+
+    from nsc_tpu_torch.ops import stft as S
+
+    frames = S.frame_signal(x.double(), n_fft, hop) * S.hann_window(n_fft, x.device, torch.float64)
+    z = torch.fft.rfft(frames, dim=-1)
+    return torch.sqrt(z.real ** 2 + z.imag ** 2 + 1e-8)
+
+
+@contextlib.contextmanager
+def plain_stft():
+    """The spectral losses with `stft=stft_magnitude_plain` while the block
+    runs (the train step calls them through the module), then restored."""
+    import functools
+
+    from nsc_tpu_torch.kernels import stft as KS
+    from nsc_tpu_torch.losses import spectral as SP
+
+    originals = {name: getattr(SP, name) for name in ("multi_res_stft_loss", "mel_loss")}
+    for name, fn in originals.items():
+        setattr(SP, name, functools.partial(fn, stft=KS.stft_magnitude_plain))
+    try:
+        yield
+    finally:
+        for name, fn in originals.items():
+            setattr(SP, name, fn)
+
+
+def k4_timing(pred, target, n_fft, hop, events_ms) -> dict:
+    """One K4 launch shape on 64 x 1 s: the kernel on the target (`ms`) and
+    on the reconstruction keeping the spectrum (`ms_spectrum`, as the loss
+    launches it), its plain version, `torch.stft` + `abs`, in turns
+    (kernel, library, library, kernel), and the bound."""
+    import torch
+
+    from nsc_tpu_torch.kernels import stft as KS
+    from nsc_tpu_torch.ops import stft as S
+    from nsc_tpu_torch.ops.precision import float32_numerics
+
+    win = S.hann_window(n_fft, target.device)
+    kernel = lambda: KS.stft_magnitude(target, n_fft, hop)  # noqa: E731
+    library = lambda: torch_stft_abs(target, n_fft, hop, win)  # noqa: E731
+    turns = [events_ms(fn, reps=10) for fn in (kernel, library, library, kernel)]
+    with float32_numerics():
+        plain_ms = events_ms(lambda: KS.stft_magnitude_plain(target, n_fft, hop), reps=3)
+    b, t = target.shape
+    _, _, bytes_ms, ops_ms, _, f64_ops_ms = k4_bound(b, t, n_fft, hop)
+    row = {"route": KS.route(n_fft), "n_fft": n_fft, "hop": hop, "B": b, "T": t,
+           "ms": (turns[0] + turns[3]) / 2,
+           "ms_spectrum": events_ms(lambda: KS.launch(pred, n_fft, hop, spectrum=True), reps=20),
+           "plain_ms": plain_ms, "library_ms": (turns[1] + turns[2]) / 2, "turns_ms": turns,
+           "bound_ms": max(bytes_ms, ops_ms),
+           "bound_by": "bytes" if bytes_ms > ops_ms else "operations", "f64_ops_ms": f64_ops_ms}
+    del win
+    return row
+
+
 def train_smoke(dev, card, events_ms):
     """Phases 3-5 of the training path: stft_magnitude against its plain
-    version, the full-width training steps with the launch counters, the
-    entry point with a resume, and the timings. Returns the kernels-line
-    entries of stft_magnitude (the FFT route) and stft_magnitude_dft and
-    the training path's launch counts."""
+    version and float64 on both routes, the C3 gradient gate, the
+    full-width training steps with the launch counters, the entry point
+    with a resume, and the timings. Returns the kernels-line entries of
+    stft_magnitude (the FFT route) and stft_magnitude_dft and the training
+    path's launch counts."""
     import tempfile
 
     import torch
@@ -408,38 +530,65 @@ def train_smoke(dev, card, events_ms):
     pred = noisy(2)
     gen = torch.Generator(device=dev).manual_seed(3)
 
-    # 3. stft_magnitude against its plain version -------------------------
-    # the six launch shapes of a step (the FFT route): five resolutions and
-    # the mel STFT, each on the reconstruction and on the target; then the
-    # DFT route's shapes
+    # 3. stft_magnitude against its plain version and float64 ------------
+    # the launch shapes of a step (the FFT route), of the shipped bank (five
+    # resolutions and the mel STFT) and of the k4_any bank, each on the
+    # reconstruction and on the target; then the other FFT-route shapes and
+    # the remainder's, on the target; each call with the counters around it
     shapes = [(n, n // 4) for n in tcfg.stft_fft_sizes] + [(tcfg.mel_fft_size, tcfg.mel_fft_size // 4)]
+    in_steps = set(shapes) | set(K4_ANY_SHAPES)
+    checked = dict.fromkeys(shapes + list(K4_ANY_SHAPES) + list(K4_MIXED_SHAPES)
+                            + list(K4_DFT_SHAPES))
     k4_err = {"fft": 0.0, "dft": 0.0}
+    k4_f64 = {"fft": 0.0, "dft": 0.0}  # max ulps; max error over the frame's peak
+    k4_control = {}  # the plain version's float32 sums, the same measure, per remainder shape
     with torch.no_grad():
-        for n_fft, hop in shapes + list(K4_DFT_SHAPES):
+        for n_fft, hop in checked:
             kind = KS.route(n_fft)
+            check(kind == ("dft" if (n_fft, hop) in K4_DFT_SHAPES else "fft"),
+                  f"K4 n_fft={n_fft}: route {kind}")
+            name = "stft_magnitude" if kind == "fft" else "stft_magnitude_dft"
             for what, x in (("pred", pred), ("target", target)):
-                if kind == "dft" and what == "pred":
+                if (n_fft, hop) not in in_steps and what == "pred":
                     continue
+                kernels.reset_launches()
                 got = KS.stft_magnitude(x, n_fft, hop)
                 torch.cuda.synchronize()
+                launched = {k: kernels.LAUNCHES[k] for k in ("stft_magnitude", "stft_magnitude_dft")}
                 with float32_numerics():
                     ref = KS.stft_magnitude_plain(x, n_fft, hop)
                 err = (got - ref).abs().max().item()
                 scale = ref.abs().max().item()
-                emit({"phase": "kernel_check", "kernel": "stft_magnitude", "route": kind,
+                m64 = k4_float64(x, n_fft, hop)
+                unit = f32_ulp(m64) if kind == "fft" else m64.amax(-1, keepdim=True)
+                f64 = ((got.double() - m64).abs() / unit).max().item()
+                control = ((ref.double() - m64).abs() / unit).max().item()
+                measure = "float64_max_ulps" if kind == "fft" else "float64_max_err_over_frame_peak"
+                emit({"phase": "kernel_check", "kernel": name, "route": kind,
                       "input": what, "B": x.shape[0], "T": x.shape[1], "n_fft": n_fft, "hop": hop,
-                      "shape": list(got.shape), "max_abs_err": err, "max_abs_ref": scale,
-                      "max_rel_err": err / scale})
+                      "shape": list(got.shape), "launches": launched, "max_abs_err": err,
+                      "max_abs_ref": scale, "max_rel_err": err / scale, measure: f64,
+                      "plain_float32_control": control})
+                if kind == "dft":
+                    k4_control[f"{n_fft}/{hop}"] = control
+                check(launched == {"stft_magnitude": int(kind == "fft"),
+                                   "stft_magnitude_dft": int(kind == "dft")},
+                      f"K4 n_fft={n_fft}: launches {launched}")
                 check(tuple(got.shape) == tuple(ref.shape), f"K4 n_fft={n_fft}: shape")
                 check(torch.isfinite(got).all().item(), f"K4 n_fft={n_fft}: non-finite output")
                 check(err <= K4_TOL * scale, f"K4 n_fft={n_fft} {what}: max abs err {err}")
+                check(f64 <= (K4_F64_ULPS if kind == "fft" else K4_DFT_F64_TOL),
+                      f"K4 n_fft={n_fft} {what}: {f64} from float64")
                 k4_err[kind] = max(k4_err[kind], err)
-                del got, ref
-        check(all(KS.route(n) == "fft" for n, _ in shapes), "the training shapes take the DFT route")
+                k4_f64[kind] = max(k4_f64[kind], f64)
+                del got, ref, m64, unit
 
     mrstft = SP.MultiResSTFTConfig(fft_sizes=tcfg.stft_fft_sizes)
+    mrstft_any = SP.MultiResSTFTConfig(fft_sizes=K4_ANY_BANK)
     losses = {
         "multi_res_stft": lambda p, st: SP.multi_res_stft_loss(p, target, mrstft, stft=st),
+        "multi_res_stft_k4_any": lambda p, st: SP.multi_res_stft_loss(p, target, mrstft_any,
+                                                                      stft=st),
         "mel": lambda p, st: SP.mel_loss(
             p, target, sample_rate=cfg.sample_rate, n_fft=tcfg.mel_fft_size,
             hop=tcfg.mel_fft_size // 4, n_mels=tcfg.mel_bins, stft=st),
@@ -453,10 +602,12 @@ def train_smoke(dev, card, events_ms):
         (grad,) = torch.autograd.grad(value, p)
         return value.item(), grad
 
-    # the mel loss on seed 2; the multi-resolution loss on every seed of
-    # K4_GRAD_SEEDS, each gradient against the float64 one (max-abs figures
-    # printed, the relative L2 distances gated)
-    for name, seeds in (("mel", (2,)), ("multi_res_stft", K4_GRAD_SEEDS)):
+    # the mel loss on seed 2; the multi-resolution loss, on the shipped bank
+    # and on the k4_any bank, on every seed of K4_GRAD_SEEDS, each gradient
+    # against the float64 one (max-abs figures printed, the relative L2
+    # distances gated)
+    for name, seeds in (("mel", (2,)), ("multi_res_stft", K4_GRAD_SEEDS),
+                        ("multi_res_stft_k4_any", K4_GRAD_SEEDS)):
         fn = losses[name]
         for seed in seeds:
             p = pred if seed == 2 else noisy(seed)
@@ -471,7 +622,7 @@ def train_smoke(dev, card, events_ms):
                    "noise_seed": seed, "value_kernel": vk, "value_plain": vp,
                    "value_rel_err": rel, "grad_err_over_max": grad_err,
                    "plain_lowerings_grad_diff_over_max": floor}
-            if name == "multi_res_stft":
+            if name != "mel":
                 _, g64 = value_and_grad(fn, p.double(), KS.stft_magnitude_plain)
                 s64, n64 = g64.abs().max(), g64.norm()
                 rec["grad_dist_to_float64_over_max"] = {
@@ -595,39 +746,19 @@ def train_smoke(dev, card, events_ms):
           "split_ms": {m: sum(v) / len(v) for m, v in split.items()},
           "peak_memory_gb": peak / 1e9, "card": card})
 
-    # K4's bound is the least work |STFT| needs, the function the TPU kernel
-    # computes: each input sample read once, each magnitude written once,
-    # and per frame the operations of a real FFT (2.5 n log2 n, half of a
-    # complex FFT's 5 n log2 n), the window (n) and the magnitudes (4 per
-    # bin), at the float32 rate of the function's data. Printed beside it
-    # and not in the bound: the port's own extra work, the spectrum (re, im)
-    # that the reconstruction's launches also write for the backward
-    # (spectrum_bytes_ms) and the FFT's operations at the float64 rate it
-    # computes in (f64_ops_ms); and the O(n^2) DFT's operations
-    # (dft_ops_ms), a yardstick of that algorithm. Per step each training
-    # shape is launched on the reconstruction, keeping the spectrum
-    # (`ms_spectrum`), and on the target (`ms`). K4's backward, as the loss
-    # runs it (only the reconstruction's magnitudes take a gradient), under
-    # the train step's float32 numerics: `stft_magnitude_backward` on the
-    # kept spectrum; beside it the plain matmul-DFT recompute that earlier
-    # versions of the port ran.
-    def k4_bound(b, t, n_fft, hop):
-        frames, bins = 1 + t // hop, n_fft // 2 + 1
-        flops = b * frames * (2.5 * n_fft * math.log2(n_fft) + n_fft + 4 * bins)
-        nbytes = 4 * (b * t + b * frames * bins + n_fft)
-        spectrum_bytes = 4 * 2 * b * frames * bins
-        return (flops, nbytes, nbytes / PEAK_BYTES * 1e3, flops / PEAK_F32_FLOPS * 1e3,
-                spectrum_bytes / PEAK_BYTES * 1e3, flops / PEAK_F64_FLOPS * 1e3)
-
+    # K4 at the training shapes (bound: `k4_bound`), with the O(n^2) DFT's
+    # operations (dft_ops_ms) printed as a yardstick of that algorithm. Per
+    # step each training shape is launched on the reconstruction, keeping
+    # the spectrum (`ms_spectrum`), and on the target (`ms`). K4's backward,
+    # as the loss runs it (only the reconstruction's magnitudes take a
+    # gradient), under the train step's float32 numerics:
+    # `stft_magnitude_backward` on the kept spectrum; beside it the plain
+    # matmul-DFT recompute that earlier versions of the port ran.
     def k4_recompute(x, n_fft, hop, grad):
         with torch.enable_grad(), float32_numerics():
             xx = x.detach().requires_grad_(True)
             y = KS.stft_magnitude_plain(xx, n_fft, hop)
             return torch.autograd.grad(y, xx, grad)
-
-    def torch_stft_abs(x, n_fft, hop, win):
-        return torch.stft(x, n_fft, hop_length=hop, window=win, center=True, pad_mode="reflect",
-                          return_complex=True).abs()
 
     k4 = dict.fromkeys(("ms", "plain_ms", "library_ms", "bytes_ms", "ops_ms", "bound_ms",
                         "spectrum_bytes_ms", "f64_ops_ms", "dft_ops_ms", "backward_ms",
@@ -643,8 +774,8 @@ def train_smoke(dev, card, events_ms):
                     grad, re_, im_, mag, t, n_fft, hop), reps=3)
             rec_ms = events_ms(lambda: k4_recompute(pred, n_fft, hop, grad), reps=3)
             del grad, mag, re_, im_
-            ms_spec = events_ms(lambda: KS.launch(pred, n_fft, hop, spectrum=True))
-            ms = events_ms(lambda: KS.stft_magnitude(target, n_fft, hop))
+            ms_spec = events_ms(lambda: KS.launch(pred, n_fft, hop, spectrum=True), reps=20)
+            ms = events_ms(lambda: KS.stft_magnitude(target, n_fft, hop), reps=20)
             with float32_numerics():
                 plain_ms = events_ms(lambda: KS.stft_magnitude_plain(target, n_fft, hop))
             lib_ms = events_ms(lambda: torch_stft_abs(target, n_fft, hop, win))
@@ -671,28 +802,128 @@ def train_smoke(dev, card, events_ms):
                 k4[key] += 2 * v
         emit({"phase": "timing", "kernel": "stft_magnitude",
               "per": "train step (12 forward launches, 6 backwards)", **k4, "card": card})
-        # the DFT route, one launch at its first shape
-        n_fft, hop = K4_DFT_SHAPES[0]
-        win = S.hann_window(n_fft, dev)
-        dft = {"ms": events_ms(lambda: KS.stft_magnitude(target, n_fft, hop))}
-        with float32_numerics():
-            dft["plain_ms"] = events_ms(lambda: KS.stft_magnitude_plain(target, n_fft, hop))
-        dft["library_ms"] = events_ms(lambda: torch_stft_abs(target, n_fft, hop, win))
-        _, _, bytes_ms, ops_ms, _, _ = k4_bound(b, t, n_fft, hop)
-        dft.update(bound_ms=max(bytes_ms, ops_ms),
-                   bound_by="bytes" if bytes_ms > ops_ms else "operations")
-        emit({"phase": "timing", "kernel": "stft_magnitude_dft", "n_fft": n_fft, "hop": hop,
-              "B": b, "T": t, **dft, "card": card})
+        # the other FFT-route shapes and the remainder's, one launch each
+        rows = {}
+        for n_fft, hop in K4_MIXED_SHAPES + K4_DFT_SHAPES:
+            rows[n_fft, hop] = row = k4_timing(pred, target, n_fft, hop, events_ms)
+            emit({"phase": "timing", "kernel": "stft_magnitude" if row["route"] == "fft"
+                  else "stft_magnitude_dft", **row, "card": card})
+        at_400 = rows[400, 100]
+        emit({"phase": "timing", "kernel": "stft_magnitude", "n_fft": 400, "hop": 100,
+              "ms": at_400["ms"], "library_ms": at_400["library_ms"],
+              "kernel_over_library": at_400["ms"] / at_400["library_ms"],
+              "no_slower_than_library": at_400["ms"] <= at_400["library_ms"], "card": card})
+    keys = ("n_fft", "hop", "ms", "plain_ms", "library_ms", "bound_ms")
+    dft = rows[K4_DFT_SHAPES[0]]
     summaries = [
         {"name": "stft_magnitude", "route": "cuda", "source": "nsc_tpu_torch/csrc/stft.cu",
-         "replaces": "nsc_tpu/ops/pallas/stft.py:80", "max_abs_err": k4_err["fft"],
+         "replaces": "nsc_tpu/ops/pallas/stft.py:80",
+         "domain": f"even n_fft {KS.FFT_MIN}-{KS.FFT_MAX} whose half factors into 2, 3, 5, 7",
+         "per": "train step (12 launches)", "max_abs_err": k4_err["fft"],
+         "float64_max_ulps": k4_f64["fft"],
          "ms": k4["ms"], "plain_ms": k4["plain_ms"], "bound_ms": k4["bound_ms"],
          "bound_by": "bytes" if k4["bytes_ms"] > k4["ops_ms"] else "operations",
-         "library_ms": k4["library_ms"]},
+         "library_ms": k4["library_ms"],
+         "shapes": [{k: r[k] for k in keys} for r in rows.values() if r["route"] == "fft"]},
         {"name": "stft_magnitude_dft", "route": "cuda", "source": "nsc_tpu_torch/csrc/stft.cu",
-         "replaces": "nsc_tpu/ops/pallas/stft.py:80", "max_abs_err": k4_err["dft"], **dft},
+         "replaces": "nsc_tpu/ops/pallas/stft.py:80",
+         "domain": "every other n_fft >= 2 (odd, a half with a prime factor above 7, "
+                   f"or above {KS.FFT_MAX})",
+         "per": f"one launch at n_fft {dft['n_fft']}, hop {dft['hop']}",
+         "max_abs_err": k4_err["dft"], "float64_max_err_over_frame_peak": k4_f64["dft"],
+         "float64_limit": K4_DFT_F64_TOL, "plain_float32_control": k4_control,
+         **{k: dft[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+         "shapes": [{k: r[k] for k in keys} for r in rows.values() if r["route"] == "dft"]},
     ]
     return summaries, launches, step_s * 1e3
+
+
+def k4_any_smoke(dev, card, events_ms) -> dict:
+    """The k4_any phase: base_fast trained at full width (batch 64 x 1 s, GAN
+    on, seed 0) with the loss STFTs at K4_ANY_BANK (hop n/4) and the mel
+    STFT at K4_ANY_MEL, every one on K4's FFT route, for K4_ANY_STEPS steps.
+    Before each step, the same step with `stft=stft_magnitude_plain` from a
+    copy of the state: the step's loss values within LOSS_RTOL of it. The
+    counters around each step (K4 x12, no DFT, K2 + split x1), its time by
+    CUDA events and the steps' peak memory; then each of the bank's launch
+    shapes timed (`k4_timing`). Returns the steps' launch counts."""
+    import copy
+
+    import torch
+
+    from nsc_tpu_torch import kernels
+    from nsc_tpu_torch.configs import TrainConfig, get_config
+    from nsc_tpu_torch.kernels import stft as KS
+    from nsc_tpu_torch.train import data as data_lib
+    from nsc_tpu_torch.train import loop as L
+    from nsc_tpu_torch.train import train as T
+
+    cfg = get_config(FLAGSHIP)
+    tcfg = TrainConfig(stft_fft_sizes=K4_ANY_BANK, mel_fft_size=K4_ANY_MEL)
+    check(all(KS.route(n) == "fft" for n, _ in K4_ANY_SHAPES), f"k4_any: routes of {K4_ANY_SHAPES}")
+    seg = L.segment_length(cfg, tcfg.segment_seconds)
+    source = data_lib.make_source("synthetic", cfg.sample_rate, tcfg.seed)
+    batches = [torch.from_numpy(next(source.batches(tcfg.batch_size, seg))).to(dev)
+               for _ in range(K4_ANY_STEPS)]
+    model, state = T.init_train_state(cfg, tcfg, dev)
+    step_fn = T.make_train_step(model, tcfg)
+    total = dict.fromkeys(kernels.LAUNCHES, 0)
+    expect = dict.fromkeys(kernels.LAUNCHES, 0)
+    expect.update({"rvq_quantize": 1, "rvq_split_planes": 1, "stft_magnitude": 12})
+    step_ms, peak = [], 0
+    loss_keys = ("loss/stft", "loss/mel", "loss/g_total")
+    for i, batch in enumerate(batches):
+        kernels.reset_launches()
+        with plain_stft():
+            _, m_plain = step_fn(copy.deepcopy(state), batch)
+        torch.cuda.synchronize()
+        check(kernels.LAUNCHES["stft_magnitude"] == kernels.LAUNCHES["stft_magnitude_dft"] == 0,
+              f"k4_any: the plain step launched K4 {kernels.LAUNCHES}")
+        plain = {k: float(v) for k, v in m_plain.items()}
+        del m_plain
+        # (the plain step's blocks stay in the allocator's cache: emptied,
+        # the timed step would pay for cudaMalloc again, ~0.4 s)
+        torch.cuda.reset_peak_memory_stats()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        kernels.reset_launches()
+        start.record()
+        state, metrics = step_fn(state, batch)
+        end.record()
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        peak = max(peak, torch.cuda.max_memory_allocated())
+        step_ms.append(start.elapsed_time(end))
+        values = {k: float(v) for k, v in metrics.items()}
+        rel = {k: abs(values[k] - plain[k]) / abs(plain[k]) for k in loss_keys}
+        emit({"phase": "main", "what": "k4_any", "step": i + 1, "bank": list(K4_ANY_BANK),
+              "mel_fft_size": K4_ANY_MEL, "launches": launches, "step_ms": step_ms[-1],
+              "loss_rel_err_vs_plain_stft": rel, **values})
+        check(all(map(math.isfinite, values.values())), f"k4_any step {i + 1}: non-finite metric")
+        check(launches == expect, f"k4_any step {i + 1}: launches {launches}, expected {expect}")
+        check(max(rel.values()) <= LOSS_RTOL,
+              f"k4_any step {i + 1}: losses {rel} from the plain STFT's")
+        for k, n in launches.items():
+            total[k] += n
+    del state, metrics, batches
+    torch.cuda.empty_cache()
+    # K4's launches of a step, each shape on the reconstruction (keeping the
+    # spectrum) and on the target
+    target = torch.from_numpy(next(source.batches(tcfg.batch_size, seg))).to(dev)
+    g = torch.Generator(device=dev).manual_seed(2)
+    pred = target + 0.05 * torch.randn(target.shape, device=dev, generator=g)
+    k4_ms, bound_ms = 0.0, 0.0
+    with torch.no_grad():
+        for n_fft, hop in K4_ANY_SHAPES:
+            row = k4_timing(pred, target, n_fft, hop, events_ms)
+            emit({"phase": "timing", "kernel": "stft_magnitude", "bank": "k4_any", **row,
+                  "card": card})
+            k4_ms += row["ms"] + row["ms_spectrum"]
+            bound_ms += 2 * row["bound_ms"]
+    emit({"phase": "timing", "what": "k4_any_step", "config": cfg.name, "batch": tcfg.batch_size,
+          "bank": list(K4_ANY_BANK), "mel_fft_size": K4_ANY_MEL, "step_event_ms": step_ms,
+          "peak_memory_gb": peak / 1e9, "k4_ms_per_step": k4_ms, "k4_bound_ms_per_step": bound_ms,
+          "card": card})
+    return total
 
 
 def first_flips(idx, ref_idx, ref_margins) -> dict:
@@ -2838,6 +3069,9 @@ def main() -> int:
 
     with torch.enable_grad():
         k4_summaries, train_launches, step_ms = train_smoke(dev, card, events_ms)
+        t_k4_any = time.perf_counter()
+        k4_any_launches = k4_any_smoke(dev, card, events_ms)
+    emit({"phase": "timing", "what": "k4_any", "seconds": time.perf_counter() - t_k4_any})
     t_dp = time.perf_counter()
     with torch.enable_grad():
         dp_launches = dp_smoke(dev, card, step_ms)
@@ -2870,7 +3104,7 @@ def main() -> int:
                "training_loop": loop_launches, "training_loop_serving": loop_serving,
                "refit": refit_launches, "finetune": finetune_launches,
                "finetune_serving": finetune_serving, "dp": dp_launches,
-               "sweep": sweep_launches}
+               "sweep": sweep_launches, "k4_any": k4_any_launches}
 
     def stage_entry(kernel, source, replaces):
         acc = timing[kernel]

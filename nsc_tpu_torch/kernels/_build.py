@@ -30,7 +30,7 @@ ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 LIB_NAME = "libnsc_kernels.so"
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _U64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_ulonglong
 # C entry points: name -> argument types. Every pointer and the stream are
 # void*; every one returns the cudaError_t of its launch (0 = success).
 SIGNATURES = {
@@ -49,13 +49,13 @@ SIGNATURES = {
     # which only chip_smoke.py times)
     "nsc_rvq_dequantize": [_P] * 3 + [_I] * 4 + [_P],
     "nsc_rvq_dequantize_rowwarp": [_P] * 3 + [_I] * 4 + [_P],
-    # x, win, tw, out, re, im (or null), B, T, n_fft, hop, F, stream
-    "nsc_stft_magnitude_fft": [_P] * 6 + [_I] * 5 + [_P],
+    # x, win, tw, out, re, im (or null), B, T, n_fft, hop, F, the pass list
+    # (4 bits a radix), stream
+    "nsc_stft_magnitude_fft": [_P] * 6 + [_I] * 5 + [_U64, _P],
+    # the same but the pass list
+    "nsc_stft_magnitude_dft": [_P] * 6 + [_I] * 5 + [_P],
     # n_fft, hop, plan (2 long long: frames per block, bytes)
     "nsc_stft_fft_plan": [_I] * 2 + [_P],
-    # xpad, win, cosb, sinb, out, re, im (or null), B, Tp, n_fft, hop, F, K,
-    # Kp, stream
-    "nsc_stft_magnitude_dft": [_P] * 7 + [_I] * 7 + [_P],
     # x, out, w1, b1, a1, w2, b2, a2, w1p, w2p (bf16 planes or null),
     # dilations, B, C, T, U, is_bf16, fast, stream; x and out (B, T, C),
     # float32 weights

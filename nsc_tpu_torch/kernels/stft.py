@@ -6,26 +6,35 @@ their plain PyTorch version, and the wrapper.
 
 for x (B, T) float32, centre reflect padding of n_fft//2, the periodic Hann
 window of `nsc_tpu_torch.ops.stft`; the output is (B, 1 + T//hop,
-n_fft//2 + 1) float32. The plain version is the matmul-DFT path of
+n_fft//2 + 1) float32 (one frame fewer for an odd n_fft where hop divides
+T, as `frame_signal` cuts them). The plain version is the matmul-DFT path of
 `ops.stft.stft_magnitude`, which frames the signal in memory; the kernels
 compute the same magnitudes without the frame tensor.
 
-Two kernels, chosen by n_fft alone (`route`), never by a failed launch:
+Two kernels, chosen by n_fft alone (`route`), never by a failed launch.
+Both compute in float64 (the float64 window and the float64 table
+`twiddles`) and round each output once to float32: the spectral losses'
+log-magnitude L1 turns any float32 rounding of the magnitudes into sign
+flips of its gradient at near-tie bins; the correctly rounded magnitudes
+make the gradient the float64 one up to float32 rounding of the loss and
+backward.
 
-  * "fft" (`stft_magnitude`, counted as "stft_magnitude"): powers of two
-    from FFT_MIN to FFT_MAX, every n_fft the shipped losses use. A real FFT
-    in shared memory, in float64, with its outputs rounded once to float32:
-    each windowed frame (the float64 window) is packed into an
-    n_fft/2-point complex sequence (even samples real, odd imaginary),
-    transformed by Stockham radix-4 passes (a radix-2 pass last where
-    log2(n_fft/2) is odd), then split into the real spectrum by the
-    post-twiddle. Float64 because the
-    spectral losses' log-magnitude L1 turns any float32 rounding of the
-    magnitudes into sign flips of its gradient at near-tie bins; the
-    correctly rounded magnitudes make the gradient the float64 one up to
-    float32 rounding of the loss and backward.
-  * "dft" (counted as "stft_magnitude_dft"): every other n_fft >= 2, the
-    O(n_fft^2) DFT against the float32 basis.
+  * "fft" (`stft_magnitude`, counted as "stft_magnitude"): even n_fft from
+    FFT_MIN to FFT_MAX whose half has no prime factor above 7 (every
+    power of two there, and the usual speech windows: 320, 400, 480, 882,
+    960, 1200, ...). A real FFT in shared memory: each windowed frame is
+    packed into an n_fft/2-point complex sequence (even samples real, odd
+    imaginary), transformed by Stockham passes of radix 4, 2, 3, 5 and 7,
+    then split into the real spectrum by the post-twiddle. The pass list
+    is written here (`fft_passes`, the one source of the route's domain)
+    and passed to the kernel, which checks only that it is a transform of
+    n_fft/2 points. FFT_MAX is the largest n_fft whose one-frame plan
+    (20 n_fft bytes: `nsc_stft_fft_plan`) fits a block's shared memory.
+  * "dft" (counted as "stft_magnitude_dft"): the remainder, every other
+    n_fft >= 2. The O(n_fft^2) DFT against the twiddle table read at
+    (n k) mod n_fft, staged in chunks of n in static shared memory, so a
+    block's bytes are the same for every n_fft and hop and no shape is
+    refused.
 
 `stft_magnitude` is differentiable. On a CUDA tensor its forward launches a
 kernel, which also writes the spectrum (re, im) when x takes a gradient,
@@ -49,15 +58,11 @@ from nsc_tpu_torch.ops import stft as S
 
 MAX_SMEM = 232448  # bytes of shared memory one block may use on Hopper
 
-# the DFT kernel
-TILE_K = 128       # bins per block; the basis is padded to a multiple of it
-TILE_F = 32        # frames per block
-CHUNK_N = 32       # basis rows staged per step
+# the FFT kernel's n_fft: one frame's plan takes 20 n_fft bytes (two
+# buffers of n_fft/2 complex float64 points and the float32 segment)
+FFT_MIN, FFT_MAX = 16, MAX_SMEM // 20
 
-# the FFT kernel
-FFT_MIN, FFT_MAX = 16, 4096  # its plan (frames per block, bytes): nsc_stft_fft_plan
-
-_CONSTS: Dict[Tuple[str, int, torch.device], Tuple[torch.Tensor, ...]] = {}
+_CONSTS: Dict[Tuple[int, torch.device], Tuple[torch.Tensor, torch.Tensor]] = {}
 
 
 def stft_magnitude_plain(x: torch.Tensor, n_fft: int, hop: int) -> torch.Tensor:
@@ -65,13 +70,37 @@ def stft_magnitude_plain(x: torch.Tensor, n_fft: int, hop: int) -> torch.Tensor:
     return S.stft_magnitude(x, n_fft, hop, use_matmul_dft=True)
 
 
+def fft_passes(n_fft: int) -> Tuple[int, ...]:
+    """The FFT kernel's pass list over the n_fft/2 complex points: radix-4
+    passes while 4 divides what is left of n_fft/2, a radix-2 pass where a
+    2 is left, then radix 3, 5 and 7 passes (for a power of two, the
+    radix-4 passes and a radix-2 pass last where log2(n_fft/2) is odd).
+    Every prefix's product p times the next radix R divides n_fft/2, so
+    Stockham's twiddle stride n_fft / (R p) is an integer. Empty where
+    n_fft is outside the FFT route: odd, outside [FFT_MIN, FFT_MAX], or a
+    half with a prime factor above 7."""
+    if n_fft % 2 or not FFT_MIN <= n_fft <= FFT_MAX:
+        return ()
+    left, out = n_fft // 2, []
+    while left % 4 == 0:
+        out.append(4)
+        left //= 4
+    if left % 2 == 0:
+        out.append(2)
+        left //= 2
+    for r in (3, 5, 7):
+        while left % r == 0:
+            out.append(r)
+            left //= r
+    return tuple(out) if left == 1 else ()
+
+
 def route(n_fft: int) -> str:
-    """"fft" for a power of two in [FFT_MIN, FFT_MAX], "dft" for any other
-    n_fft >= 2; below 2 there is no STFT to take."""
+    """"fft" where `fft_passes` has a plan, "dft" for any other n_fft >= 2;
+    below 2 there is no STFT to take."""
     if n_fft < 2:
         raise ValueError(f"stft: need n_fft >= 2, got {n_fft}")
-    pow2 = n_fft & (n_fft - 1) == 0
-    return "fft" if pow2 and FFT_MIN <= n_fft <= FFT_MAX else "dft"
+    return "fft" if fft_passes(n_fft) else "dft"
 
 
 @functools.lru_cache(maxsize=32)
@@ -83,8 +112,9 @@ def _twiddles_np(n_fft: int) -> np.ndarray:
 def twiddles(n_fft: int, device=None) -> torch.Tensor:
     """(n_fft, 2) float64 table of exp(-2 pi i j / n_fft), from the float64
     expression the DFT basis is cast from: cast to float32, row j is the
-    basis' column 1, (cos, sin)[j, 1]. The complex passes read it at a
-    stride of n_fft / (R p), the real post-twiddle at stride 1."""
+    basis' column 1, (cos, sin)[j, 1]. The FFT's passes read it at a
+    stride of n_fft / (R p) and their odd radices' constants at n_fft / R,
+    its real post-twiddle at stride 1; the DFT reads it at (n k) mod n_fft."""
     return torch.from_numpy(_twiddles_np(n_fft)).to(device)
 
 
@@ -92,28 +122,13 @@ def twiddles(n_fft: int, device=None) -> torch.Tensor:
 # Launches
 
 
-def dft_smem_bytes(n_fft: int, hop: int) -> int:
-    """Shared memory of one DFT block: basis chunks, window, signal segment."""
-    return 4 * (2 * CHUNK_N * TILE_K + 2 * n_fft + (TILE_F - 1) * hop)
-
-
-def _constants(kind: str, n_fft: int, device: torch.device):
-    """Per (kind, n_fft, device), cached: "fft" (float64 window and twiddle
-    table); "dft" (float32 window, cos basis, sin basis), the basis padded
-    with zero columns to a multiple of TILE_K."""
-    key = (kind, n_fft, device)
-    if key in _CONSTS:
-        return _CONSTS[key]
-    if kind == "fft":
+def _constants(n_fft: int, device: torch.device):
+    """The float64 window and twiddle table both kernels read, cached per
+    (n_fft, device)."""
+    key = (n_fft, device)
+    if key not in _CONSTS:
         _CONSTS[key] = (S.hann_window(n_fft, device, torch.float64).contiguous(),
                         twiddles(n_fft, device).contiguous())
-    else:
-        k = n_fft // 2 + 1
-        kp = -(-k // TILE_K) * TILE_K
-        cos_b, sin_b = S.dft_basis(n_fft)
-        _CONSTS[key] = (S.hann_window(n_fft, device).contiguous(),
-                        F.pad(cos_b, (0, kp - k)).to(device).contiguous(),
-                        F.pad(sin_b, (0, kp - k)).to(device).contiguous())
     return _CONSTS[key]
 
 
@@ -126,8 +141,6 @@ def _check(x: torch.Tensor, n_fft: int, hop: int) -> str:
     kind = route(n_fft)
     if hop < 1 or t <= n_fft // 2:
         raise ValueError(f"stft: need hop >= 1 and T > n_fft//2 (T={t})")
-    if kind == "dft" and dft_smem_bytes(n_fft, hop) > MAX_SMEM:
-        raise ValueError(f"stft kernel: n_fft={n_fft}, hop={hop} needs too much shared memory")
     if not 1 <= b <= 65535:
         raise ValueError(f"stft kernel takes 1 <= B <= 65535, got {b}")
     return kind
@@ -140,28 +153,26 @@ def launch(x: torch.Tensor, n_fft: int, hop: int, spectrum: bool = False):
 
     kind = _check(x, n_fft, hop)
     b, t = x.shape
-    n_frames = S.num_frames(t, n_fft, hop, center=True)
+    # the frames `frame_signal` cuts from the padded signal (1 + T//hop for
+    # an even n_fft, one fewer where an odd one's last frame would run past)
+    n_frames = S.num_frames(t + 2 * (n_fft // 2), n_fft, hop, center=False)
     k = n_fft // 2 + 1
     out = torch.empty(b, n_frames, k, dtype=torch.float32, device=x.device)
     re, im = (torch.empty_like(out), torch.empty_like(out)) if spectrum else (None, None)
     ptrs = (re.data_ptr(), im.data_ptr()) if spectrum else (None, None)
-    lib = _build.library()
+    win, tw = _constants(n_fft, x.device)
+    args = (x.data_ptr(), win.data_ptr(), tw.data_ptr(), out.data_ptr(), *ptrs, b, t, n_fft,
+            hop, n_frames)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     if kind == "fft":
-        win, tw = _constants("fft", n_fft, x.device)
-        err = lib.nsc_stft_magnitude_fft(x.data_ptr(), win.data_ptr(), tw.data_ptr(),
-                                         out.data_ptr(), *ptrs, b, t, n_fft, hop, n_frames, stream)
-        _build.check(err, "nsc_stft_magnitude_fft")
-        kernels.LAUNCHES["stft_magnitude"] += 1
+        # the pass list, 4 bits a radix from the lowest
+        radices = sum(r << (4 * i) for i, r in enumerate(fft_passes(n_fft)))
+        err = _build.library().nsc_stft_magnitude_fft(*args, radices, stream)
     else:
-        win, cos_b, sin_b = _constants("dft", n_fft, x.device)
-        xpad = S.reflect_pad(x, n_fft).contiguous()
-        err = lib.nsc_stft_magnitude_dft(
-            xpad.data_ptr(), win.data_ptr(), cos_b.data_ptr(), sin_b.data_ptr(),
-            out.data_ptr(), *ptrs, b, xpad.shape[1], n_fft, hop, n_frames, k, cos_b.shape[1],
-            stream)
-        _build.check(err, "nsc_stft_magnitude_dft")
-        kernels.LAUNCHES["stft_magnitude_dft"] += 1
+        err = _build.library().nsc_stft_magnitude_dft(*args, stream)
+    name = "stft_magnitude" if kind == "fft" else "stft_magnitude_dft"
+    _build.check(err, f"nsc_stft_magnitude_{kind}")
+    kernels.LAUNCHES[name] += 1
     return (out, re, im) if spectrum else out
 
 

@@ -4,13 +4,11 @@ two trees of the port can be held against each other.
     python3 scripts/torch_rvq_bench.py [--tree DIR] [--save FILE]
     python3 scripts/torch_rvq_bench.py --compare FILE FILE [FILE ...]
 
-`--tree` imports `nsc_tpu_torch` from DIR (another commit's tree, unpacked
-with `git archive`) in place of this checkout's; the script calls only what
-every tree of the port has (`api.load_model`, the codec's `latents`,
-`kernels.rvq.quantize` / `dequantize` / `dequantize_plain`). Run it once per
-tree in one card call, in turns (parent, change, change, parent), then
-`--compare` the saved files: K2's indices must be equal where both trees
-ran a shape (each run's own line has its times).
+The options and the turns are scripts/torch_tree_bench.py's. The script
+calls only what every tree of the port has (`api.load_model`, the codec's
+`latents`, `kernels.rvq.quantize` / `dequantize` / `dequantize_plain`).
+K2's indices must be equal where two trees ran a shape (each run's own line
+has its times).
 
 Inputs, from fixed seeds:
   * serving: `base_fast`'s serving codebooks (seed 0) and its latents of
@@ -28,27 +26,13 @@ bit-exact against the plain version.
 
 from __future__ import annotations
 
-import argparse
-import json
-import os
-import subprocess
 import sys
 
-
-def _events_ms(torch, fn, reps):
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
+import torch_tree_bench as TB
 
 
 def run(tree: str, save: str | None) -> dict:
-    sys.path.insert(0, os.path.abspath(tree))
+    TB.import_tree(tree)
     import numpy as np
     import torch
 
@@ -58,9 +42,7 @@ def run(tree: str, save: str | None) -> dict:
     if not torch.cuda.is_available():
         raise SystemExit("torch_rvq_bench: CUDA is not available")
     dev = torch.device("cuda", 0)
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    out = {"tree": os.path.abspath(tree), "card": card, "quantize": {}, "dequantize": {}}
+    out = {"tree": tree, "card": TB.card(), "quantize": {}, "dequantize": {}}
     kept = {}
     with torch.no_grad():
         bundle = api.load_model("base_fast", serving=True, device=dev)
@@ -84,7 +66,7 @@ def run(tree: str, save: str | None) -> dict:
             kept[name] = idx.cpu()
             out["quantize"][name] = {
                 "shape": list(books.shape), "M": zz.shape[0],
-                "ms": _events_ms(torch, lambda: KR.quantize(books, zz), 10)}
+                "ms": TB.events_ms(torch, lambda: KR.quantize(books, zz), 10)}
         books = cases["serving"][0]
         uniform = torch.randint(0, books.shape[1], (32000, books.shape[0]), device=dev,
                                 generator=g, dtype=torch.int32)
@@ -93,34 +75,13 @@ def run(tree: str, save: str | None) -> dict:
             torch.cuda.synchronize()
             out["dequantize"][name] = {
                 "bit_exact": bool(torch.equal(got, KR.dequantize_plain(books, ii))),
-                "ms": _events_ms(torch, lambda: KR.dequantize(books, ii), 100)}
+                "ms": TB.events_ms(torch, lambda: KR.dequantize(books, ii), 100)}
     if save:
         torch.save(kept, save)
     return out
 
 
-def compare(files) -> dict:
+if __name__ == "__main__":
     import torch
 
-    saved = [torch.load(f) for f in files]
-    out = {}
-    for name in sorted(set().union(*saved)):
-        have = [s[name] for s in saved if name in s]
-        out[name] = {"runs": [name in s for s in saved],
-                     "indices_equal": all(torch.equal(h, have[0]) for h in have)}
-    return out
-
-
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--tree", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-    ap.add_argument("--save")
-    ap.add_argument("--compare", nargs="+")
-    args = ap.parse_args()
-    result = compare(args.compare) if args.compare else run(args.tree, args.save)
-    print(json.dumps(result), flush=True)
-    return 0
-
-
-if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(TB.main(__doc__.split("\n\n")[0], run, torch.load, torch.equal))

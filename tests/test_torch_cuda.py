@@ -9,6 +9,7 @@ This file imports torch and the port only.
 """
 
 import ctypes
+import math
 
 import pytest
 import torch
@@ -498,24 +499,76 @@ def test_stft_fft_route_matches_plain_at_every_power_of_two(dev, n_fft):
     assert (got - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
 
 
-# n_fft that are not powers of two in 16-4096 take the DFT kernel
-@pytest.mark.parametrize("n_fft,hop,t", [(2, 1, 997), (400, 100, 16000), (400, 160, 3001),
-                                         (8, 2, 501)])
-def test_stft_dft_route_matches_plain(dev, n_fft, hop, t):
+def _frames64(x, n_fft, hop):
+    """Float64 frames of x (reflect-padded, as `frame_signal`) times the
+    float64 window: the yardstick's input."""
+    from nsc_tpu_torch.ops import stft as S
+
+    return S.frame_signal(x.double(), n_fft, hop) * S.hann_window(n_fft, x.device, torch.float64)
+
+
+def _rfft64(x, n_fft, hop):
+    """Magnitudes of float64 `torch.fft.rfft` of those frames, and the
+    spectrum: the float64 yardstick of these tests (the port never calls it)."""
+    z = torch.fft.rfft(_frames64(x, n_fft, hop), dim=-1)
+    return torch.sqrt(z.real ** 2 + z.imag ** 2 + 1e-8), z
+
+
+def _launch_counted(x, n_fft, hop, route):
     from nsc_tpu_torch import kernels
 
-    g = torch.Generator(device=dev).manual_seed(t)
-    x = torch.randn(2, t, device=dev, generator=g) * 0.3
     kernels.reset_launches()
     got = KS.stft_magnitude(x, n_fft, hop)
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES["stft_magnitude_dft"] == 1 and kernels.LAUNCHES["stft_magnitude"] == 0
+    other = "stft_magnitude_dft" if route == "stft_magnitude" else "stft_magnitude"
+    assert kernels.LAUNCHES[route] == 1 and kernels.LAUNCHES[other] == 0
+    return got
+
+
+# even n_fft whose half factors into 2, 3, 5, 7 take the FFT route: the
+# speech windows, 1568 = 2^5 7^2, 6000, 8192 and the largest the plan admits
+# (11520), B = 2 and T that no hop divides; with the 25 ms window at 16 kHz
+# on 1 s and at hop 160
+@pytest.mark.parametrize("n_fft,hop,t", [(120, 30, 2017), (320, 80, 3001), (400, 100, 16000),
+                                         (400, 160, 3001), (480, 120, 4001), (882, 220, 4001),
+                                         (960, 240, 6001), (1200, 300, 6001), (1568, 392, 5001),
+                                         (2400, 600, 16001), (6000, 1500, 16001),
+                                         (8192, 2048, 16001), (11520, 2880, 16001)])
+def test_stft_mixed_radix_route_matches_plain_and_float64(dev, n_fft, hop, t):
+    """Launches `stft_magnitude` (not the DFT); within 1e-4 of the peak of
+    the plain version, and every magnitude within 2 float32 ulps of float64."""
+    g = torch.Generator(device=dev).manual_seed(t + n_fft)
+    x = torch.randn(2, t, device=dev, generator=g) * 0.3
+    got = _launch_counted(x, n_fft, hop, "stft_magnitude")
+    ref = KS.stft_magnitude_plain(x, n_fft, hop)
+    assert got.shape == ref.shape == (2, 1 + t // hop, n_fft // 2 + 1)
+    assert (got - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
+    m64, _ = _rfft64(x, n_fft, hop)
+    a = m64.float()
+    ulp = (torch.nextafter(a, torch.full_like(a, float("inf"))) - a).double()
+    assert ((got.double() - m64).abs() / ulp).max().item() <= 2.0
+
+
+# the remainder: n_fft odd, or below the FFT's 16, a half with a prime
+# factor above 7 (1009), above the FFT's one-frame limit (12000)
+@pytest.mark.parametrize("n_fft,hop,t", [(2, 1, 997), (441, 110, 16000), (2018, 504, 16001),
+                                         (12000, 3000, 16000), (8, 2, 501), (17, 4, 3000)])
+def test_stft_dft_route_matches_plain(dev, n_fft, hop, t):
+    """Launches `stft_magnitude_dft`; within 1e-4 of the peak of the plain
+    version, and within 2^-23 of each frame's peak of float64 (one rounding
+    to float32 moves a magnitude v by at most 2^-24 v; float32 sums read
+    ~5e-7 at n_fft 441)."""
+    g = torch.Generator(device=dev).manual_seed(t)
+    x = torch.randn(2, t, device=dev, generator=g) * 0.3
+    got = _launch_counted(x, n_fft, hop, "stft_magnitude_dft")
     ref = KS.stft_magnitude_plain(x, n_fft, hop)
     assert got.shape == ref.shape
     assert (got - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
+    m64, _ = _rfft64(x, n_fft, hop)
+    assert ((got.double() - m64).abs() / m64.amax(-1, keepdim=True)).max().item() <= 2.0 ** -23
 
 
-@pytest.mark.parametrize("n_fft,hop", [(2048, 512), (128, 32), (400, 100)])
+@pytest.mark.parametrize("n_fft,hop", [(2048, 512), (128, 32), (400, 100), (441, 110)])
 def test_stft_kernel_spectrum_outputs(dev, n_fft, hop):
     """With the spectrum kept, the magnitudes are sqrt(re^2 + im^2 + 1e-8) of
     it and the spectrum is the plain path's within the forward tolerance."""
@@ -533,17 +586,92 @@ def test_stft_kernel_spectrum_outputs(dev, n_fft, hop):
         assert (got - ref).abs().max().item() <= 1e-4 * mag.max().item()
 
 
+def _fft_plan(n_fft, hop):
+    """The kernel's own plan (`nsc_stft_fft_plan`): (rc, frames per block,
+    bytes)."""
+    plan = (ctypes.c_longlong * 2)()
+    rc = _build.library().nsc_stft_fft_plan(n_fft, hop, plan)
+    return rc, plan[0], plan[1]
+
+
+def _fft_launch(x, n_fft, hop, radices):
+    """The FFT kernel called with a given pass list: (rc, magnitudes)."""
+    from nsc_tpu_torch.ops import stft as S
+
+    b, t = x.shape
+    n_frames = 1 + t // hop
+    out = torch.zeros(b, n_frames, n_fft // 2 + 1, device=x.device)
+    win = S.hann_window(n_fft, x.device, torch.float64).contiguous()
+    tw = KS.twiddles(n_fft, x.device).contiguous()
+    packed = sum(r << (4 * i) for i, r in enumerate(radices))
+    rc = _build.library().nsc_stft_magnitude_fft(
+        x.data_ptr(), win.data_ptr(), tw.data_ptr(), out.data_ptr(), None, None, b, t, n_fft,
+        hop, n_frames, packed, torch.cuda.current_stream(x.device).cuda_stream)
+    torch.cuda.synchronize()
+    return rc, out
+
+
 def test_stft_fft_plan_fits_one_block(dev):
-    """The FFT kernel's own plan: frames per block a power of two, at most
-    4096 / n_fft, and shared memory within one block's."""
-    lib = _build.library()
+    """The FFT kernel's own plan at the wrapper's pass lists: frames per
+    block a power of two, at most 4096 / n_fft, shared memory within one
+    block's, passes whose radices multiply to n_fft/2, up to 8192 and 11520
+    (the largest n_fft the route takes). The one-frame plan fits at FFT_MAX
+    and not at the next even n_fft: the wrapper's limit is the kernel's."""
     for n_fft, hop in ((16, 4), (16, 1000), (128, 32), (512, 1), (1024, 256), (2048, 512),
-                       (4096, 1024), (4096, 4096)):
-        plan = (ctypes.c_longlong * 2)()
-        assert lib.nsc_stft_fft_plan(n_fft, hop, plan) == 0
-        ft, smem = plan
+                       (4096, 1024), (4096, 4096), (400, 100), (882, 1), (6000, 1500),
+                       (8192, 2048), (8192, 1), (11520, 2880)):
+        rc, ft, smem = _fft_plan(n_fft, hop)
+        assert rc == 0, n_fft
         assert 1 <= ft <= max(1, 4096 // n_fft) and ft & (ft - 1) == 0, (n_fft, hop, ft)
         assert smem <= KS.MAX_SMEM, (n_fft, hop, smem)
+        radices = KS.fft_passes(n_fft)
+        assert math.prod(radices) == n_fft // 2 and set(radices) <= {2, 3, 4, 5, 7}, radices
+    assert _fft_plan(8192, 2048)[1:] == (1, 163840) and KS.fft_passes(8192) == (4,) * 6
+    assert _fft_plan(11520, 2880)[1:] == (1, 230400)
+    assert KS.fft_passes(11520) == (4, 4, 4, 2, 3, 3, 5)
+    assert KS.FFT_MAX % 2 == 0
+    assert _fft_plan(KS.FFT_MAX, 1)[2] <= KS.MAX_SMEM < _fft_plan(KS.FFT_MAX + 2, 1)[2]
+    for n_fft in (-2, 0, 1, 441):
+        assert _fft_plan(n_fft, 1)[0] != 0, n_fft
+
+
+def test_stft_fft_launcher_checks_the_pass_list(dev):
+    """The launcher runs a pass list only where it is a transform of n_fft/2
+    points (radices 2, 3, 4, 5, 7 multiplying to it): anything else is
+    cudaErrorInvalidValue (1), and a plan over a block's shared memory
+    fails at the attribute; a launch after either runs."""
+    x = torch.randn(2, 4001, device=dev)
+    for radices in ((4, 4, 2, 3), (4, 4, 2, 3, 5, 5), (4, 2, 5, 5, 1), (8, 5, 5), ()):
+        assert _fft_launch(x, 400, 100, radices)[0] == 1, radices
+    big = torch.randn(1, 20000, device=dev)
+    assert _fft_launch(big, 16384, 4096, (4,) * 6 + (2,))[0] != 0
+    rc, got = _fft_launch(x, 400, 100, KS.fft_passes(400))
+    assert rc == 0 and torch.equal(got, KS.launch(x, 400, 100))
+
+
+def test_stft_fft_plan_keeps_the_power_of_two_passes(dev):
+    """At every power of two the plan is the earlier kernel's, pass for pass
+    (its loop, copied: radix-4 while 4 p <= n/2, then radix-2 where p <
+    n/2) and frames for frames (4096 / n_fft halved while above 80 KB), so
+    the kernel runs the same float64 arithmetic in the same order; the
+    kernel given that copied pass list gives the wrapper's output bit for
+    bit."""
+    for n_fft in (16, 32, 64, 128, 256, 512, 1024, 2048, 4096, 8192):
+        n2, p, passes = n_fft // 2, 1, []
+        while 4 * p <= n2:
+            passes.append(4)
+            p *= 4
+        if p < n2:
+            passes.append(2)
+        assert KS.fft_passes(n_fft) == tuple(passes), n_fft
+        for hop in (1, n_fft // 4, n_fft):
+            ft = max(1, 4096 // n_fft)
+            while ft > 1 and 16 * ft * n_fft + 4 * ((ft - 1) * hop + n_fft) > 81920:
+                ft //= 2
+            assert _fft_plan(n_fft, hop)[1] == ft, n_fft
+        x = torch.randn(2, 3 * n_fft + 101, device=dev)
+        rc, got = _fft_launch(x, n_fft, n_fft // 4, passes)
+        assert rc == 0 and torch.equal(got, KS.launch(x, n_fft, n_fft // 4)), n_fft
 
 
 def test_stft_function_gradient_matches_plain(dev):
@@ -566,7 +694,7 @@ def test_stft_wrapper_rejects_bad_inputs(dev):
         KS.stft_magnitude(x[:, ::2], 256, 64)
     with pytest.raises(ValueError):
         KS.stft_magnitude(x[:, :100], 256, 64)  # shorter than the reflect pad
-    for n_fft, hop in ((1, 1), (8192, 2048)):  # n_fft < 2; over the shared memory
+    for n_fft, hop in ((1, 1), (0, 4), (400, 0)):  # n_fft < 2; hop < 1
         with pytest.raises(ValueError):
             KS.stft_magnitude(torch.randn(2, 9000, device=dev), n_fft, hop)
 

@@ -20,8 +20,8 @@ _FORBIDDEN = {"jax", "jaxlib", "nsc_tpu"}
 
 
 PORT_SCRIPTS = ("torch_write_gpu_pin.py", "torch_refit_flips.py", "torch_rvq_bench.py",
-                "torch_k4_gradient.py", "torch_refit_flagship.py",
-                "torch_finetune_flagship.py", "torch_rd_ceiling.py")
+                "torch_k4_bench.py", "torch_tree_bench.py", "torch_k4_gradient.py",
+                "torch_refit_flagship.py", "torch_finetune_flagship.py", "torch_rd_ceiling.py")
 
 
 def _port_files():
