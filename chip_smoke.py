@@ -139,6 +139,20 @@ every plain version compared here run their float32 work under
               batch 64 x 1 s on synthetic2:pool=256, held-out mel every 2:
               only decoder leaves move, K2 + split x1 and K4 x12 per step
               (+ K2 x1 for the held-out batch), the workdir served
+              close: `python -m nsc_tpu_torch.train` at full width
+              (synthetic2, 6 steps, an export every step, a full state
+              every 2) under the watchdog (`train/watchdog.py`, 1 s poll)
+              with the harvester on a thread (0.2 s poll), SIGKILLed once
+              after its step-3 export: one restart, rc 0, the resume from
+              the newest full state at the kill, harvest/ 1-6 each with its
+              sha256, infer/ 4-6, no *.tmp left, the relaunched trainer's
+              K2 + split x1 and K4 x12 a step; then on the card the
+              held-out trend over the six harvested steps (16 x 17,600 and
+              4 x 10 s at depth 16: rows finite, none added by a second
+              call, K1 x16, K2 + split x2, K3 x2 a step), the smoothed
+              winner, `pick_export_step`, the winner's export with its GPU
+              pin (re-check exact), and that export served (K1 x8, K2 +
+              split x1, K3 x1)
   5. timing   reconstruct wall time and real-time factor of each serving
               path, of the flagship's "auto" and int8 serving bundles, and
               of its float32 bundle with "reference" and "stacked" convs; streaming_compress and streaming_decompress real-time
@@ -158,7 +172,10 @@ every plain version compared here run their float32 work under
               sources' seconds per batch of 64 x 1 s beside the step, the
               threaded snapshot's cost to the step (windows of steps alone
               and with a full-state submit, in turns), the full state's
-              and an export's bytes, the refit's and the finetune's seconds
+              and an export's bytes, the refit's and the finetune's seconds;
+              the close's stages: the supervised run, the watchdog's
+              relaunch after the kill, the trend per harvested step, the
+              pick, the export with its pin
 
 then the `kernels` summary line, the card line and, last,
 {"ok": true, "device": {...}}. Any failed check raises and exits non-zero.
@@ -324,6 +341,28 @@ FINETUNE_OVERRIDES = {}
 # the plain step, and the entry point through torch.distributed.run.
 DP_STEPS = 2
 DP_OVERRIDES = {}
+# The run-closing tools (`close_smoke`): CLOSE_STEPS steps of the training
+# entry point under the watchdog, SIGKILLed once after its CLOSE_KILL_AT
+# export appears; the watchdog's grace and stale limits above the whole
+# run, so that only the kill restarts it. CLOSE_ARGS: more arguments of
+# the trainer (none at full width); CLOSE_TREND: the held-out trend's
+# batches (none: its defaults, 16 x 17,600 samples and 4 x 10 s, depth 16).
+CLOSE_STEPS, CLOSE_KILL_AT = 6, 3
+CLOSE_GRACE_S, CLOSE_STALE_S = 600.0, 300.0
+CLOSE_ARGS = []
+CLOSE_TREND = {}
+# The trainer under the watchdog: `python -m nsc_tpu_torch.train` run by
+# runpy, writing its kernel launch counts to <prefix>.<pid> when it exits
+# (a SIGKILLed trainer writes none).
+COUNTING_TRAINER = (
+    "import json, os, runpy, sys\n"
+    "from nsc_tpu_torch import kernels\n"
+    "prefix = sys.argv.pop(1)\n"
+    "try:\n"
+    "    runpy.run_module('nsc_tpu_torch.train', run_name='__main__', alter_sys=True)\n"
+    "finally:\n"
+    "    with open(f'{prefix}.{os.getpid()}', 'w') as f:\n"
+    "        json.dump(dict(kernels.LAUNCHES), f)\n")
 # The bitrate sweep (`sweep_smoke`) of the float32 flagship against
 # nsc_tpu's CPU rows (reference_sweep.json), at each depth where the two
 # index sets are equal: the index-derived fields exactly, and each float
@@ -1831,6 +1870,221 @@ def finetune_smoke(dev, wav, tmp, card):
     return launches, serve_workdir(dev, wd, wav, "finetune")
 
 
+
+def close_smoke(dev, wav, tmp, card):
+    """The run-closing tools on the card: base_fast trained at full width
+    (batch 64 x 1 s, GAN on) by `python -m nsc_tpu_torch.train` under the
+    watchdog (`train/watchdog.py`: 1 s poll, CLOSE_GRACE_S and
+    CLOSE_STALE_S above the whole run), an export every step and a full
+    state every 2, with the harvester (`train/harvest.py`, 0.2 s poll,
+    watching this process's PID so that it outlives the relaunch) on a
+    thread; SIGKILLed once, after its CLOSE_KILL_AT export appears. Gated:
+    one restart, the run complete with rc 0 and resumed from the newest full
+    state at the kill, harvest/ 1..CLOSE_STEPS each with its sha256,
+    infer/ the newest 3, no *.tmp under train/, infer/ or infer_best/, and
+    the relaunched trainer's launches (K2 + split x1 and K4 x12 a step).
+    Then, on the card: the held-out trend over every harvested step (every
+    row finite; a second call adds none; K1 x16, K2 + split x2, K3 x2 a
+    step), the smoothed winner and `pick_export_step` (K1 x12, K2 + split
+    x1, K3 x2 a candidate), the winner's export with its GPU pin (the
+    re-check exact on this backend; K1 x16, K2 + split x4), and the export
+    served (`serve_workdir`). Returns (the launches of the trend, pick,
+    export and serving, the relaunched trainer's)."""
+    import signal
+    import threading
+
+    import torch
+
+    from nsc_tpu_torch import canonical, kernels
+    from nsc_tpu_torch.configs import get_config
+    from nsc_tpu_torch.eval import heldout
+    from nsc_tpu_torch.train import checkpoint as ckpt
+    from nsc_tpu_torch.train import export, harvest, watchdog
+
+    run = os.path.join(tmp, "close_run")
+    pid_file, stop_file = os.path.join(tmp, "train.pid"), os.path.join(tmp, "train_stop")
+    watch_pid, counts = os.path.join(tmp, "watch.pid"), os.path.join(tmp, "trainer_launches")
+    with open(watch_pid, "w") as f:
+        f.write(f"{os.getpid()}\n")
+    harvested, harvest_log, kill = [], [], {}
+
+    def tmp_files():
+        return sorted(os.path.relpath(os.path.join(d, n), run)
+                      for sub in ("train", "infer", "infer_best")
+                      for d, ds, fs in os.walk(os.path.join(run, sub)) for n in ds + fs
+                      if n.endswith(".tmp"))
+
+    done = threading.Event()
+
+    def read_pid():
+        with open(pid_file) as f:
+            text = f.read().strip()
+        return int(text) if text else None
+
+    def kill_once():
+        """SIGKILL the trainer once its CLOSE_KILL_AT export appears; time
+        the watchdog's relaunch; end supervision (the stop file) at a second
+        relaunch or past CLOSE_GRACE_S, so that a failing run fails fast."""
+        deadline = time.time() + CLOSE_GRACE_S
+        while not os.path.isdir(os.path.join(run, "infer", str(CLOSE_KILL_AT))):
+            if time.time() > deadline or done.is_set():
+                open(stop_file, "w").close()
+                return
+            time.sleep(0.02)
+        pid = read_pid()
+        full = ckpt.all_steps(os.path.join(run, "train"))
+        os.kill(pid, signal.SIGKILL)
+        t_kill = time.perf_counter()
+        kill.update(pid=pid, full_states=full, tmp_at_kill=tmp_files(), t=t_kill)
+        seen = {pid}
+        while not done.wait(0.01):
+            now = read_pid()  # None while the watchdog rewrites the file
+            if now is not None and now not in seen:
+                seen.add(now)
+                kill.setdefault("relaunch_seconds", time.perf_counter() - t_kill)
+            if len(seen) > 2 or time.time() > deadline:
+                kill["stopped"] = f"{len(seen) - 1} relaunches" if len(seen) > 2 else "deadline"
+                open(stop_file, "w").close()
+                return
+
+    hv = threading.Thread(target=lambda: harvested.extend(harvest.harvest(
+        run, watch_pid, poll=0.2, log=harvest_log.append)), daemon=True)
+    kt = threading.Thread(target=kill_once, daemon=True)
+    args = ["--config", FLAGSHIP, "--data", "synthetic2", "--steps", str(CLOSE_STEPS),
+            "--checkpoint-every", "1", "--full-state-every", "2", *CLOSE_ARGS]
+    t0 = time.perf_counter()
+    hv.start()
+    kt.start()
+    res = watchdog.supervise(run, args, command=[sys.executable, "-c", COUNTING_TRAINER, counts],
+                             poll=1.0, grace_s=CLOSE_GRACE_S, stale_s=CLOSE_STALE_S,
+                             wedge_backoff_s=1.0, pid_file=pid_file, stop_file=stop_file)
+    if res.status != "complete":
+        res.proc.kill()
+    rc = res.proc.wait(CLOSE_STALE_S)  # found complete by its last row: the final save follows
+    t_end = time.perf_counter()
+    done.set()
+    os.remove(watch_pid)  # the harvester's final sweep
+    hv.join(120)
+    kt.join(10)
+    with open(run + ".log") as f:
+        log = f.read()
+    resumed = re.findall(r"resumed from step (\d+)", log)
+    full_at_kill = kill.get("full_states") or [None]
+    hdir = os.path.join(run, "harvest")
+    steps_h = sorted(int(n) for n in os.listdir(hdir) if n.isdigit())
+    sha_ok = {}
+    for s in steps_h:
+        with open(os.path.join(hdir, str(s), ckpt.EXPORT_META)) as f:
+            want = json.load(f)["weights_sha256"]
+        sha_ok[s] = ckpt._sha256(os.path.join(hdir, str(s), ckpt.EXPORT_WEIGHTS)) == want
+    left = tmp_files()
+    infer_steps = ckpt.export_steps(os.path.join(run, "infer"))
+    files = sorted(n for n in os.listdir(tmp) if n.startswith(os.path.basename(counts) + "."))
+    trainers = []
+    for n in files:
+        with open(os.path.join(tmp, n)) as f:
+            trainers.append(json.load(f))
+    k = int(resumed[-1]) if resumed else None
+    expect_train = dict.fromkeys(kernels.LAUNCHES, 0)
+    if k is not None:
+        n_run = CLOSE_STEPS - k
+        expect_train.update({"rvq_quantize": n_run, "rvq_split_planes": n_run,
+                             "stft_magnitude": 12 * n_run})
+    emit({"phase": "close", "what": "watchdog", "status": res.status, "restarts": res.restarts,
+          "rc": rc, "events": [e.split(" ", 2)[2] for e in res.events],
+          "killed_pid": kill.get("pid"), "stopped": kill.get("stopped"),
+          "full_states_at_kill": full_at_kill,
+          "tmp_at_kill": kill.get("tmp_at_kill"), "resumed_from": resumed,
+          "harvested": steps_h, "harvest_sha_ok": sha_ok, "harvest_lines": len(harvest_log),
+          "infer": infer_steps, "tmp_left": left, "trainer_launches": trainers,
+          "expected_trainer_launches": expect_train, "train_seconds": t_end - t0,
+          "relaunch_seconds": kill.get("relaunch_seconds"),
+          "resumed_run_seconds": t_end - kill["t"] - kill.get("relaunch_seconds", 0.0)
+          if "t" in kill else None, "card": card})
+    check(res.status == "complete" and res.restarts == 1 and rc == 0 and "pid" in kill,
+          f"close: the watchdog saw {res.status} after {res.restarts} restarts, rc {rc}")
+    check(resumed == [str(full_at_kill[-1])],
+          f"close: resumed from {resumed}, the newest full state at the kill was {full_at_kill}")
+    check(steps_h == list(range(1, CLOSE_STEPS + 1)) and all(sha_ok.values()),
+          f"close: harvest holds {steps_h} (sha256 {sha_ok})")
+    check(infer_steps == list(range(CLOSE_STEPS - ckpt.INFER_KEEP + 1, CLOSE_STEPS + 1)),
+          f"close: infer/ holds {infer_steps}")
+    check(left == [], f"close: left after the relaunch: {left}")
+    check(trainers == [expect_train],
+          f"close: the relaunched trainer's launches {trainers}, expected {expect_train}")
+
+    # the held-out trend on the card, the winner, the pick, the export
+    def counted(fn):
+        kernels.reset_launches()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t, dict(kernels.LAUNCHES)
+
+    def per(n, **each):
+        out = dict.fromkeys(kernels.LAUNCHES, 0)
+        out.update({key: n * v for key, v in each.items()})
+        return out
+
+    lines = []
+    trend_kw = dict(config=FLAGSHIP, data="synthetic2", device=dev, log=lines.append, **CLOSE_TREND)
+    rows, trend_s, trend_l = counted(lambda: heldout.heldout_trend(run, **trend_kw))
+    path = os.path.join(run, heldout.TREND_FILE)
+    with open(path) as f:
+        before = f.read()
+    again = heldout.heldout_trend(run, **trend_kw)
+    with open(path) as f:
+        after = f.read()
+    here = canonical.backend(dev)
+    fields = ("mel_short", "si_snr_short", "usage", "mel_10s", "si_snr_10s")
+    st = len(get_config(FLAGSHIP).strides)  # K1 launches per encode or decode
+    expect_trend = per(len(rows), residual_stack=4 * st, rvq_quantize=2, rvq_split_planes=2,
+                       rvq_dequantize=2)
+    emit({"phase": "close", "what": "heldout_trend", "rows": rows, "second_call_rows": len(again),
+          "seconds": trend_s, "seconds_per_step": trend_s / max(len(rows), 1),
+          "launches": trend_l, "card": card})
+    check([r["step"] for r in rows] == steps_h and all(
+        math.isfinite(r[key]) for r in rows for key in fields) and all(
+        r["backend"] == here for r in rows), f"close: trend rows {rows}")
+    check(again == [] and before == after, "close: the second trend call appended rows")
+    check(trend_l == expect_trend, f"close: trend launches {trend_l}, expected {expect_trend}")
+
+    winner, smoothed = heldout.smoothed_winner(heldout.load_rows(path))
+    cands = {ckpt.export_steps(os.path.join(run, sub))[-1] for sub in ("infer", "infer_best")}
+    picked, pick_s, pick_l = counted(lambda: heldout.pick_export_step(
+        run, config=FLAGSHIP, data="synthetic2", device=dev, log=lines.append))
+    expect_pick = per(len(cands), residual_stack=3 * st, rvq_quantize=1, rvq_split_planes=1,
+                      rvq_dequantize=2)
+    emit({"phase": "close", "what": "selection", "smoothed_winner": winner["step"],
+          "smoothed_mel_short": smoothed, "raw_best": min(rows, key=lambda r: r["mel_short"])["step"],
+          "pick_candidates": sorted(cands), "pick_recommends": picked,
+          "pick_table": [ln for ln in lines if "@" in ln], "pick_seconds": pick_s,
+          "launches": pick_l, "card": card})
+    check(picked in cands, f"close: pick_export_step recommends {picked} of {sorted(cands)}")
+    check(pick_l == expect_pick, f"close: pick launches {pick_l}, expected {expect_pick}")
+
+    dest = os.path.join(tmp, "exports", f"close_{winner['step']}")
+    out, export_s, export_l = counted(lambda: export.export_flagship(
+        run, os.path.basename(dest), step=winner["step"], data="synthetic2", segment_len=17600,
+        dest=dest, device=dev, log=lines.append))
+    pin = out["check"]
+    expect_export = per(4, residual_stack=st, rvq_quantize=1, rvq_split_planes=1)
+    emit({"phase": "close", "what": "export", "step": out["step"],
+          "source": os.path.relpath(export.select_step(run, winner["step"], lambda _: None), run),
+          "meta": out["meta"], "pin_exact": pin.exact, "pin_rate": pin.match_rate,
+          "pin_same_backend": pin.same_backend, "pin_status": pin.status,
+          "seconds": export_s, "launches": export_l, "card": card})
+    check(pin.exact is True and pin.same_backend and out["step"] == winner["step"],
+          f"close: the export's pin re-check {pin}")
+    check(export_l == expect_export, f"close: export launches {export_l}, expected {expect_export}")
+    served = serve_workdir(dev, dest, wav, "close")
+    launches = {key: trend_l[key] + pick_l[key] + export_l[key] + served[key] for key in trend_l}
+    emit({"phase": "timing", "what": "close", "train_under_watchdog_seconds": t_end - t0,
+          "relaunch_seconds": kill.get("relaunch_seconds"), "trend_seconds": trend_s,
+          "trend_seconds_per_step": trend_s / max(len(rows), 1), "pick_seconds": pick_s,
+          "export_and_pin_seconds": export_s, "card": card})
+    return launches, trainers[0]
+
 def drift(idx_a, idx_b, dec_a, dec_b) -> dict:
     """Index agreement of two paths, and the divergence of their decodes of
     the same indices."""
@@ -3092,8 +3346,12 @@ def main() -> int:
         t2 = time.perf_counter()
         with torch.enable_grad():
             finetune_launches, finetune_serving = finetune_smoke(dev, wav, tmp, card)
-        emit({"phase": "timing", "what": "loop_refit_finetune", "loop_seconds": t1 - t0,
-              "refit_seconds": t2 - t1, "finetune_seconds": time.perf_counter() - t2})
+        t3 = time.perf_counter()
+        torch.cuda.empty_cache()
+        close_launches, close_training = close_smoke(dev, wav, tmp, card)
+        emit({"phase": "timing", "what": "loop_refit_finetune_close", "loop_seconds": t1 - t0,
+              "refit_seconds": t2 - t1, "finetune_seconds": t3 - t2,
+              "close_seconds": time.perf_counter() - t3})
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     del wav
@@ -3104,7 +3362,8 @@ def main() -> int:
                "training_loop": loop_launches, "training_loop_serving": loop_serving,
                "refit": refit_launches, "finetune": finetune_launches,
                "finetune_serving": finetune_serving, "dp": dp_launches,
-               "sweep": sweep_launches, "k4_any": k4_any_launches}
+               "sweep": sweep_launches, "k4_any": k4_any_launches, "close": close_launches,
+               "close_training": close_training}
 
     def stage_entry(kernel, source, replaces):
         acc = timing[kernel]

@@ -21,7 +21,11 @@ _FORBIDDEN = {"jax", "jaxlib", "nsc_tpu"}
 
 PORT_SCRIPTS = ("torch_write_gpu_pin.py", "torch_refit_flips.py", "torch_rvq_bench.py",
                 "torch_k4_bench.py", "torch_tree_bench.py", "torch_k4_gradient.py",
-                "torch_refit_flagship.py", "torch_finetune_flagship.py", "torch_rd_ceiling.py")
+                "torch_refit_flagship.py", "torch_finetune_flagship.py", "torch_rd_ceiling.py",
+                "torch_harvest_checkpoints.py", "torch_heldout_trend.py",
+                "torch_pick_export_step.py", "torch_export_flagship.py",
+                "torch_train_watchdog.py")
+PORT_SHELL_SCRIPTS = ("torch_close_flagship.sh", "torch_round_close.sh")
 
 
 def _port_files():
@@ -51,13 +55,36 @@ def test_port_imports_no_jax_and_no_jax_package():
     assert len(files) > 10 and all(os.path.exists(f) for f in files)
     names = {os.path.relpath(f, ROOT) for f in files}
     for module in ("parallel/mesh.py", "eval/sweep.py", "eval/__main__.py", "native.py",
-                   "compat/torch_compat.py"):
+                   "compat/torch_compat.py", "eval/heldout.py", "train/harvest.py",
+                   "train/export.py", "train/watchdog.py"):
         assert f"nsc_tpu_torch/{module}" in names
     bad = {
         os.path.relpath(f, ROOT): sorted(set(_imported_roots(f)) & _FORBIDDEN)
         for f in files
     }
     assert {f: b for f, b in bad.items() if b} == {}
+
+
+def test_every_port_script_is_scanned():
+    """Each scripts/torch_* file is in PORT_SCRIPTS or PORT_SHELL_SCRIPTS."""
+    names = {n for n in os.listdir(os.path.join(ROOT, "scripts")) if n.startswith("torch_")}
+    assert names == set(PORT_SCRIPTS) | set(PORT_SHELL_SCRIPTS)
+
+
+@pytest.mark.parametrize("name", PORT_SHELL_SCRIPTS)
+def test_port_shell_scripts_stay_on_the_port(name):
+    """Each port shell script parses (`bash -n`), names no module of the JAX
+    package (only nsc_tpu_torch) and runs no script outside scripts/torch_*."""
+    import re
+    import subprocess
+
+    path = os.path.join(ROOT, "scripts", name)
+    assert subprocess.run(["bash", "-n", path], capture_output=True, timeout=30).returncode == 0
+    text = open(path).read()
+    assert re.findall(r"\bnsc_tpu\b(?!_torch)", text) == []
+    assert [s for s in re.findall(r"scripts/[\w.]+", text)
+            if not s.startswith("scripts/torch_")] == []
+    assert "scripts/torch_" in text
 
 
 def test_load_model_without_cuda_raises(monkeypatch):
