@@ -9,7 +9,8 @@ its three serving paths (unit_backend
 "auto": K1; "pallas_ct_fused": K5; "pallas_fused": K6), trains it at full
 width (TrainConfig defaults: batch 64 x 1 s, GAN with all discriminators)
 and checks every hand-written kernel of those paths against its plain
-PyTorch version. TF32 stays at PyTorch's defaults for the whole process, as
+PyTorch version; then serves, streams and trains every other registered
+configuration at full width, and checks the trained `small` export. TF32 stays at PyTorch's defaults for the whole process, as
 in a user's process: the codec's inference methods, the train step and
 every plain version compared here run their float32 work under
 `float32_numerics()` themselves. Phases, each printing JSON lines:
@@ -153,6 +154,35 @@ every plain version compared here run their float32 work under
               winner, `pick_export_step`, the winner's export with its GPU
               pin (re-check exact), and that export served (K1 x8, K2 +
               split x1, K3 x1)
+              configs: each of base, base_noncausal, base_fast_f, small
+              and small_factorized at full width with seed-0 weights on
+              the 64 x 10 s batch: the serving bundle's reconstruct with
+              the counters around it (K1 x8, none for base_noncausal, whose
+              units run op by op; K2 + split x1, K3 x1), its RTF; for base,
+              the serving activation snake_fast and its indices equal to
+              base_fast's serving bundle's on the same weights; K1 on each
+              stage it runs (bf16, K1_TOL), K2 on the bundle's latents
+              (near-tie rule, scores within K2_SCORE_ULPS of float64) and K3
+              (bit-exact) against plain at the configuration's shapes, each
+              timed beside its bound; the float32 path on the card against
+              the port's CPU float32 path on 2 x 10 s (margin rule; the
+              decodes' divergence and serving's agreement reported);
+              streaming of 30 s of the batch in 1 s chunks at queue 4 (a
+              round trip, K2 + split and K3 once per dispatch) or, for
+              base_noncausal, its refusal (ValueError); 2 full-width
+              training steps (TrainConfig defaults: 64 x 1 s, GAN on,
+              data-initialised books; finite metrics, K2 + split x1 and K4
+              x12 a step, step ms by CUDA events, peak memory); then the
+              CLI's default model (base, float32) compress and decompress
+              in fresh processes against the same calls here (margin rule,
+              the WAV within CLI_PCM_TOL).
+              small_trained: the trained small export
+              (exports/small_synthetic_30k): its fingerprint, the float32
+              path on both probes against reference_f32.npz (margin rule),
+              serving run to run and against its GPU pin, the float32 sweep
+              against reference_sweep.json and the serving sweep counted
+              (as sweep), and a CLI round trip of the serving bundle
+              (exact)
   5. timing   reconstruct wall time and real-time factor of each serving
               path, of the flagship's "auto" and int8 serving bundles, and
               of its float32 bundle with "reference" and "stacked" convs; streaming_compress and streaming_decompress real-time
@@ -175,7 +205,8 @@ every plain version compared here run their float32 work under
               and an export's bytes, the refit's and the finetune's seconds;
               the close's stages: the supervised run, the watchdog's
               relaunch after the kill, the trend per harvested step, the
-              pick, the export with its pin
+              pick, the export with its pin; each configuration's RTF,
+              K1/K2/K3 ms beside their bounds, step ms and peak memory
 
 then the `kernels` summary line, the card line and, last,
 {"ok": true, "device": {...}}. Any failed check raises and exits non-zero.
@@ -378,6 +409,25 @@ SWEEP_TOL = {"si_snr_db": (0.0, 1e-3), "mel_distance": (1e-4, 1e-6),
              "visqol_nsim": (1e-4, 1e-6), "stoi": (0.0, 2e-3)}
 
 
+# The registered configurations beside base_fast (`configs_smoke`), each at
+# full width with seed-0 weights, uncut, on the main phase's 64 x 10 s:
+# serving with the counters around reconstruct, K1/K2/K3 against plain at
+# the configuration's shapes, the float32 path on the card against the
+# CPU's on CONFIG_F32_ROWS x 10 s (the margin rule), streaming (causal
+# configurations; STREAM_ROWS x 10 s of the main input in 1 s chunks at
+# queue CONFIG_QUEUE), CONFIG_TRAIN_STEPS training steps of TrainConfig(),
+# then one CLI round trip with the CLI's default model. CLI_PCM_TOL: two
+# decodes of the same indices in two processes, float32 on cuDNN, within
+# two 16-bit PCM steps.
+CONFIGS = ("base", "base_noncausal", "base_fast_f", "small", "small_factorized")
+CONFIG_F32_ROWS, CONFIG_QUEUE, CONFIG_TRAIN_STEPS = 2, 4, 2
+CLI_PCM_TOL = 2.0 / 32768
+# The trained `small` checkpoint (`small_trained_smoke`), exported as the
+# flagship is, with its GPU pin; bench_suite.py's config 5 sweeps it
+SMALL_EXPORT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "exports",
+                            "small_synthetic_30k")
+
+
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
@@ -531,6 +581,85 @@ def k4_timing(pred, target, n_fft, hop, events_ms) -> dict:
            "bound_by": "bytes" if bytes_ms > ops_ms else "operations", "f64_ops_ms": f64_ops_ms}
     del win
     return row
+
+
+def stage_list(cfg, t_len: int) -> list:
+    """The 8 stages of `cfg`'s main path on t_len samples: per stage its
+    name, part, index, the units' (C, T) and K5's input (C_in, T_in)."""
+    from nsc_tpu_torch.models import seanet
+
+    stages = []
+    t = t_len
+    for i, s in enumerate(cfg.strides):
+        c = seanet.stage_widths(cfg)[i]
+        inp = (c, t) if i == 0 else stages[-1]["units_ct"]
+        stages.append({"name": f"enc{i}", "part": "encoder", "i": i, "units_ct": (c, t), "in_ct": inp})
+        t //= s
+    for i, s in enumerate(reversed(cfg.strides)):
+        t *= s
+        c = seanet.encoder_final_width(cfg) // 2 ** (i + 1)
+        stages.append({"name": f"dec{i}", "part": "decoder", "i": i, "units_ct": (c, t), "in_ct": (c, t)})
+    return stages
+
+
+def k2_score_err(books, z, idx, best) -> dict:
+    """K2's (or plain's) winning scores `best` against float64 scores of the
+    same (frame, book, index): the float32 residual as the kernel forms it,
+    the dot in float64; absolute errors and float32 ulps."""
+    import torch
+
+    from nsc_tpu_torch.kernels import rvq as KR
+
+    csq = KR.codeword_sq_norms(books)
+    r, errs, ulps, top = z, [], [], 0.0
+    for q in range(books.shape[0]):
+        i = idx[:, q].long()
+        c = books[q][i]
+        s64 = csq[q][i].double() - 2.0 * (r.double() * c.double()).sum(-1)
+        e = (best[:, q].double() - s64).abs()
+        errs.append(e)
+        ulps.append(e / f32_ulp(s64))
+        top = max(top, s64.abs().max().item())
+        r = r - c
+    e, u = torch.cat(errs), torch.cat(ulps)
+    return {"max": e.max().item(), "mean": e.mean().item(), "max_abs_score": top,
+            "max_ulps": u.max().item()}
+
+
+def k2_bound(books, m: int):
+    """K2's bound terms in ms on M frames: the bytes of the frames, the
+    books and the indices, each once; its dot products as six bf16 MMAs
+    each (the planes the kernel runs) at the bf16 tensor-core rate.
+    Returns (bytes_ms, ops_ms)."""
+    n_q, k, d = books.shape
+    return ((m * d + books.numel() + m * n_q) * 4 / PEAK_BYTES * 1e3,
+            6 * 2 * m * k * d * n_q / PEAK_BF16_FLOPS * 1e3)
+
+
+def k3_bound(books, idx):
+    """K3's bound terms in ms on indices `idx` (M, n_q): the indices, the
+    codewords they read (each once) and the sums; one float32 add per
+    element per book. Returns (bytes_ms, ops_ms)."""
+    import torch
+
+    (m, n_q), (k, d) = idx.shape, books.shape[1:]
+    rows = torch.unique(idx.long() + torch.arange(n_q, device=idx.device)[None, :] * k).numel()
+    return ((idx.numel() + rows * d + m * d) * 4 / PEAK_BYTES * 1e3,
+            m * d * n_q / PEAK_F32_FLOPS * 1e3)
+
+
+def k1_bound(x, p, dil, products: int = 1):
+    """A stage kernel's bound terms in ms on its input x (B, C, T) and its
+    weights p: the input read and the output written once, with the
+    weights; `products` bf16 MMAs per unit product (K1 1, a float32-weight
+    kernel 3) at the bf16 tensor-core rate. Returns (bytes_ms, ops_ms,
+    unit_flops)."""
+    b, c, t = x.shape
+    unit_flops = 2 * b * t * len(dil) * 4 * c * c
+    nbytes = 2 * x.numel() * x.element_size() + sum(v.numel() * v.element_size()
+                                                     for v in p.values())
+    return (nbytes / PEAK_BYTES * 1e3, products * unit_flops / PEAK_BF16_FLOPS * 1e3,
+            unit_flops)
 
 
 def train_smoke(dev, card, events_ms):
@@ -1005,9 +1134,9 @@ def index_check(books, z, idx_k, idx_p) -> dict:
             "near_ties": near, "worst_first_mismatch_margin": worst}
 
 
-def hold_quantize(books, z, idx_k, what: str) -> dict:
+def hold_quantize(books, z, idx_k, what: str):
     """K2's indices `idx_k` on (books, z) against the plain version's,
-    gated by the near-tie rule."""
+    gated by the near-tie rule. Returns (the record, the plain indices)."""
     from nsc_tpu_torch.kernels import rvq as KR
     from nsc_tpu_torch.ops.precision import float32_numerics
 
@@ -1016,7 +1145,7 @@ def hold_quantize(books, z, idx_k, what: str) -> dict:
     rec = index_check(books, z, idx_k, idx_p)
     check(rec["near_ties"] == rec["frames_differing"],
           f"K2 {what}: an index differs where the plain version's margin is not a near-tie")
-    return rec
+    return rec, idx_p
 
 
 # The refit's k-means searches (one book each) run book 0 on the trained
@@ -1098,7 +1227,7 @@ def hold_dispatches(calls, what: str) -> dict:
     q = {"M": [], "index_mismatches": 0, "frames_differing": 0, "near_ties": 0,
          "worst_first_mismatch_margin": 0.0}
     for (books, z), idx in calls["quantize"]:
-        rec = hold_quantize(books, z, idx, f"{what} dispatch M={z.shape[0]}")
+        rec = hold_quantize(books, z, idx, f"{what} dispatch M={z.shape[0]}")[0]
         q["M"].append(z.shape[0])
         for key in ("index_mismatches", "frames_differing", "near_ties"):
             q[key] += rec[key]
@@ -1191,7 +1320,7 @@ def flagship_smoke(dev, wav_np):
 
     books = serve.rvq["codebooks"].contiguous()
     z = serve.model.latents(serve.params, wav).reshape(-1, books.shape[-1]).float().contiguous()
-    rec = hold_quantize(books, z, KR.quantize(books, z), "flagship batch 64 x 10 s")
+    rec = hold_quantize(books, z, KR.quantize(books, z), "flagship batch 64 x 10 s")[0]
     emit({"phase": "kernel_check", "kernel": "rvq_quantize", "on": "flagship serving latents",
           "M": z.shape[0], **rec})
     del z
@@ -1351,13 +1480,9 @@ def streaming_smoke(serve, f32, card, events_ms):
     # shape's), in turns (kernel, plain, plain, kernel): the plain times at
     # these shapes swing between runs
     for queue, (books, z, idx) in dispatch_inputs.items():
-        n_q, k, d = books.shape
         m = z.shape[0]
-        q_bytes_ms = (z.numel() + books.numel() + m * n_q) * 4 / PEAK_BYTES * 1e3
-        q_ops_ms = 6 * 2 * m * k * d * n_q / PEAK_BF16_FLOPS * 1e3
-        dq_rows = torch.unique(idx.long() + torch.arange(n_q, device=idx.device)[None, :] * k).numel()
-        dq_bytes_ms = (idx.numel() + dq_rows * d + m * d) * 4 / PEAK_BYTES * 1e3
-        dq_ops_ms = m * d * n_q / PEAK_F32_FLOPS * 1e3
+        q_bytes_ms, q_ops_ms = k2_bound(books, m)
+        dq_bytes_ms, dq_ops_ms = k3_bound(books, idx)
         rec = {}
         for name, kern, plain in (
                 ("quantize", lambda: KR.quantize(books, z), lambda: KR.quantize_plain(books, z)),
@@ -1371,6 +1496,23 @@ def streaming_smoke(serve, f32, card, events_ms):
               "quantize_bound_ms": max(q_bytes_ms, q_ops_ms),
               "dequantize_bound_ms": max(dq_bytes_ms, dq_ops_ms), "card": card})
     return launches
+
+
+def run_cli(*args, phase="cli") -> str:
+    """`python3 -m nsc_tpu_torch ARGS` in a fresh process from the repo's
+    root: its rc, wall seconds and output tails printed, rc 0 gated.
+    Returns its stdout."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "nsc_tpu_torch", *args], cwd=root,
+                          capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    emit({"phase": phase, "args": [os.path.relpath(a, root) if a.startswith(root) else a
+                                   for a in args],
+          "rc": proc.returncode, "wall_seconds": wall,
+          "stdout_tail": proc.stdout[-400:], "stderr_tail": proc.stderr[-400:]})
+    check(proc.returncode == 0, f"CLI {args[0]}: rc {proc.returncode}: {proc.stderr[-2000:]}")
+    return proc.stdout
 
 
 def cli_smoke(serve, qserve):
@@ -1387,24 +1529,12 @@ def cli_smoke(serve, qserve):
     from nsc_tpu_torch import api, bitstream, canonical
     from nsc_tpu_torch.utils import audio
 
-    root = os.path.dirname(os.path.abspath(__file__))
     model = ["--model", FLAGSHIP, "--checkpoint", EXPORT, "--serving"]
     with tempfile.TemporaryDirectory(prefix="nsc_cli_") as tmp:
         wav_path = os.path.join(tmp, "speech.wav")
         audio.save_wav(wav_path, canonical.speech_probe_input(serve.cfg, 1)[0], serve.cfg.sample_rate)
         wav, _ = audio.load_wav(wav_path, target_sr=serve.cfg.sample_rate)
-
-        def run(*args):
-            t0 = time.perf_counter()
-            proc = subprocess.run([sys.executable, "-m", "nsc_tpu_torch", *args], cwd=root,
-                                  capture_output=True, text=True, timeout=600)
-            wall = time.perf_counter() - t0
-            emit({"phase": "cli", "args": [a if a != EXPORT else os.path.relpath(EXPORT) for a in args],
-                  "rc": proc.returncode, "wall_seconds": wall,
-                  "stdout_tail": proc.stdout[-400:], "stderr_tail": proc.stderr[-400:]})
-            check(proc.returncode == 0, f"CLI {args[0]}: rc {proc.returncode}: {proc.stderr[-2000:]}")
-            return proc.stdout
-
+        run = run_cli
         batch_path, stream_path = os.path.join(tmp, "batch.nsc"), os.path.join(tmp, "stream.nsc")
         run("compress", wav_path, batch_path, *model)
         run("compress", wav_path, stream_path, "--streaming", "1.0", *model)
@@ -2607,14 +2737,16 @@ def two_gloo_ranks(tmp: str, global_batch, want: dict, first: dict, tcfg) -> Non
           "codebooks_max_abs_diff": float((a["codebooks"] - first["codebooks"]).abs().max())})
 
 
-def sweep_smoke(dev, serve, card, events_ms) -> dict:
+def sweep_smoke(dev, serve, card, events_ms, export=EXPORT, name=FLAGSHIP,
+                what="flagship", require_all=False) -> dict:
     """The bitrate sweep (`eval.sweep.bitrate_sweep`) on the first clips of
-    the speech probe: the flagship's float32 bundle held to nsc_tpu's CPU
+    the speech probe: the float32 bundle of `export` (a `name` model; the
+    flagship's by default) held to nsc_tpu's CPU
     float32 rows (reference_sweep.json): n_q and bitrate_bps equal at every
     depth; at every depth where the port's indices equal the reference's
     (reference_f32.npz), the index-derived fields equal and the float fields
-    within SWEEP_TOL; then the serving bundle with the counters around the
-    sweep (K2 + split x1 for the one encode; K3 x1 and K1 x4, the decoder's
+    within SWEEP_TOL (require_all: every depth must be held); then the
+    serving bundle with the counters around the sweep (K2 + split x1 for the one encode; K3 x1 and K1 x4, the decoder's
     stages, per depth; K1 x4 for the encoder), its indices at every depth d
     against the first d books of the full encode, and its device time (one
     encode and a decode per depth) beside one reconstruct of the same clips.
@@ -2625,9 +2757,9 @@ def sweep_smoke(dev, serve, card, events_ms) -> dict:
     from nsc_tpu_torch import api, canonical, kernels
     from nsc_tpu_torch.eval.sweep import bitrate_sweep
 
-    with open(os.path.join(EXPORT, "reference_sweep.json")) as f:
+    with open(os.path.join(export, "reference_sweep.json")) as f:
         ref = json.load(f)
-    f32 = api.load_model(FLAGSHIP, checkpoint=EXPORT, device=dev)
+    f32 = api.load_model(name, checkpoint=export, device=dev)
     check(ref["fingerprint"] == api.codebook_fingerprint(f32.rvq),
           "reference_sweep.json is of other codebooks")
     clips = ref["clips"]
@@ -2636,7 +2768,7 @@ def sweep_smoke(dev, serve, card, events_ms) -> dict:
     rows = bitrate_sweep(f32, wavs)
     f32_s = time.perf_counter() - t0
     idx = api.encode(f32, wavs)
-    with np.load(os.path.join(EXPORT, "reference_f32.npz")) as z:
+    with np.load(os.path.join(export, "reference_f32.npz")) as z:
         ref_idx = z["indices_speech"][:clips]
     check(len(rows) == len(ref["rows"]) == f32.cfg.num_quantizers, "sweep: depth count")
     held, worst = [], {}
@@ -2656,11 +2788,14 @@ def sweep_smoke(dev, serve, card, events_ms) -> dict:
                 worst[k] = max(worst.get(k, 0.0), err)
                 check(err <= atol + rtol * abs(w[k]),
                       f"sweep depth {d}: {k} {g[k]} vs the reference's {w[k]}")
-    emit({"phase": "main", "what": "sweep", "bundle": "flagship float32", "clips": clips,
+    emit({"phase": "main", "what": "sweep", "bundle": f"{what} float32", "clips": clips,
           "depths_held": held, "worst_abs_diff": worst, "seconds": f32_s,
           "rows": [{k: r[k] for k in ("n_q", "bitrate_bps", "entropy_bitrate_bps",
                                       "mel_distance", "si_snr_db")} for r in rows]})
     check(held, "sweep: the float32 indices differ from the reference's at every depth")
+    if require_all:
+        check(held == list(range(1, len(rows) + 1)),
+              f"{what} sweep: the float32 indices equal the reference's only at depths {held}")
     del f32
 
     # the serving bundle, counted
@@ -2685,11 +2820,11 @@ def sweep_smoke(dev, serve, card, events_ms) -> dict:
     dec_ms = [events_ms(lambda d=d: serve.model.decode(p, q, idx_t[..., :d]), reps=3)
               for d in range(1, n_q + 1)]
     rec_ms = events_ms(lambda: serve.model.reconstruct(p, q, x), reps=3)
-    emit({"phase": "main", "what": "sweep", "bundle": "flagship serving", "launches": launches,
+    emit({"phase": "main", "what": "sweep", "bundle": f"{what} serving", "launches": launches,
           "prefix_depths_equal": len(prefix), "seconds": serve_s,
           "rows": [{k: r[k] for k in ("n_q", "entropy_bitrate_bps", "mel_distance")}
                    for r in srows]})
-    emit({"phase": "timing", "what": "sweep", "bundle": "flagship serving", "clips": clips,
+    emit({"phase": "timing", "what": "sweep", "bundle": f"{what} serving", "clips": clips,
           "seconds_f32_sweep": f32_s, "seconds_serving_sweep": serve_s,
           "encode_ms": enc_ms, "decode_ms_by_depth": dec_ms,
           "device_ms": enc_ms + sum(dec_ms), "reconstruct_ms": rec_ms,
@@ -2751,6 +2886,453 @@ def native_smoke(serve, wav_np, card) -> None:
           "card": card})
     check(packed_same and unpacked, "native: packed planes differ from numpy's")
     check(coded_same and decoded, "native: arithmetic-coded planes differ from numpy's")
+
+
+def serving_expect(name: str) -> dict:
+    """The launches of one `reconstruct` of `name`'s serving bundle: the
+    stage kernel its serving config routes the residual units to, once per
+    stage of the encoder and of the decoder (none where the units run op by
+    op, as in a non-causal config), K2 and its codebook split once, K3
+    once, nothing else."""
+    from nsc_tpu_torch import api, kernels
+    from nsc_tpu_torch.configs import get_config
+    from nsc_tpu_torch.models import seanet
+
+    cfg = api.serving_config(get_config(name))
+    expect = dict.fromkeys(kernels.LAUNCHES, 0)
+    route = seanet.unit_route(cfg)
+    if route != "reference":
+        expect[route] = 2 * len(cfg.strides)
+    expect.update({"rvq_quantize": 1, "rvq_split_planes": 1, "rvq_dequantize": 1})
+    return expect
+
+
+def stage_error(got, ref, dname: str, what: str, time_axis: int = -1, **fields) -> dict:
+    """A stage kernel's output against its plain version's under K1_TOL
+    (max and mean abs error, relative to max(1, max|ref|)), printed as a
+    kernel_check line with `fields` and the error of the first 64 steps of
+    `time_axis`, then gated. Returns the errors."""
+    import torch
+
+    err = (got.float() - ref.float()).abs()
+    scale = ref.float().abs().max().item()
+    rec = {"max_abs_err": err.max().item(), "mean_abs_err": err.mean().item(),
+           "max_abs_ref": scale, "max_rel_err": err.max().item() / max(scale, 1e-30),
+           "first_tile_max_abs_err": err.narrow(time_axis, 0, min(64, err.shape[time_axis])).max().item(),
+           "frac_differ": (got != ref).float().mean().item()}
+    emit({"phase": "kernel_check", **fields, "dtype": dname, **rec})
+    tol_max, tol_mean = K1_TOL[dname]
+    check(tuple(got.shape) == tuple(ref.shape), f"{what}: shape {tuple(got.shape)}")
+    check(torch.isfinite(got).all().item(), f"{what}: non-finite output")
+    check(rec["max_abs_err"] <= tol_max * max(1.0, scale), f"{what}: max abs err {rec['max_abs_err']}")
+    check(rec["mean_abs_err"] <= tol_mean * max(1.0, scale),
+          f"{what}: mean abs err {rec['mean_abs_err']}")
+    return rec
+
+
+def config_kernels(serve, wav, events_ms) -> dict:
+    """K1 on every stage the serving bundle launches it on (bf16, the
+    bundle's packed weights, N(0, 0.25) input of the stage's shape at the
+    batch's B and T), K2 on the bundle's own latents of `wav` (near-tie rule;
+    its winning scores within K2_SCORE_ULPS of float64) and K3 on the plain
+    indices (bit-exact), each against its plain version; then each timed
+    by CUDA events beside its bound (as the main path's). Returns
+    {kernel: {max_abs_err, ms, bound_ms, bound_by, ...}}."""
+    import torch
+
+    from nsc_tpu_torch.kernels import residual_stack as RS
+    from nsc_tpu_torch.kernels import rvq as KR
+    from nsc_tpu_torch.ops.precision import float32_numerics
+
+    cfg, params, rvq = serve.cfg, serve.params, serve.rvq
+    dev = wav.device
+    b = wav.shape[0]
+    out = {}
+    gen = torch.Generator(device=dev).manual_seed(1)
+    if serve.model.kernels.units == "residual_stack":
+        fast, dil = cfg.activation == "snake_fast", tuple(cfg.dilations)
+        k1 = {"max_abs_err": 0.0, "ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0, "bound_ms": 0.0,
+              "stages": []}
+        for st in stage_list(cfg, wav.shape[1]):
+            c, t = st["units_ct"]
+            p = params[st["part"]]["stages"][st["i"]]["stack"]
+            x = (torch.randn(b, c, t, device=dev, generator=gen) * 0.5).to(torch.bfloat16)
+            got = RS.residual_stack(x, p, dil, fast)
+            torch.cuda.synchronize()
+            rec = stage_error(got, RS.residual_stack_plain(x, p, dil, fast), "bfloat16",
+                              f"{cfg.name} residual_stack {st['name']}", kernel="residual_stack",
+                              config=cfg.name, stage=st["name"], B=b, in_shape=list(x.shape))
+            del got
+            ms = events_ms(lambda: RS.residual_stack(x, p, dil, fast))
+            b_ms, o_ms, _ = k1_bound(x, p, dil)
+            k1["stages"].append({"stage": st["name"], "C": c, "T": t, "ms": ms})
+            k1["max_abs_err"] = max(k1["max_abs_err"], rec["max_abs_err"])
+            for key, v in (("ms", ms), ("bytes_ms", b_ms), ("ops_ms", o_ms),
+                           ("bound_ms", max(b_ms, o_ms))):
+                k1[key] += v
+            del x
+        k1["bound_by"] = "bytes" if k1["bytes_ms"] > k1["ops_ms"] else "operations"
+        out["residual_stack"] = k1
+
+    books = rvq["codebooks"].contiguous()
+    n_q, k, d = books.shape
+    z = serve.model.latents(params, wav).reshape(-1, d).float().contiguous()
+    m = z.shape[0]
+    idx_k, best_k = KR.quantize_with_scores(books, z)
+    torch.cuda.synchronize()
+    rec, idx_p = hold_quantize(books, z, idx_k, cfg.name)
+    rec["score_abs_err_vs_float64"] = scores = k2_score_err(books, z, idx_k, best_k)
+    check(scores["max_ulps"] <= K2_SCORE_ULPS,
+          f"{cfg.name} K2's winning scores lie {scores['max_ulps']} float32 ulps from float64")
+    q_bytes_ms, q_ops_ms = k2_bound(books, m)
+    out["rvq_quantize"] = {"M": m, "n_q": n_q, "K": k, "D": d, "plan": KR.quantize_plan(m, d),
+                           **rec, "max_abs_err": rec["worst_first_mismatch_margin"],
+                           "ms": events_ms(lambda: KR.quantize(books, z), reps=20),
+                           "bound_ms": max(q_bytes_ms, q_ops_ms),
+                           "bound_by": "bytes" if q_bytes_ms > q_ops_ms else "operations"}
+    del idx_k, best_k, z
+    got = KR.dequantize(books, idx_p)
+    torch.cuda.synchronize()
+    with float32_numerics():
+        ref = KR.dequantize_plain(books, idx_p)
+    exact = bool(torch.equal(got, ref))
+    check(exact, f"{cfg.name} K3: not bit-exact against its plain version")
+    dq_bytes_ms, dq_ops_ms = k3_bound(books, idx_p)
+    out["rvq_dequantize"] = {"M": m, "bit_exact": exact,
+                             "max_abs_err": (got - ref).abs().max().item(),
+                             "ms": events_ms(lambda: KR.dequantize(books, idx_p), reps=50),
+                             "bound_ms": max(dq_bytes_ms, dq_ops_ms),
+                             "bound_by": "bytes" if dq_bytes_ms > dq_ops_ms else "operations"}
+    return out
+
+
+def config_float32(name: str, f32, serve, wav_np) -> dict:
+    """`name`'s float32 path on the card against the port's CPU float32
+    path (same seed-0 weights) on `wav_np`: the card's indices by the
+    margin rule against the CPU's (gated), the decodes of the CPU's
+    indices on both (reported), and the serving path's index agreement
+    with the card's float32 (reported)."""
+    import numpy as np
+    import torch
+
+    from nsc_tpu_torch import api
+    from nsc_tpu_torch.ops import rvq as rvq_ops
+
+    cpu = api.load_model(name, device="cpu")
+    xc = torch.from_numpy(wav_np)
+    xg = xc.to(f32.device)
+    lat = cpu.model.latents(cpu.params, xc)
+    idx_c = rvq_ops.quantize(cpu.rvq, lat, kernel=False)
+    margins = rvq_ops.argmin_margins(cpu.rvq, lat).numpy()
+    idx_g = f32.model.encode(f32.params, f32.rvq, xg)
+    rec = first_flips(idx_g.cpu().numpy(), idx_c.numpy(), margins)
+    check(rec["ok"], f"{name} float32: a card index differs from the CPU's where its margin is "
+          f"not below {K2_NEAR_TIE}")
+    dec_c = cpu.model.decode(cpu.params, cpu.rvq, idx_c)
+    dec_g = f32.model.decode(f32.params, f32.rvq, idx_c.to(f32.device)).cpu()
+    idx_s = serve.model.encode(serve.params, serve.rvq, xg)
+    rms = dec_c.pow(2).mean().sqrt().item()
+    return {**rec, "decode_max_abs": (dec_g - dec_c).abs().max().item(),
+            "decode_rel_rms": (dec_g - dec_c).pow(2).mean().sqrt().item() / max(rms, 1e-12),
+            "serving_index_agreement_with_float32": (idx_s == idx_g).float().mean().item(),
+            "rows": int(wav_np.shape[0]), "seconds": wav_np.shape[1] / f32.cfg.sample_rate,
+            "equal": bool(np.array_equal(idx_g.cpu().numpy(), idx_c.numpy()))}
+
+
+def config_streaming(serve, wav_np) -> dict:
+    """Streaming on `serve`: STREAM_ROWS rows of `wav_np` end to end in
+    STREAM_CHUNK_SECONDS chunks at queue CONFIG_QUEUE. A causal config:
+    streaming_compress / streaming_decompress round trip (the stream's
+    indices decode to finite audio of the input's length) with the counters
+    around both (K2 + split and K3 once per dispatch, nothing else), and
+    the stream's agreement with batch compress (reported). A non-causal
+    one: streaming_compress raises ValueError, as nsc_tpu's does. Returns
+    the record; its "launches" are the counts."""
+    import numpy as np
+    import torch
+
+    from nsc_tpu_torch import api, bitstream, kernels
+
+    cfg = serve.cfg
+    wav = np.ascontiguousarray(wav_np[:STREAM_ROWS].reshape(-1))
+    seconds = wav.shape[0] / cfg.sample_rate
+    if not cfg.causal:
+        try:
+            api.streaming_compress(serve, wav, STREAM_CHUNK_SECONDS, queue_chunks=CONFIG_QUEUE)
+            refused = None
+        except ValueError as e:
+            refused = str(e)
+        check(refused is not None, f"{cfg.name}: streaming_compress did not refuse a non-causal "
+              "config")
+        return {"refused": refused, "launches": dict.fromkeys(kernels.LAUNCHES, 0)}
+    t0 = time.perf_counter()
+    kernels.reset_launches()
+    sblob = api.streaming_compress(serve, wav, STREAM_CHUNK_SECONDS, queue_chunks=CONFIG_QUEUE)
+    back = api.streaming_decompress(serve, sblob, STREAM_CHUNK_SECONDS, queue_chunks=CONFIG_QUEUE)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    wall = time.perf_counter() - t0
+    dispatches = -(-math.ceil(seconds / STREAM_CHUNK_SECONDS) // CONFIG_QUEUE)
+    expect = dict.fromkeys(kernels.LAUNCHES, 0)
+    expect.update({"rvq_quantize": dispatches, "rvq_split_planes": dispatches,
+                   "rvq_dequantize": dispatches})
+    idx_s = bitstream.deserialize(sblob)[1]
+    idx_b = api.encode(serve, wav)
+    finite = bool(np.isfinite(back).all())
+    check(back.shape == wav.shape and finite, f"{cfg.name} streaming_decompress: shape or finiteness")
+    check(idx_s.shape == idx_b.shape, f"{cfg.name} streaming indices: shape {idx_s.shape}")
+    check(launches == expect, f"{cfg.name} streaming launch counts {launches}, expected {expect}")
+    return {"seconds": seconds, "chunk_seconds": STREAM_CHUNK_SECONDS, "queue_chunks": CONFIG_QUEUE,
+            "dispatches_each_way": dispatches, "launches": launches, "finite": finite,
+            "index_agreement_with_batch": float((idx_s == idx_b).mean()),
+            "round_trip_wall_seconds": wall}
+
+
+def config_training(dev, name: str, card) -> dict:
+    """CONFIG_TRAIN_STEPS steps of `name` at full width (TrainConfig
+    defaults: 64 x 1 s, GAN on, step-0 data init of the codebooks), each
+    with the counters around it: finite metrics, K2 + split x1 and K4 x12 a step (and K2 + split x3 per book in
+    the data init); each step's time by CUDA events and the peak memory.
+    Returns the steps' launch counts."""
+    import torch
+
+    from nsc_tpu_torch import kernels
+    from nsc_tpu_torch.configs import TrainConfig, get_config
+    from nsc_tpu_torch.train import data as data_lib
+    from nsc_tpu_torch.train import loop as L
+    from nsc_tpu_torch.train import train as T
+
+    cfg, tcfg = get_config(name), TrainConfig()
+    seg = L.segment_length(cfg, tcfg.segment_seconds)
+    source = data_lib.make_source("synthetic", cfg.sample_rate, tcfg.seed)
+    torch.cuda.reset_peak_memory_stats()
+    model, state = T.init_train_state(cfg, tcfg, dev)
+    step_fn = T.make_train_step(model, tcfg)
+    kernels.reset_launches()
+    L.data_init_codebooks(model, state, tcfg, "synthetic")
+    init = dict(kernels.LAUNCHES)
+    init_k2 = cfg.num_quantizers * 3  # per book: 2 Lloyd iterations + the final search
+    check(init["rvq_quantize"] == init["rvq_split_planes"] == init_k2,
+          f"{name} data-init launches {init}")
+    expect = dict.fromkeys(kernels.LAUNCHES, 0)
+    expect.update({"rvq_quantize": 1, "rvq_split_planes": 1, "stft_magnitude": 12})
+    total = dict.fromkeys(kernels.LAUNCHES, 0)
+    step_ms, values = [], {}
+    for i in range(CONFIG_TRAIN_STEPS):
+        batch = torch.from_numpy(next(source.batches(tcfg.batch_size, seg))).to(dev)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        kernels.reset_launches()
+        start.record()
+        state, metrics = step_fn(state, batch)
+        end.record()
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        step_ms.append(start.elapsed_time(end))
+        values = {k: float(v) for k, v in metrics.items()}
+        check(all(map(math.isfinite, values.values())), f"{name} step {i + 1}: non-finite metric")
+        check(launches == expect, f"{name} step {i + 1}: launches {launches}, expected {expect}")
+        for k, n in launches.items():
+            total[k] += n
+    peak = torch.cuda.max_memory_allocated()
+    del state, model, metrics
+    torch.cuda.empty_cache()
+    return {"batch": tcfg.batch_size, "segment_samples": seg, "use_gan": tcfg.use_gan,
+            "codebook_init": tcfg.codebook_init, "data_init_launches": init, "launches": total,
+            "step_event_ms": step_ms, "peak_memory_gb": peak / 1e9,
+            "last_step": {k: values[k] for k in ("loss/g_total", "loss/mel", "loss/stft")
+                          if k in values}, "card": card}
+
+
+def cli_roundtrip(bundle, model_args, exact: bool) -> dict:
+    """`python3 -m nsc_tpu_torch compress` and `decompress` in fresh
+    processes with `model_args` on 10 s of the speech probe, against the
+    same calls on `bundle` in this process. exact: the stream's indices and
+    the decoded WAV equal (the serving path); else the indices by the
+    margin rule (the margins of this process's latents) and the WAV within
+    CLI_PCM_TOL (a float32 path on cuDNN)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from nsc_tpu_torch import api, bitstream, canonical
+    from nsc_tpu_torch.ops import rvq as rvq_ops
+    from nsc_tpu_torch.utils import audio
+
+    cfg = bundle.cfg
+    with tempfile.TemporaryDirectory(prefix="nsc_cli_") as tmp:
+        wav_path, nsc_path = os.path.join(tmp, "speech.wav"), os.path.join(tmp, "speech.nsc")
+        out_path, want_path = os.path.join(tmp, "out.wav"), os.path.join(tmp, "want.wav")
+        audio.save_wav(wav_path, canonical.speech_probe_input(cfg, 1)[0], cfg.sample_rate)
+        wav, _ = audio.load_wav(wav_path, target_sr=cfg.sample_rate)
+        t0 = time.perf_counter()
+        run_cli("compress", wav_path, nsc_path, *model_args, phase="configs_cli")
+        run_cli("decompress", nsc_path, out_path, *model_args, phase="configs_cli")
+        wall = time.perf_counter() - t0
+        with open(nsc_path, "rb") as f:
+            blob = f.read()
+        got_idx, want_idx = bitstream.deserialize(blob)[1], api.encode(bundle, wav)
+        lat = bundle.model.latents(bundle.params, torch.from_numpy(wav[None]).to(bundle.device))
+        margins = rvq_ops.argmin_margins(bundle.rvq, lat)[0].cpu().numpy()
+        rec = first_flips(got_idx, want_idx, margins[: want_idx.shape[0]])
+        audio.save_wav(want_path, api.decompress(bundle, blob), cfg.sample_rate)
+        got, want = audio.load_wav(out_path)[0], audio.load_wav(want_path)[0]
+    same_shape = got.shape == want.shape == wav.shape
+    wav_err = float(np.abs(got - want).max()) if same_shape else math.inf
+    root = os.path.dirname(os.path.abspath(__file__))
+    rec.update(model_args=[os.path.relpath(a, root) if os.path.isabs(a) else a for a in model_args],
+               indices_equal=bool(np.array_equal(got_idx, want_idx)),
+               wav_equal=same_shape and bool(np.array_equal(got, want)), wav_max_abs=wav_err,
+               wall_seconds=wall)
+    if exact:
+        check(rec["indices_equal"] and rec["wav_equal"],
+              f"CLI {model_args}: the stream or the WAV differs from the in-process calls")
+    else:
+        check(rec["ok"], f"CLI {model_args}: an index differs from the in-process encode where "
+              f"its margin is not below {K2_NEAR_TIE}")
+        check(wav_err <= CLI_PCM_TOL, f"CLI {model_args}: the WAV differs by {wav_err}")
+    return rec
+
+
+def configs_smoke(dev, wav_np, card, events_ms) -> dict:
+    """The `configs` phase: every name of CONFIGS at full width with seed-0
+    weights on the main input `wav_np` (64 x 10 s). Serving
+    (`api.load_model(name, serving=True)`): reconstruct with the counters
+    reset just before and read just after (`serving_expect`); for base, the
+    serving activation snake_fast and its indices equal to base_fast's
+    serving bundle's on the same weights, and no timing (the main path
+    times that computation at those shapes); for every other, its RTF (mean
+    of 3) and the kernels at its shapes (`config_kernels`). The float32
+    path on the card against the CPU (`config_float32`), streaming
+    (`config_streaming`) and training (`config_training`). Then one CLI
+    round trip with the CLI's default model, base (float32). Returns the
+    launch counts by path and each configuration's record."""
+    import dataclasses
+
+    import torch
+
+    from nsc_tpu_torch import api, kernels, weights
+    from nsc_tpu_torch.configs import get_config
+
+    by_path, rows = {}, {}
+    wav = torch.from_numpy(wav_np).to(dev)
+    for name in CONFIGS:
+        t0 = time.perf_counter()
+        serve = api.load_model(name, serving=True, device=dev)
+        cfg = serve.cfg
+        expect = serving_expect(name)
+        kernels.reset_launches()
+        out = serve.model.reconstruct(serve.params, serve.rvq, wav)
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        finite = bool(torch.isfinite(out).all().item())
+        emit({"phase": "configs", "config": name, "what": "reconstruct", "shape": list(out.shape),
+              "route": serve.model.kernels.units, "finite": finite, "launches": launches})
+        check(tuple(out.shape) == tuple(wav.shape) and finite, f"{name}: reconstruct output")
+        check(launches == expect, f"{name}: serving launch counts {launches}, expected {expect}")
+        by_path[f"{name}_serving"] = launches
+        del out
+        rec = {}
+        if name == "base":
+            fast_cfg = api.serving_config(get_config("base_fast"))
+            check(cfg.activation == "snake_fast" and dataclasses.replace(
+                cfg, name="base_fast") == fast_cfg, f"base serving config {cfg}")
+            fast = api.bundle_from_jax(fast_cfg, *weights.init_jax_layout(cfg, 0), device=dev)
+            same = bool(torch.equal(serve.model.encode(serve.params, serve.rvq, wav),
+                                    fast.model.encode(fast.params, fast.rvq, wav)))
+            emit({"phase": "configs", "config": name, "what": "serving_is_base_fast",
+                  "activation": cfg.activation, "indices_equal": same})
+            check(same, "base serving: indices differ from base_fast's serving bundle on the "
+                  "same weights")
+            del fast
+        else:
+            # base serves base_fast's computation on base_fast's shapes, which
+            # the main path times; every other configuration is timed here
+            rec["reconstruct"] = reconstruct_rtf(serve, wav)
+            rec["kernels"] = config_kernels(serve, wav, events_ms)
+            emit({"phase": "configs", "config": name, "what": "kernels", **rec["kernels"],
+                  "card": card})
+        f32 = api.load_model(name, device=dev)
+        rec["float32"] = config_float32(name, f32, serve, wav_np[:CONFIG_F32_ROWS])
+        emit({"phase": "configs", "config": name, "what": "float32_card_vs_cpu", **rec["float32"]})
+        del f32
+        rec["streaming"] = config_streaming(serve, wav_np)
+        emit({"phase": "configs", "config": name, "what": "streaming", **rec["streaming"]})
+        by_path[f"{name}_streaming"] = rec["streaming"]["launches"]
+        del serve
+        torch.cuda.empty_cache()
+        with torch.enable_grad():
+            rec["training"] = config_training(dev, name, card)
+        emit({"phase": "configs", "config": name, "what": "training", **rec["training"]})
+        by_path[f"{name}_training"] = rec["training"]["launches"]
+        rec["seconds"] = time.perf_counter() - t0
+        kern = rec.get("kernels", {})
+        emit({"phase": "timing", "what": "configs", "config": name, "seconds": rec["seconds"],
+              "reconstruct": rec.get("reconstruct", "base_fast's (the main path)"),
+              "batch": int(wav.shape[0]),
+              "kernel_ms": {k: v["ms"] for k, v in kern.items()},
+              "kernel_bound_ms": {k: v["bound_ms"] for k, v in kern.items()},
+              "step_event_ms": rec["training"]["step_event_ms"],
+              "peak_memory_gb": rec["training"]["peak_memory_gb"], "card": card})
+        rows[name] = rec
+    del wav
+    torch.cuda.empty_cache()
+    default = get_config("base").name
+    base = api.load_model(default, device=dev)
+    emit({"phase": "configs", "what": "cli_default_model", "model": default,
+          **cli_roundtrip(base, [], exact=False)})
+    return by_path, rows
+
+
+def small_trained_smoke(dev, card, events_ms) -> dict:
+    """The `small_trained` phase on SMALL_EXPORT: the fingerprint in
+    meta.json; the float32 path's indices on both 8 x 10 s probes against
+    nsc_tpu's CPU reference (reference_f32.npz) by the margin rule; the
+    serving path run to run and against its GPU pin (exact when the pin's
+    backend is this run's); the float32 and serving sweeps (`sweep_smoke`:
+    the rows against reference_sweep.json at every depth, the serving
+    sweep's launches); one CLI round trip of the serving bundle. Returns the serving sweep's
+    launch counts."""
+    import numpy as np
+
+    from nsc_tpu_torch import api, canonical
+    from nsc_tpu_torch.train import checkpoint as ckpt
+
+    meta = ckpt.export_meta(SMALL_EXPORT)
+    serve = api.load_model("small", checkpoint=SMALL_EXPORT, serving=True, device=dev)
+    f32 = api.load_model("small", checkpoint=SMALL_EXPORT, device=dev)
+    fps = (api.codebook_fingerprint(serve.rvq), api.codebook_fingerprint(f32.rvq))
+    emit({"phase": "small_trained", "what": "load", "export": os.path.relpath(SMALL_EXPORT),
+          "meta": meta, "fingerprints": fps, "route": serve.model.kernels.units})
+    check(fps == (meta["fingerprint"], meta["fingerprint"]), f"small fingerprint {fps} != {meta}")
+    probes = {"noise": canonical.probe_input(f32.cfg), "speech": canonical.speech_probe_input(f32.cfg)}
+    with np.load(os.path.join(SMALL_EXPORT, "reference_f32.npz"), allow_pickle=False) as z:
+        ref = {k: z[k] for k in z.files}
+    check(int(ref["fingerprint"]) == meta["fingerprint"], "small reference_f32.npz: other codebooks")
+    for name, x in probes.items():
+        rec = first_flips(api.encode(f32, x), ref[f"indices_{name}"], ref[f"margins_{name}"])
+        emit({"phase": "small_trained", "what": "float32_vs_nsc_tpu_cpu_reference", "probe": name,
+              "rows": x.shape[0], **rec})
+        check(rec["ok"], f"small float32 {name} probe: an index differs from nsc_tpu's where its "
+              f"margin is not below {K2_NEAR_TIE}")
+    del f32
+    first = api.encode(serve, probes["speech"])
+    again = api.encode(serve, probes["speech"])
+    exact, rate, status, gated = canonical.check_pin(serve, SMALL_EXPORT)
+    emit({"phase": "small_trained", "what": "serving_determinism",
+          "run_to_run_equal": bool(np.array_equal(first, again)), "pin_exact": exact,
+          "pin_match_rate": rate, "pin_status": status, "backend": canonical.backend(dev),
+          "pin_gated": gated})
+    check(np.array_equal(first, again), "small serving path: two encodes of the probe differ")
+    check(exact is not None, f"small GPU pin: {status}")
+    if gated:
+        check(exact, f"small serving path misses its GPU pin: {rate} ({status})")
+    launches = sweep_smoke(dev, serve, card, events_ms, SMALL_EXPORT, "small", "small_trained",
+                           require_all=True)
+    emit({"phase": "small_trained", "what": "cli",
+          **cli_roundtrip(serve, ["--model", "small", "--checkpoint", SMALL_EXPORT, "--serving"],
+                          exact=True)})
+    return launches
 
 
 def main() -> int:
@@ -2851,18 +3433,7 @@ def main() -> int:
     t_len = int(SECONDS * cfg.sample_rate)
     wav_np = np.random.RandomState(0).randn(BATCH, t_len).astype(np.float32) * 0.1
     wav = torch.from_numpy(wav_np).to(dev)
-    # per stage: name, part, index, the units' (C, T), K5's input (C_in, T_in)
-    stages = []
-    t = t_len
-    for i, s in enumerate(cfg.strides):
-        c = seanet.stage_widths(cfg)[i]
-        inp = (c, t) if i == 0 else stages[-1]["units_ct"]
-        stages.append({"name": f"enc{i}", "part": "encoder", "i": i, "units_ct": (c, t), "in_ct": inp})
-        t //= s
-    for i, s in enumerate(reversed(cfg.strides)):
-        t *= s
-        c = seanet.encoder_final_width(cfg) // 2 ** (i + 1)
-        stages.append({"name": f"dec{i}", "part": "decoder", "i": i, "units_ct": (c, t), "in_ct": (c, t)})
+    stages = stage_list(cfg, t_len)
     fast = cfg.activation == "snake_fast"
     dil = tuple(cfg.dilations)
 
@@ -2883,25 +3454,9 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(1)
 
     def compare(kernel, st, dname, got, ref):
-        err = (got.float() - ref.float()).abs()
-        scale = ref.float().abs().max().item()
-        first = err[..., :64] if kernel != "residual_stack_cl" else err[:, :64]
-        rec = {"phase": "kernel_check", "kernel": kernel, "stage": st["name"], "B": BATCH,
-               "in_shape": list(got.shape), "dtype": dname,
-               "max_abs_err": err.max().item(), "mean_abs_err": err.mean().item(),
-               "max_abs_ref": scale, "max_rel_err": err.max().item() / max(scale, 1e-30),
-               "first_tile_max_abs_err": first.max().item(),
-               "frac_differ": (got != ref).float().mean().item()}
-        tol_max, tol_mean = K1_TOL[dname]
-        emit(rec)
-        what = f"{kernel} {st['name']} {dname}"
-        check(tuple(got.shape) == tuple(ref.shape), f"{what}: shape {tuple(got.shape)}")
-        check(torch.isfinite(got).all().item(), f"{what}: non-finite output")
-        check(rec["max_abs_err"] <= tol_max * max(1.0, scale),
-              f"{what}: max abs err {rec['max_abs_err']}")
-        check(rec["mean_abs_err"] <= tol_mean * max(1.0, scale),
-              f"{what}: mean abs err {rec['mean_abs_err']}")
-        return rec["max_abs_err"]
+        return stage_error(got, ref, dname, f"{kernel} {st['name']} {dname}",
+                           1 if kernel == "residual_stack_cl" else -1, kernel=kernel,
+                           stage=st["name"], B=BATCH, in_shape=list(got.shape))["max_abs_err"]
 
     stage_err = {"residual_stack": 0.0, "residual_stack_cl": 0.0, "fused_stage": 0.0}
     for st in stages:
@@ -2961,22 +3516,6 @@ def main() -> int:
     idx_s, best_k = KR.quantize_with_scores(books, z2d)
     check(torch.equal(idx_s, idx_k), "K2: two launches on the same input disagree")
     csq = KR.codeword_sq_norms(books)
-
-    def score_err(idx, best):
-        r, errs, ulps, top = z2d, [], [], 0.0
-        for q in range(books.shape[0]):
-            i = idx[:, q].long()
-            c = books[q][i]
-            s64 = csq[q][i].double() - 2.0 * (r.double() * c.double()).sum(-1)
-            e = (best[:, q].double() - s64).abs()
-            errs.append(e)
-            ulps.append(e / f32_ulp(s64))
-            top = max(top, s64.abs().max().item())
-            r = r - c
-        e, u = torch.cat(errs), torch.cat(ulps)
-        return {"max": e.max().item(), "mean": e.mean().item(), "max_abs_score": top,
-                "max_ulps": u.max().item()}
-
     with float32_numerics():
         r, best_p = z2d, []
         for q in range(books.shape[0]):
@@ -2985,7 +3524,8 @@ def main() -> int:
             r = r - books[q][idx_p[:, q].long()]
             del sc
         best_p = torch.stack(best_p, dim=1)
-    k2_scores = {"kernel": score_err(idx_k, best_k), "plain": score_err(idx_p, best_p)}
+    k2_scores = {"kernel": k2_score_err(books, z2d, idx_k, best_k),
+                 "plain": k2_score_err(books, z2d, idx_p, best_p)}
     emit({"phase": "kernel_check", "kernel": "rvq_quantize", "plan": plan,
           "score_abs_err_vs_float64": k2_scores})
     check(k2_scores["kernel"]["max_ulps"] <= K2_SCORE_ULPS,
@@ -3160,14 +3700,12 @@ def main() -> int:
               for k in ("residual_stack", "residual_stack_cl", "fused_stage")}
     for st in stages:
         c, t = st["units_ct"]
-        unit_flops = 2 * BATCH * t * len(dil) * 4 * c * c
         x = (torch.randn(BATCH, c, t, device=dev, generator=gen) * 0.5).to(torch.bfloat16)
         # K1: bf16 products on the tensor cores' rate
         p = stage_params("serving", st)["stack"]
         ms = events_ms(lambda: RS.residual_stack(x, p, dil, fast))
         plain_ms = events_ms(lambda: RS.residual_stack_plain(x, p, dil, fast), reps=3)
-        b_ms = (2 * nbytes(x) + nbytes(*p.values())) / PEAK_BYTES * 1e3
-        o_ms = unit_flops / PEAK_BF16_FLOPS * 1e3
+        b_ms, o_ms, unit_flops = k1_bound(x, p, dil)
         emit({"phase": "timing", "kernel": "residual_stack", "stage": st["name"], "C": c, "T": t,
               "ms": ms, "plain_ms": plain_ms, "flops": unit_flops, "bound_ms": max(b_ms, o_ms),
               "bound_by": "bytes" if b_ms > o_ms else "operations"})
@@ -3179,8 +3717,7 @@ def main() -> int:
         p = stage_params("serving_channels_last", st)["stack_cl"]
         ms = events_ms(lambda: RS.residual_stack_cl(xt, p, dil, fast))
         plain_ms = events_ms(lambda: RS.residual_stack_cl_plain(xt, p, dil, fast), reps=3)
-        b_ms = (2 * nbytes(xt) + nbytes(*p.values())) / PEAK_BYTES * 1e3
-        o_ms = 3 * unit_flops / PEAK_BF16_FLOPS * 1e3
+        b_ms, o_ms, _ = k1_bound(x, p, dil, products=3)
         emit({"phase": "timing", "kernel": "residual_stack_cl", "stage": st["name"], "C": c,
               "T": t, "ms": ms, "plain_ms": plain_ms, "flops": unit_flops,
               "bound_ms": max(b_ms, o_ms), "bound_by": "bytes" if b_ms > o_ms else "operations"})
@@ -3218,21 +3755,16 @@ def main() -> int:
     m = z2d.shape[0]
     q_ms = events_ms(lambda: KR.quantize(books, z2d), reps=20)
     q_plain = events_ms(lambda: KR.quantize_plain(books, z2d))
-    q_bytes = (z2d.numel() + books.numel() + m * n_q) * 4
-    # the dot products as six bf16 MMAs each (the planes the kernel runs) at
-    # the bf16 tensor-core rate; beside it the float32-rate bound of one
-    # float32 product, as earlier slices gave it
+    # beside K2's bound the float32-rate bound of one float32 product, as
+    # earlier slices gave it
     q_flops = 2 * m * k * d * n_q
-    q_bytes_ms, q_ops_ms = q_bytes / PEAK_BYTES * 1e3, 6 * q_flops / PEAK_BF16_FLOPS * 1e3
+    q_bytes_ms, q_ops_ms = k2_bound(books, m)
     q_f32_ms = max(q_bytes_ms, q_flops / PEAK_F32_FLOPS * 1e3)
 
-    # K2's streamed plan, bound as the resident one: six bf16 MMAs per
-    # product at the bf16 rate, or the bytes of z, the books and the indices
+    # K2's streamed plan, bound as the resident one
     for w in wide:
         bk, zz = w["books"], w["z"]
-        w_flops = 2 * w["M"] * w["K"] * w["D"] * w["n_q"]
-        w_bytes_ms = (zz.numel() + bk.numel() + w["M"] * w["n_q"]) * 4 / PEAK_BYTES * 1e3
-        w_ops_ms = 6 * w_flops / PEAK_BF16_FLOPS * 1e3
+        w_bytes_ms, w_ops_ms = k2_bound(bk, w["M"])
         w.update(ms=events_ms(lambda: KR.quantize(bk, zz)),
                  plain_ms=events_ms(lambda: KR.quantize_plain(bk, zz)),
                  bound_ms=max(w_bytes_ms, w_ops_ms),
@@ -3261,10 +3793,7 @@ def main() -> int:
     flat = books.reshape(n_q * k, d)
     offs = idx_p.long() + torch.arange(n_q, device=dev)[None, :] * k
     dq_lib = events_ms(lambda: torch.nn.functional.embedding_bag(offs, flat, mode="sum"), reps=50)
-    used_rows = torch.unique(offs).numel()  # codewords this run's indices read
-    dq_bytes = (idx_p.numel() + used_rows * d + m * d) * 4
-    dq_flops = m * d * n_q
-    dq_bytes_ms, dq_ops_ms = dq_bytes / PEAK_BYTES * 1e3, dq_flops / PEAK_F32_FLOPS * 1e3
+    dq_bytes_ms, dq_ops_ms = k3_bound(books, idx_p)
     l2_src = torch.rand(L2_PROBE_FLOATS, device=dev, generator=gen)
     l2_view = l2_src.expand(L2_PROBE_REPEATS, L2_PROBE_FLOATS)
     l2_ms = events_ms(lambda: l2_view.sum(1), reps=20)
@@ -3357,13 +3886,23 @@ def main() -> int:
     del wav
     torch.cuda.empty_cache()
 
+    # every other registered configuration, and the trained small export
+    t_configs = time.perf_counter()
+    configs_launches, config_rows = configs_smoke(dev, wav_np, card, events_ms)
+    t_small = time.perf_counter()
+    small_launches = small_trained_smoke(dev, card, events_ms)
+    emit({"phase": "timing", "what": "configs_small_trained",
+          "configs_seconds": t_small - t_configs,
+          "small_trained_seconds": time.perf_counter() - t_small})
+
     by_path = {**serving_launches, "flagship": flagship_launches, "int8": int8_launches,
                "streaming": streaming_launches, "training": train_launches,
                "training_loop": loop_launches, "training_loop_serving": loop_serving,
                "refit": refit_launches, "finetune": finetune_launches,
                "finetune_serving": finetune_serving, "dp": dp_launches,
                "sweep": sweep_launches, "k4_any": k4_any_launches, "close": close_launches,
-               "close_training": close_training}
+               "close_training": close_training, **configs_launches,
+               "small_trained_sweep": small_launches}
 
     def stage_entry(kernel, source, replaces):
         acc = timing[kernel]
@@ -3401,6 +3940,11 @@ def main() -> int:
     ]}
     for entry in summary["kernels"]:
         entry["launches_by_path"] = {path: n[entry["name"]] for path, n in by_path.items()}
+        by_config = {name: {k: row["kernels"][entry["name"]][k] for k in ("ms", "bound_ms")}
+                     for name, row in config_rows.items()
+                     if entry["name"] in row.get("kernels", {})}
+        if by_config:
+            entry["configs"] = by_config
         entry["launches"] = sum(entry["launches_by_path"].values())
     emit({"phase": "total", "seconds": time.perf_counter() - t_start,
           "rtf": rtf, "flagship_rtf": serving_rtf, "float32_rtf_by_conv_backend": stacked_rtf,
