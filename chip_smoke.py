@@ -40,16 +40,19 @@ every plain version compared here run their float32 work under
               row-warp design (timed beside it) on the serving indices;
               stft_magnitude (the FFT route) at the training step's six
               launch shapes (B=64, T=16000), at the k4_any bank's six and
-              at K4_MIXED_SHAPES (speech windows, 8192), the DFT remainder
-              at K4_DFT_SHAPES, each with its launch counted and against
-              float64 magnitudes (FFT: 2 float32 ulps; remainder: 2^-23 of
-              the frame's peak, the plain float32 sums' reading beside it
-              as a control); the
+              at K4_MIXED_SHAPES (speech windows, 8192, 12000), the
+              chirp-z route at K4_BLUESTEIN_SHAPES (441, 2018, 2), both at
+              the k4_chirp bank's four, the DFT remainder at K4_DFT_SHAPES
+              (8191), each with its launch counted on its route's counter
+              and against float64 magnitudes (FFT and chirp-z: 2 float32
+              ulps; remainder: 2^-23 of the frame's peak, the plain
+              float32 sums' reading beside it as a control); the
               spectral losses through the kernel against the plain path
               (values; the mel gradient), and the multi-resolution
               gradient of the kernel, the float32 matmul-DFT path and the
               float32 rfft path against a float64 matmul-DFT gradient, on
-              five noise seeds, for the shipped bank and the k4_any bank
+              five noise seeds, for the shipped bank, the k4_any bank and
+              the k4_chirp bank
   4. main     serving: for each serving path, reconstruct with the launch
               counters reset just before and read just after (its stage
               kernel x8, K2 and its codebook split x1, K3 x1); a
@@ -114,8 +117,11 @@ every plain version compared here run their float32 work under
               k4_any: base_fast at full width with the loss STFTs at n_fft
               8192/2400/960/480/120 and the mel STFT at 400 (all on K4's
               FFT route), 2 steps, each beside the same step with the plain
-              STFT (losses within LOSS_RTOL), K4 x12, no DFT, K2 + split x1
-              per step; step time and peak memory.
+              STFT (losses within LOSS_RTOL), K4 x12, no chirp-z or DFT, K2
+              + split x1 per step; step time and peak memory.
+              k4_chirp: the same with the loss STFTs at 12000/2018/441 and
+              the mel STFT at 441: K4's FFT route x2 (12000, one-buffer
+              plan) and chirp-z route x6 a step.
               loop: the entry point (`loop.parse_args`, then `loop.run`
               with a metrics row per step) at full width on a WAV
               directory (synthetic2 rows and speech-probe rows, one at
@@ -194,7 +200,7 @@ every plain version compared here run their float32 work under
               version's, its bound and a PyTorch yardstick where one call
               computes the same function (K4 at every shape it checks, the
               kernel and `torch.stft` + `abs` in turns, and at the k4_any
-              bank's); K4's backward beside its forward
+              and k4_chirp banks'); K4's backward beside its forward
               and beside the plain recompute it replaced; K3 beside the
               row-warp design and beside its L2 gather floor (the bytes it gathers
               over the L2 read rate of one PyTorch reduction of an
@@ -277,23 +283,26 @@ LOSS_GRAD_TOL = {"mel": 1e-4}
 K4_GRAD_SEEDS = (2, 3, 4, 5, 6)
 K4_F64_RATIO = 1.25
 K4_F64_L2_TOL = 1.0315e-2
-# K4's two routes beyond the shipped bank, on the 64 x 1 s target. The FFT
-# route (n_fft even, its half 7-smooth, up to 11,622) at the 25 and 20 ms
-# windows of 16 kHz, 20 ms at 24, 44.1 and 48 kHz, and 8192; the DFT
-# remainder at an odd n_fft (441 = 3^2 7^2), a half with a prime factor
-# above 7 (2018 = 2 x 1009), one above the FFT's one-frame limit (12000)
-# and the smallest n_fft. Each against its plain version (K4_TOL) and
-# against float64 magnitudes (float64 rfft of the float64-windowed frames):
-# both routes compute in float64 and round once, so every FFT-route
-# magnitude within K4_F64_ULPS float32 ulps, and every remainder magnitude
-# within K4_DFT_F64_TOL of its frame's float64 peak: one rounding moves a
-# magnitude v by at most 2^-24 v, so a float64 sum reads at most 2^-24 of
-# the peak, and the limit is twice that. The control, printed beside each
-# reading: the plain version's float32 sums against the same float64
-# magnitudes (on the CPU they read 6.1e-7 at 441 and 5.1e-7 at 2018, so
-# the limit lies between a float64 and a float32 sum).
-K4_MIXED_SHAPES = ((400, 100), (320, 80), (480, 120), (882, 220), (960, 240), (8192, 2048))
-K4_DFT_SHAPES = ((441, 110), (2018, 504), (12000, 3000), (2, 1))
+# K4's three routes beyond the shipped bank, on the 64 x 1 s target. The
+# FFT route (n_fft even, its half 7-smooth, up to 29,056) at the 25 and 20
+# ms windows of 16 kHz, 20 ms at 24, 44.1 and 48 kHz, 8192 and 12000; the
+# chirp-z route at an odd n_fft (441 = 3^2 7^2), a half with a prime factor
+# above 7 (2018 = 2 x 1009) and the smallest n_fft; the DFT remainder at an
+# odd n_fft above the chirp-z plan's limit (8191). Each against its plain
+# version (K4_TOL) and against float64 magnitudes (float64 rfft of the
+# float64-windowed frames): all three compute in float64 and round once,
+# so every FFT and chirp-z magnitude within K4_F64_ULPS float32 ulps, and
+# every remainder magnitude within K4_DFT_F64_TOL of its frame's float64
+# peak: one rounding moves a magnitude v by at most 2^-24 v, so a float64
+# sum reads at most 2^-24 of the peak, and the limit is twice that. The
+# control, printed beside each reading: the plain version's float32 sums
+# against the same float64 magnitudes (on the CPU they read 6.1e-7 at 441
+# and 5.1e-7 at 2018, so the limit lies between a float64 and a float32
+# sum).
+K4_MIXED_SHAPES = ((400, 100), (320, 80), (480, 120), (882, 220), (960, 240), (8192, 2048),
+                   (12000, 3000))
+K4_BLUESTEIN_SHAPES = ((441, 110), (2018, 504), (2, 1))
+K4_DFT_SHAPES = ((8191, 2048),)
 K4_F64_ULPS = 2.0
 K4_DFT_F64_TOL = 2.0 ** -23
 # The k4_any phase: base_fast trained at full width (TrainConfig defaults
@@ -303,6 +312,16 @@ K4_DFT_F64_TOL = 2.0 ** -23
 # plain and float64 in the kernel checks.
 K4_ANY_BANK, K4_ANY_MEL, K4_ANY_STEPS = (8192, 2400, 960, 480, 120), 400, 2
 K4_ANY_SHAPES = tuple((n, n // 4) for n in K4_ANY_BANK + (K4_ANY_MEL,))
+# The k4_chirp phase: the same, with a bank whose every resolution takes a
+# route the two-buffer FFT plan could not: 12000 (the one-buffer FFT), 2018
+# and 441 (the chirp-z transform), and the mel STFT at 441; K4_ANY_STEPS
+# steps. Its launch shapes are also held against plain and float64, and
+# its multi-resolution gradient is gated on K4_GRAD_SEEDS.
+K4_CHIRP_BANK, K4_CHIRP_MEL = (12000, 2018, 441), 441
+K4_CHIRP_SHAPES = tuple((n, n // 4) for n in K4_CHIRP_BANK + (K4_CHIRP_MEL,))
+# the route each checked K4 shape must take
+K4_ROUTE = {**{n: "bluestein" for n, _ in K4_BLUESTEIN_SHAPES},
+            **{n: "dft" for n, _ in K4_DFT_SHAPES}, 2018: "bluestein", 441: "bluestein"}
 # K2's streamed plan (padded widths over 128): (n_q, K, D) at M frames
 K2_WIDE = ((8, 1024, 256), (4, 1024, 384))
 K2_WIDE_M = 32000
@@ -461,9 +480,11 @@ def kernel_label(symbol: str) -> str:
     stage kernels as name<dtype,activation[,tc]>."""
     m = re.search(r"(residual_stack_cl|residual_stack|fused_stage|rvq_quantize"
                   r"|rvq_dequantize_rowwarp|rvq_dequantize|rvq_split_planes|stft_magnitude_dft"
-                  r"|stft_magnitude)(_tc)?_kernel", symbol)
+                  r"|stft_magnitude_bluestein|stft_magnitude)(_tc)?_kernel", symbol)
     if m is None:
         return symbol
+    if m.group(1) == "stft_magnitude":
+        return "stft_magnitude<%s>" % ("pairs" if "Lb1E" in symbol else "one pass")
     if m.group(1) == "rvq_quantize":
         return "rvq_quantize<%s>" % ("streamed" if "Lb1E" in symbol else "resident")
     if m.group(1) == "rvq_dequantize":
@@ -664,11 +685,11 @@ def k1_bound(x, p, dil, products: int = 1):
 
 def train_smoke(dev, card, events_ms):
     """Phases 3-5 of the training path: stft_magnitude against its plain
-    version and float64 on both routes, the C3 gradient gate, the
+    version and float64 on its three routes, the C3 gradient gate, the
     full-width training steps with the launch counters, the entry point
     with a resume, and the timings. Returns the kernels-line entries of
-    stft_magnitude (the FFT route) and stft_magnitude_dft and the training
-    path's launch counts."""
+    stft_magnitude (the FFT route), stft_magnitude_bluestein and
+    stft_magnitude_dft and the training path's launch counts."""
     import tempfile
 
     import torch
@@ -700,38 +721,39 @@ def train_smoke(dev, card, events_ms):
 
     # 3. stft_magnitude against its plain version and float64 ------------
     # the launch shapes of a step (the FFT route), of the shipped bank (five
-    # resolutions and the mel STFT) and of the k4_any bank, each on the
-    # reconstruction and on the target; then the other FFT-route shapes and
-    # the remainder's, on the target; each call with the counters around it
+    # resolutions and the mel STFT), of the k4_any bank and of the k4_chirp
+    # bank, each on the reconstruction and on the target; then the other
+    # FFT-route shapes, the chirp-z route's and the remainder's, on the
+    # target; each call with the counters around it
     shapes = [(n, n // 4) for n in tcfg.stft_fft_sizes] + [(tcfg.mel_fft_size, tcfg.mel_fft_size // 4)]
-    in_steps = set(shapes) | set(K4_ANY_SHAPES)
-    checked = dict.fromkeys(shapes + list(K4_ANY_SHAPES) + list(K4_MIXED_SHAPES)
+    in_steps = set(shapes) | set(K4_ANY_SHAPES) | set(K4_CHIRP_SHAPES)
+    checked = dict.fromkeys(shapes + list(K4_ANY_SHAPES) + list(K4_CHIRP_SHAPES)
+                            + list(K4_MIXED_SHAPES) + list(K4_BLUESTEIN_SHAPES)
                             + list(K4_DFT_SHAPES))
-    k4_err = {"fft": 0.0, "dft": 0.0}
-    k4_f64 = {"fft": 0.0, "dft": 0.0}  # max ulps; max error over the frame's peak
+    k4_err = dict.fromkeys(KS.COUNTERS, 0.0)
+    k4_f64 = dict.fromkeys(KS.COUNTERS, 0.0)  # max ulps; max error over the frame's peak
     k4_control = {}  # the plain version's float32 sums, the same measure, per remainder shape
     with torch.no_grad():
         for n_fft, hop in checked:
             kind = KS.route(n_fft)
-            check(kind == ("dft" if (n_fft, hop) in K4_DFT_SHAPES else "fft"),
-                  f"K4 n_fft={n_fft}: route {kind}")
-            name = "stft_magnitude" if kind == "fft" else "stft_magnitude_dft"
+            check(kind == K4_ROUTE.get(n_fft, "fft"), f"K4 n_fft={n_fft}: route {kind}")
+            name = KS.COUNTERS[kind]
             for what, x in (("pred", pred), ("target", target)):
                 if (n_fft, hop) not in in_steps and what == "pred":
                     continue
                 kernels.reset_launches()
                 got = KS.stft_magnitude(x, n_fft, hop)
                 torch.cuda.synchronize()
-                launched = {k: kernels.LAUNCHES[k] for k in ("stft_magnitude", "stft_magnitude_dft")}
+                launched = {k: kernels.LAUNCHES[k] for k in KS.COUNTERS.values()}
                 with float32_numerics():
                     ref = KS.stft_magnitude_plain(x, n_fft, hop)
                 err = (got - ref).abs().max().item()
                 scale = ref.abs().max().item()
                 m64 = k4_float64(x, n_fft, hop)
-                unit = f32_ulp(m64) if kind == "fft" else m64.amax(-1, keepdim=True)
+                unit = f32_ulp(m64) if kind != "dft" else m64.amax(-1, keepdim=True)
                 f64 = ((got.double() - m64).abs() / unit).max().item()
                 control = ((ref.double() - m64).abs() / unit).max().item()
-                measure = "float64_max_ulps" if kind == "fft" else "float64_max_err_over_frame_peak"
+                measure = "float64_max_ulps" if kind != "dft" else "float64_max_err_over_frame_peak"
                 emit({"phase": "kernel_check", "kernel": name, "route": kind,
                       "input": what, "B": x.shape[0], "T": x.shape[1], "n_fft": n_fft, "hop": hop,
                       "shape": list(got.shape), "launches": launched, "max_abs_err": err,
@@ -739,13 +761,12 @@ def train_smoke(dev, card, events_ms):
                       "plain_float32_control": control})
                 if kind == "dft":
                     k4_control[f"{n_fft}/{hop}"] = control
-                check(launched == {"stft_magnitude": int(kind == "fft"),
-                                   "stft_magnitude_dft": int(kind == "dft")},
+                check(launched == {k: int(k == name) for k in KS.COUNTERS.values()},
                       f"K4 n_fft={n_fft}: launches {launched}")
                 check(tuple(got.shape) == tuple(ref.shape), f"K4 n_fft={n_fft}: shape")
                 check(torch.isfinite(got).all().item(), f"K4 n_fft={n_fft}: non-finite output")
                 check(err <= K4_TOL * scale, f"K4 n_fft={n_fft} {what}: max abs err {err}")
-                check(f64 <= (K4_F64_ULPS if kind == "fft" else K4_DFT_F64_TOL),
+                check(f64 <= (K4_F64_ULPS if kind != "dft" else K4_DFT_F64_TOL),
                       f"K4 n_fft={n_fft} {what}: {f64} from float64")
                 k4_err[kind] = max(k4_err[kind], err)
                 k4_f64[kind] = max(k4_f64[kind], f64)
@@ -753,10 +774,13 @@ def train_smoke(dev, card, events_ms):
 
     mrstft = SP.MultiResSTFTConfig(fft_sizes=tcfg.stft_fft_sizes)
     mrstft_any = SP.MultiResSTFTConfig(fft_sizes=K4_ANY_BANK)
+    mrstft_chirp = SP.MultiResSTFTConfig(fft_sizes=K4_CHIRP_BANK)
     losses = {
         "multi_res_stft": lambda p, st: SP.multi_res_stft_loss(p, target, mrstft, stft=st),
         "multi_res_stft_k4_any": lambda p, st: SP.multi_res_stft_loss(p, target, mrstft_any,
                                                                       stft=st),
+        "multi_res_stft_k4_chirp": lambda p, st: SP.multi_res_stft_loss(p, target, mrstft_chirp,
+                                                                        stft=st),
         "mel": lambda p, st: SP.mel_loss(
             p, target, sample_rate=cfg.sample_rate, n_fft=tcfg.mel_fft_size,
             hop=tcfg.mel_fft_size // 4, n_mels=tcfg.mel_bins, stft=st),
@@ -770,12 +794,14 @@ def train_smoke(dev, card, events_ms):
         (grad,) = torch.autograd.grad(value, p)
         return value.item(), grad
 
-    # the mel loss on seed 2; the multi-resolution loss, on the shipped bank
-    # and on the k4_any bank, on every seed of K4_GRAD_SEEDS, each gradient
-    # against the float64 one (max-abs figures printed, the relative L2
-    # distances gated)
+    # the mel loss on seed 2; the multi-resolution loss, on the shipped bank,
+    # the k4_any bank and the k4_chirp bank, on every seed of K4_GRAD_SEEDS,
+    # each gradient against the float64 one (max-abs figures printed, the
+    # relative L2 distances gated)
+    t_grad = time.perf_counter()
     for name, seeds in (("mel", (2,)), ("multi_res_stft", K4_GRAD_SEEDS),
-                        ("multi_res_stft_k4_any", K4_GRAD_SEEDS)):
+                        ("multi_res_stft_k4_any", K4_GRAD_SEEDS),
+                        ("multi_res_stft_k4_chirp", K4_GRAD_SEEDS)):
         fn = losses[name]
         for seed in seeds:
             p = pred if seed == 2 else noisy(seed)
@@ -814,6 +840,7 @@ def train_smoke(dev, card, events_ms):
             del out, gk, gp, gr
             if p is not pred:
                 del p
+    emit({"phase": "timing", "what": "k4_gradient_gates", "seconds": time.perf_counter() - t_grad})
 
     # 4. training: the main path ------------------------------------------
     # PyTorch's default (TF32 convolutions allowed), as a user's process has
@@ -876,7 +903,7 @@ def train_smoke(dev, card, events_ms):
     expect = dict.fromkeys(kernels.LAUNCHES, 0)
     expect.update({"rvq_quantize": init_k2 + n_steps, "rvq_split_planes": init_k2 + n_steps,
                    "stft_magnitude": 12 * n_steps})
-    # (stft_magnitude_dft stays 0: every training n_fft takes the FFT)
+    # (stft_magnitude_bluestein and _dft stay 0: every training n_fft takes the FFT)
     check(data_init_launches["rvq_quantize"] == data_init_launches["rvq_split_planes"] == init_k2,
           f"data-init launches {data_init_launches}")
     check(launches == expect, f"training launch counts {launches}, expected {expect}")
@@ -970,19 +997,19 @@ def train_smoke(dev, card, events_ms):
                 k4[key] += 2 * v
         emit({"phase": "timing", "kernel": "stft_magnitude",
               "per": "train step (12 forward launches, 6 backwards)", **k4, "card": card})
-        # the other FFT-route shapes and the remainder's, one launch each
+        # the other FFT-route shapes, the chirp-z route's and the
+        # remainder's, one launch each
         rows = {}
-        for n_fft, hop in K4_MIXED_SHAPES + K4_DFT_SHAPES:
+        for n_fft, hop in K4_MIXED_SHAPES + K4_BLUESTEIN_SHAPES + K4_DFT_SHAPES:
             rows[n_fft, hop] = row = k4_timing(pred, target, n_fft, hop, events_ms)
-            emit({"phase": "timing", "kernel": "stft_magnitude" if row["route"] == "fft"
-                  else "stft_magnitude_dft", **row, "card": card})
+            emit({"phase": "timing", "kernel": KS.COUNTERS[row["route"]], **row, "card": card})
         at_400 = rows[400, 100]
         emit({"phase": "timing", "kernel": "stft_magnitude", "n_fft": 400, "hop": 100,
               "ms": at_400["ms"], "library_ms": at_400["library_ms"],
               "kernel_over_library": at_400["ms"] / at_400["library_ms"],
               "no_slower_than_library": at_400["ms"] <= at_400["library_ms"], "card": card})
     keys = ("n_fft", "hop", "ms", "plain_ms", "library_ms", "bound_ms")
-    dft = rows[K4_DFT_SHAPES[0]]
+    dft, blu = rows[K4_DFT_SHAPES[0]], rows[K4_BLUESTEIN_SHAPES[0]]
     summaries = [
         {"name": "stft_magnitude", "route": "cuda", "source": "nsc_tpu_torch/csrc/stft.cu",
          "replaces": "nsc_tpu/ops/pallas/stft.py:80",
@@ -993,10 +1020,18 @@ def train_smoke(dev, card, events_ms):
          "bound_by": "bytes" if k4["bytes_ms"] > k4["ops_ms"] else "operations",
          "library_ms": k4["library_ms"],
          "shapes": [{k: r[k] for k in keys} for r in rows.values() if r["route"] == "fft"]},
+        {"name": "stft_magnitude_bluestein", "route": "cuda",
+         "source": "nsc_tpu_torch/csrc/stft.cu", "replaces": "nsc_tpu/ops/pallas/stft.py:80",
+         "domain": "every other n_fft >= 2 whose chirp-z length M (the smallest 7-smooth "
+                   f">= 2L - 1) is at most {KS.BLUESTEIN_MAX_M}",
+         "per": f"one launch at n_fft {blu['n_fft']}, hop {blu['hop']}",
+         "max_abs_err": k4_err["bluestein"], "float64_max_ulps": k4_f64["bluestein"],
+         **{k: blu[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+         "shapes": [{k: r[k] for k in keys} for r in rows.values() if r["route"] == "bluestein"]},
         {"name": "stft_magnitude_dft", "route": "cuda", "source": "nsc_tpu_torch/csrc/stft.cu",
          "replaces": "nsc_tpu/ops/pallas/stft.py:80",
-         "domain": "every other n_fft >= 2 (odd, a half with a prime factor above 7, "
-                   f"or above {KS.FFT_MAX})",
+         "domain": "every n_fft the other two do not take (odd or a non-smooth half beyond "
+                   f"the chirp-z limit, a smooth even n_fft above {KS.FFT_MAX})",
          "per": f"one launch at n_fft {dft['n_fft']}, hop {dft['hop']}",
          "max_abs_err": k4_err["dft"], "float64_max_err_over_frame_peak": k4_f64["dft"],
          "float64_limit": K4_DFT_F64_TOL, "plain_float32_control": k4_control,
@@ -1006,15 +1041,16 @@ def train_smoke(dev, card, events_ms):
     return summaries, launches, step_s * 1e3
 
 
-def k4_any_smoke(dev, card, events_ms) -> dict:
-    """The k4_any phase: base_fast trained at full width (batch 64 x 1 s, GAN
-    on, seed 0) with the loss STFTs at K4_ANY_BANK (hop n/4) and the mel
-    STFT at K4_ANY_MEL, every one on K4's FFT route, for K4_ANY_STEPS steps.
-    Before each step, the same step with `stft=stft_magnitude_plain` from a
-    copy of the state: the step's loss values within LOSS_RTOL of it. The
-    counters around each step (K4 x12, no DFT, K2 + split x1), its time by
-    CUDA events and the steps' peak memory; then each of the bank's launch
-    shapes timed (`k4_timing`). Returns the steps' launch counts."""
+def k4_bank_smoke(dev, card, events_ms, phase, bank, mel) -> dict:
+    """The k4_any and k4_chirp phases: base_fast trained at full width
+    (batch 64 x 1 s, GAN on, seed 0) with the loss STFTs at `bank` (hop
+    n/4) and the mel STFT at `mel` for K4_ANY_STEPS steps. Before each
+    step, the same step with `stft=stft_magnitude_plain` from a copy of the
+    state: the step's loss values within LOSS_RTOL of it. The counters
+    around each step (K4 x2 per STFT, each on its route's counter; K2 +
+    split x1), its time by CUDA events and the steps' peak memory; then
+    each of the bank's launch shapes timed (`k4_timing`). Returns the
+    steps' launch counts."""
     import copy
 
     import torch
@@ -1027,8 +1063,10 @@ def k4_any_smoke(dev, card, events_ms) -> dict:
     from nsc_tpu_torch.train import train as T
 
     cfg = get_config(FLAGSHIP)
-    tcfg = TrainConfig(stft_fft_sizes=K4_ANY_BANK, mel_fft_size=K4_ANY_MEL)
-    check(all(KS.route(n) == "fft" for n, _ in K4_ANY_SHAPES), f"k4_any: routes of {K4_ANY_SHAPES}")
+    tcfg = TrainConfig(stft_fft_sizes=bank, mel_fft_size=mel)
+    launch_shapes = tuple((n, n // 4) for n in bank + (mel,))
+    routes = {n: KS.route(n) for n, _ in launch_shapes}
+    check(all(routes[n] == K4_ROUTE.get(n, "fft") for n in routes), f"{phase}: routes {routes}")
     seg = L.segment_length(cfg, tcfg.segment_seconds)
     source = data_lib.make_source("synthetic", cfg.sample_rate, tcfg.seed)
     batches = [torch.from_numpy(next(source.batches(tcfg.batch_size, seg))).to(dev)
@@ -1037,7 +1075,9 @@ def k4_any_smoke(dev, card, events_ms) -> dict:
     step_fn = T.make_train_step(model, tcfg)
     total = dict.fromkeys(kernels.LAUNCHES, 0)
     expect = dict.fromkeys(kernels.LAUNCHES, 0)
-    expect.update({"rvq_quantize": 1, "rvq_split_planes": 1, "stft_magnitude": 12})
+    expect.update({"rvq_quantize": 1, "rvq_split_planes": 1})
+    for n, _ in launch_shapes:  # the reconstruction and the target
+        expect[KS.COUNTERS[routes[n]]] += 2
     step_ms, peak = [], 0
     loss_keys = ("loss/stft", "loss/mel", "loss/g_total")
     for i, batch in enumerate(batches):
@@ -1045,8 +1085,8 @@ def k4_any_smoke(dev, card, events_ms) -> dict:
         with plain_stft():
             _, m_plain = step_fn(copy.deepcopy(state), batch)
         torch.cuda.synchronize()
-        check(kernels.LAUNCHES["stft_magnitude"] == kernels.LAUNCHES["stft_magnitude_dft"] == 0,
-              f"k4_any: the plain step launched K4 {kernels.LAUNCHES}")
+        check(all(kernels.LAUNCHES[k] == 0 for k in KS.COUNTERS.values()),
+              f"{phase}: the plain step launched K4 {kernels.LAUNCHES}")
         plain = {k: float(v) for k, v in m_plain.items()}
         del m_plain
         # (the plain step's blocks stay in the allocator's cache: emptied,
@@ -1063,13 +1103,13 @@ def k4_any_smoke(dev, card, events_ms) -> dict:
         step_ms.append(start.elapsed_time(end))
         values = {k: float(v) for k, v in metrics.items()}
         rel = {k: abs(values[k] - plain[k]) / abs(plain[k]) for k in loss_keys}
-        emit({"phase": "main", "what": "k4_any", "step": i + 1, "bank": list(K4_ANY_BANK),
-              "mel_fft_size": K4_ANY_MEL, "launches": launches, "step_ms": step_ms[-1],
+        emit({"phase": "main", "what": phase, "step": i + 1, "bank": list(bank),
+              "mel_fft_size": mel, "launches": launches, "step_ms": step_ms[-1],
               "loss_rel_err_vs_plain_stft": rel, **values})
-        check(all(map(math.isfinite, values.values())), f"k4_any step {i + 1}: non-finite metric")
-        check(launches == expect, f"k4_any step {i + 1}: launches {launches}, expected {expect}")
+        check(all(map(math.isfinite, values.values())), f"{phase} step {i + 1}: non-finite metric")
+        check(launches == expect, f"{phase} step {i + 1}: launches {launches}, expected {expect}")
         check(max(rel.values()) <= LOSS_RTOL,
-              f"k4_any step {i + 1}: losses {rel} from the plain STFT's")
+              f"{phase} step {i + 1}: losses {rel} from the plain STFT's")
         for k, n in launches.items():
             total[k] += n
     del state, metrics, batches
@@ -1081,14 +1121,14 @@ def k4_any_smoke(dev, card, events_ms) -> dict:
     pred = target + 0.05 * torch.randn(target.shape, device=dev, generator=g)
     k4_ms, bound_ms = 0.0, 0.0
     with torch.no_grad():
-        for n_fft, hop in K4_ANY_SHAPES:
+        for n_fft, hop in launch_shapes:
             row = k4_timing(pred, target, n_fft, hop, events_ms)
-            emit({"phase": "timing", "kernel": "stft_magnitude", "bank": "k4_any", **row,
+            emit({"phase": "timing", "kernel": KS.COUNTERS[row["route"]], "bank": phase, **row,
                   "card": card})
             k4_ms += row["ms"] + row["ms_spectrum"]
             bound_ms += 2 * row["bound_ms"]
-    emit({"phase": "timing", "what": "k4_any_step", "config": cfg.name, "batch": tcfg.batch_size,
-          "bank": list(K4_ANY_BANK), "mel_fft_size": K4_ANY_MEL, "step_event_ms": step_ms,
+    emit({"phase": "timing", "what": f"{phase}_step", "config": cfg.name, "batch": tcfg.batch_size,
+          "bank": list(bank), "mel_fft_size": mel, "step_event_ms": step_ms,
           "peak_memory_gb": peak / 1e9, "k4_ms_per_step": k4_ms, "k4_bound_ms_per_step": bound_ms,
           "card": card})
     return total
@@ -3386,7 +3426,7 @@ def main() -> int:
     emit({"phase": "build", "seconds": round(_build.build_seconds, 3), "ptxas": ptxas,
           "spills": spills, "hmma": hmma})
     for label, (stores, loads) in spills.items():
-        if label.startswith(STAGE_KERNELS):
+        if label.startswith(STAGE_KERNELS + ("stft_magnitude",)):
             check(stores == 0 and loads == 0, f"ptxas: {label} spills registers")
     for label, n in hmma.items():
         if "<f32" in label:
@@ -3853,8 +3893,12 @@ def main() -> int:
     with torch.enable_grad():
         k4_summaries, train_launches, step_ms = train_smoke(dev, card, events_ms)
         t_k4_any = time.perf_counter()
-        k4_any_launches = k4_any_smoke(dev, card, events_ms)
-    emit({"phase": "timing", "what": "k4_any", "seconds": time.perf_counter() - t_k4_any})
+        k4_any_launches = k4_bank_smoke(dev, card, events_ms, "k4_any", K4_ANY_BANK, K4_ANY_MEL)
+        t_k4_chirp = time.perf_counter()
+        k4_chirp_launches = k4_bank_smoke(dev, card, events_ms, "k4_chirp", K4_CHIRP_BANK,
+                                          K4_CHIRP_MEL)
+    emit({"phase": "timing", "what": "k4_any", "seconds": t_k4_chirp - t_k4_any})
+    emit({"phase": "timing", "what": "k4_chirp", "seconds": time.perf_counter() - t_k4_chirp})
     t_dp = time.perf_counter()
     with torch.enable_grad():
         dp_launches = dp_smoke(dev, card, step_ms)
@@ -3900,7 +3944,8 @@ def main() -> int:
                "training_loop": loop_launches, "training_loop_serving": loop_serving,
                "refit": refit_launches, "finetune": finetune_launches,
                "finetune_serving": finetune_serving, "dp": dp_launches,
-               "sweep": sweep_launches, "k4_any": k4_any_launches, "close": close_launches,
+               "sweep": sweep_launches, "k4_any": k4_any_launches,
+               "k4_chirp": k4_chirp_launches, "close": close_launches,
                "close_training": close_training, **configs_launches,
                "small_trained_sweep": small_launches}
 

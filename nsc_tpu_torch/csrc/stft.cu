@@ -7,53 +7,96 @@
 //   out[b, f, k] = sqrt(re*re + im*im + 1e-8)
 // with the periodic Hann window. The point of the TPU kernel is that the
 // frame tensor, n_fft/hop times the signal, never reaches device memory;
-// both kernels here keep that property, and both read the reflect-padded
-// index in the kernel (no padded copy). The wrapper (kernels/stft.py::route)
-// picks one by n_fft alone.
+// the three kernels here keep that property, and each reads the frame's
+// samples from the unpadded signal through the reflect index (no padded
+// copy, nothing staged). The wrapper (kernels/stft.py::route) picks one by
+// n_fft alone.
 //
-// Both compute in float64 and round each output once to float32: each
+// All three compute in float64 and round each output once to float32: each
 // magnitude is that of the true float64 spectrum of the float32 input,
 // correctly rounded. The spectral losses' gradients need that: the
 // log-magnitude term is an L1 whose gradient changes sign where
 // reconstruction and target magnitudes nearly tie, so any rounding of
 // ~1e-7 of a frame's peak flips the sign at some low bins, and a float32
 // forward is as far from the float64 gradient as the draw of those flips
-// makes it. Both read the float64 window and the float64 table tw[j] =
-// exp(-2 pi i j / n_fft), the values the DFT basis is cast from.
+// makes it. They read the float64 window and float64 tables tw[j] =
+// exp(-2 pi i j / t) of the length t each names.
+//
+// The transforms: an N-point complex transform as a pass list (4 bits a
+// radix from the lowest; radices 4, 2, 3, 5 and 7 whose product is N; the
+// host writes it, the launchers check only the product). Each pass is done
+// in place in ONE shared buffer of N complex float64 points a frame: a
+// butterfly of radix R at (p, k) reads its R points at base + m p into
+// registers, twiddles them by W_(R p)^(m k) from the table, takes their
+// R-point DFT (4 and 2 in closed form, odd R in pairs (t, R - t) with the
+// constants W_R^j from the table) and writes them back to the same R
+// positions, so the butterflies of a pass touch disjoint points and one
+// barrier a pass is all they need. That is the decimation-in-time order:
+// the input is loaded digit-reversed and the output comes out in natural
+// order, through the very butterflies and twiddles of a two-buffer
+// Stockham plan (the same float64 arithmetic, in half its shared memory).
+// Its transpose, the same passes last to first with the
+// twiddles after the butterfly (decimation in frequency), takes natural
+// order to digit-reversed. Two refinements, both measured on an H100: a
+// point's slot is its position XOR-swizzled within its aligned group of 8
+// (`slot`), which takes the bank conflicts out of the digit-reversed load
+// and the first passes' strided butterflies; and where a block's frames
+// hold enough points, two consecutive passes run in one round trip through
+// shared memory (`pass_pair`: the same arithmetic, half the traffic and
+// barriers).
 //
 // stft_magnitude_kernel, the real FFT, for the n_fft the wrapper gives it
 // a pass list for (kernels/stft.py::fft_passes, the one statement of the
-// route's domain): even n_fft whose half has no prime factor above 7,
-// from 16 up to the n_fft whose one-frame plan fills a block's shared
-// memory (20 n_fft bytes). What bounds it on the H100: ~2.5 n log2 n
-// float64 FLOP per frame and 4 bytes per output bin, near each other at
-// the card's float64 and memory rates. Design: one block owns one (row,
-// tile of FT frames); it stages the raw segment its frames cover once,
-// windows each frame in float64 and packs it into an n/2-point complex
-// sequence (even samples real, odd imaginary). Stockham passes of radix 4,
-// 2, 3, 5 and 7 (the pass list, a kernel argument, 4 bits a radix; the
-// launcher checks only that its radices multiply to n/2) run on all FT
-// frames at once, ping-ponging between two shared buffers, so there is no
-// digit reversal; the twiddles and the odd radices' butterfly constants
-// W_R^j = tw[j n / R] come from the float64 table. For a power of two the
-// pass list is the radix-4 passes with a radix-2 pass last where
-// log2(n/2) is odd. The post-twiddle X[k] = Ze[k] + W^k Zo[k]
-// splits the complex spectrum into the real one; the magnitudes (and, for
-// the backward, re and im) are written coalesced by bin.
+// route's domain): even n_fft whose half has no prime factor above 7, from
+// 16 up to the n_fft whose one-frame plan fills a block's shared memory
+// (8 n_fft bytes: 29,056). One block owns one (row, tile of FT frames, FT n
+// <= 4096, so the short windows of the loss bank share a block); it windows
+// each frame in float64 straight from the L2-resident signal and packs it
+// into an n/2-point complex sequence (even samples real, odd imaginary),
+// each point stored where the host's load order puts it (`order`, the
+// digit reversal of the pass list: one coalesced int read a point, cheaper
+// than the reversal's divisions), runs the DIT passes on all FT frames at
+// once, and the post-twiddle X[k] = Ze[k] + W^k Zo[k] splits the complex
+// spectrum into the real one; the magnitudes (and, for the backward, re and
+// im) are written coalesced by bin. What bounds it on the H100: ~2.5 n
+// log2 n float64 FLOP per frame and 4 bytes per output bin, near each other
+// at the card's float64 and memory rates; in practice the shared-memory
+// traffic of the passes, 16 bytes a point each way.
 //
-// stft_magnitude_dft_kernel, the remainder: every other n_fft >= 2 (odd,
-// a half with a prime factor above 7, or above the FFT's one-frame limit).
-// The O(n^2) DFT, summed in float64 against the float64 table read at
-// (n k) mod n_fft. One block owns one (row, tile of 32 frames, tile of 64
-// bins) and walks n in chunks of 32: per chunk it stages the windowed
-// samples of its frames (float64) and the basis of its bins, so a block's
-// shared memory (40 KB) does not grow with n_fft or hop, and no shape is
-// refused. The 256 threads are 32 bin lanes (threadIdx.x: bins x and x + 32,
-// conflict-free 16-byte basis reads) by 8 frame groups (threadIdx.y: 4
-// frames each, shared by the warp, so the sample reads are broadcasts);
-// each thread keeps 4 frames x 2 bins x (re, im) float64 sums, and a warp
-// whose frames all lie past F skips the sums. A fallback for unusual sizes:
-// its operations grow as n_fft^2 per frame.
+// stft_magnitude_bluestein_kernel, the chirp-z transform, for every other
+// n_fft >= 2 whose plan fits a block (kernels/stft.py::bluestein_plan).
+// With L = n (odd n: two real frames as one complex sequence, a + i a',
+// whose spectra the end splits apart, X = (Z[k] + conj Z[n-k]) / 2 and X' =
+// (Z[k] - conj Z[n-k]) / (2i), so a transform serves two frames) or L =
+// n/2 (even n: the packed sequence of the real FFT) and the chirp c_j =
+// exp(-pi i j^2 / L) = tw2L[j^2 mod 2L] (the index reduced in integers,
+// never through a float j^2; 32-bit suffices, j < L < 65536): Z[k] = c_k
+// sum_j (z_j c_j) conj(c_(k-j)), a cyclic convolution of length M, the
+// smallest 7-smooth number >= 2L - 1, so that both M-point transforms run
+// on the passes above. Per frame: the chirped frame, zero-padded to M, in
+// natural order; the DIF passes (digit-reversed out); times the host's
+// float64 transform of the conjugate chirp (stored in that digit-reversed
+// order with the 1/M of the inverse folded in, read from L2), conjugated;
+// the DIT passes (natural order out: the conjugate of the convolution);
+// times c_k after conjugating back; for an even n the real FFT's
+// post-twiddle, whose W^k is tw2L[k] (2L = n). 16 M bytes a transform, so M up
+// to 14,528: odd n to 7,203, even n to 14,404. Its operations are those of
+// two M-point transforms, ~4-9x the real FFT's at the same n (half that a frame
+// for an odd n).
+//
+// stft_magnitude_dft_kernel, the remainder: every n_fft the other two do
+// not take (odd n or a non-smooth half beyond the chirp-z plan's limit,
+// and a smooth even n above 29,056). The O(n^2) DFT, summed in float64
+// against the float64 table read at (n k) mod n_fft. One block owns one
+// (row, tile of 32 frames, tile of 64 bins) and walks n in chunks of 32:
+// per chunk it stages the windowed samples of its frames (float64) and the
+// basis of its bins, so a block's shared memory (40 KB) does not grow with
+// n_fft or hop, and no shape is refused. The 256 threads are 32 bin lanes
+// (threadIdx.x: bins x and x + 32, conflict-free 16-byte basis reads) by 8
+// frame groups (threadIdx.y: 4 frames each, shared by the warp, so the
+// sample reads are broadcasts); each thread keeps 4 frames x 2 bins x (re,
+// im) float64 sums, and a warp whose frames all lie past F skips the sums.
+// Its operations grow as n_fft^2 per frame.
 
 #include <cuda_runtime.h>
 
@@ -79,167 +122,255 @@ __device__ __forceinline__ double2 cmul(double2 a, double2 w) {
   return make_double2(a.x * w.x - a.y * w.y, a.x * w.y + a.y * w.x);
 }
 
+__device__ __forceinline__ double2 conjugate(double2 a) { return make_double2(a.x, -a.y); }
+
 // ---------------------------------------------------------------------------
-// The real FFT, in float64.
-
-constexpr int kFramePoints = 4096;   // real samples of the frames a block holds
-constexpr int kSmemTarget = 81920;   // fewer frames per block while above
-
-// Frames per block and shared-memory bytes: two buffers of n/2 complex
-// float64 points per frame and the raw float32 segment (exported as
-// nsc_stft_fft_plan). At one frame a block holds 20 * n bytes.
-__host__ __device__ inline int fft_smem(int n, int hop, int ft) {
-  return 16 * ft * n + 4 * ((ft - 1) * hop + n);
-}
-// the largest power of two with ft * n <= kFramePoints (at least 1),
-// halved while the block's bytes are above kSmemTarget
-inline int fft_frames(int n, int hop) {
-  int ft = 1;
-  while (2 * ft * n <= kFramePoints) ft *= 2;
-  while (ft > 1 && fft_smem(n, hop, ft) > kSmemTarget) ft /= 2;
-  return ft;
-}
+// The passes, in float64.
 
 // The number of passes of a pass list (4 bits a radix from the lowest, 0
-// ends it), or 0 unless it is a transform of n/2 points: radices 2, 3, 4,
-// 5 and 7 whose product is n/2. Each prefix's product p then times the
-// next radix R divides n/2, so Stockham's twiddle stride n / (R p) is an
-// integer.
-inline int fft_passes(int n, unsigned long long radices) {
+// ends it) if it is a transform of n points: radices 2, 3, 4, 5 and 7 whose
+// product is n (the empty list for n = 1); else -1. Each prefix's product p
+// then times the next radix R divides n, so the twiddle stride t / (R p) of
+// a table of t = a multiple of n entries is an integer.
+inline int transform_passes(long long n, unsigned long long radices) {
   long long prod = 1;
   int passes = 0;
   for (; radices != 0; radices >>= 4, ++passes) {
     const int r = static_cast<int>(radices & 15);
-    if (r != 2 && r != 3 && r != 4 && r != 5 && r != 7) return 0;
+    if (r != 2 && r != 3 && r != 4 && r != 5 && r != 7) return -1;
     prod *= r;
   }
-  return passes > 0 && n % 2 == 0 && prod == n / 2 ? passes : 0;
+  return prod == n ? passes : -1;
 }
 
-// One Stockham pass of radix R over nfr frames of n2 complex points each,
-// src -> dst: butterfly i of a frame reads u_m = src[i + m n2/R], twiddles
-// u_m by W^(m k n/(R p)) (k = i mod p, W = exp(-2 pi i / n), tw[j] = W^j),
-// takes their R-point DFT y_t and writes dst[(i - k) R + k + t p].
+__device__ __forceinline__ int pass_count(unsigned long long radices) {
+  int s = 0;
+  for (; radices != 0; radices >>= 4) ++s;
+  return s;
+}
+
+// The slot of point pos in its frame's buffer of n points: for n a
+// multiple of 8, pos with its low 3 bits XORed by bits 3-5, 6-8 and 9-11 (a
+// permutation within each aligned group of 8, so the slot stays below n).
+// A 16-byte point's bank group is its slot mod 8: the swizzle spreads the
+// digit-reversed load's stores (points n/4 apart) and the first passes'
+// strided butterflies over the banks, and leaves 8 consecutive points of an
+// aligned group on 8 banks. The identity for other n.
+__device__ __forceinline__ int slot(int pos, int n) {
+  return (n & 7) != 0 ? pos : pos ^ (((pos >> 3) ^ (pos >> 6) ^ (pos >> 9)) & 7);
+}
+
+// y = the R-point DFT of u, W_R^j = tw[j tn / R] (tn: the table's length)
 template <int R>
-__device__ __forceinline__ void fft_pass(const double2* __restrict__ src,
-                                         double2* __restrict__ dst,
-                                         const double2* __restrict__ tw, int nfr, int n2, int n,
-                                         int p) {
-  const int q = n2 / R;
-  const int step = n / (R * p);
+__device__ __forceinline__ void butterfly(const double2 (&u)[R], double2 (&y)[R],
+                                          const double2* __restrict__ tw, int tn) {
+  if constexpr (R == 4) {
+    const double2 a0 = make_double2(u[0].x + u[2].x, u[0].y + u[2].y);
+    const double2 a1 = make_double2(u[0].x - u[2].x, u[0].y - u[2].y);
+    const double2 a2 = make_double2(u[1].x + u[3].x, u[1].y + u[3].y);
+    const double2 a3 = make_double2(u[1].x - u[3].x, u[1].y - u[3].y);
+    y[0] = make_double2(a0.x + a2.x, a0.y + a2.y);
+    y[1] = make_double2(a1.x + a3.y, a1.y - a3.x);   // a1 - i a3
+    y[2] = make_double2(a0.x - a2.x, a0.y - a2.y);
+    y[3] = make_double2(a1.x - a3.y, a1.y + a3.x);   // a1 + i a3
+  } else if constexpr (R == 2) {
+    y[0] = make_double2(u[0].x + u[1].x, u[0].y + u[1].y);
+    y[1] = make_double2(u[0].x - u[1].x, u[0].y - u[1].y);
+  } else {
+    // odd R, in pairs (t, R - t): with a_m = u_m + u_(R-m), b_m = u_m -
+    // u_(R-m) and W_R^(m t) = (c, s) = tw[(m t mod R) tn / R],
+    // y_t = u_0 + sum_m (a_m c + i s b_m), y_(R-t) = u_0 + sum_m (a_m c - i s b_m)
+    constexpr int H = (R - 1) / 2;
+    const int stride = tn / R;
+    double2 a[H], b[H];
+    double2 y0 = u[0];
+#pragma unroll
+    for (int m = 1; m <= H; ++m) {
+      a[m - 1] = make_double2(u[m].x + u[R - m].x, u[m].y + u[R - m].y);
+      b[m - 1] = make_double2(u[m].x - u[R - m].x, u[m].y - u[R - m].y);
+      y0 = make_double2(y0.x + a[m - 1].x, y0.y + a[m - 1].y);
+    }
+    y[0] = y0;
+#pragma unroll
+    for (int t = 1; t <= H; ++t) {
+      double2 re = u[0], im = make_double2(0.0, 0.0);
+#pragma unroll
+      for (int m = 1; m <= H; ++m) {
+        const double2 w = __ldg(tw + ((m * t) % R) * stride);
+        re = make_double2(re.x + a[m - 1].x * w.x, re.y + a[m - 1].y * w.x);
+        im = make_double2(im.x + b[m - 1].x * w.y, im.y + b[m - 1].y * w.y);
+      }
+      y[t] = make_double2(re.x - im.y, re.y + im.x);        // re + i im
+      y[R - t] = make_double2(re.x + im.y, re.y - im.x);    // re - i im
+    }
+  }
+}
+
+// One pass of radix R over nfr frames of n points each (frame stride n),
+// in place: butterfly i of a frame (k = i mod p) owns the points (i - k) R
+// + k + m p, m < R. DIT (kDif false) twiddles the inputs by W^(m k tn/(R
+// p)) (tw[j] = W^j = exp(-2 pi i j / tn)) before the R-point DFT; DIF, its
+// transpose, twiddles the outputs after it.
+template <int R, bool kDif>
+__device__ __forceinline__ void pass(double2* __restrict__ buf, const double2* __restrict__ tw,
+                                     int nfr, int n, int tn, int p) {
+  const int q = n / R;
+  const int step = tn / (R * p);
   for (int g = threadIdx.x; g < nfr * q; g += kThreads) {
     const int f = g / q, i = g - f * q, k = i % p;
-    const double2* s = src + f * n2;
-    double2* d = dst + f * n2 + (i - k) * R + k;
-    double2 u[R];
+    double2* d = buf + f * n;
+    const int base = (i - k) * R + k;
+    double2 u[R], y[R];
 #pragma unroll
-    for (int m = 0; m < R; ++m) u[m] = s[i + m * q];
-    if (p > 1) {
+    for (int m = 0; m < R; ++m) u[m] = d[slot(base + m * p, n)];
+    if (!kDif && p > 1) {
 #pragma unroll
       for (int m = 1; m < R; ++m) u[m] = cmul(u[m], __ldg(tw + m * k * step));
     }
-    if constexpr (R == 4) {
-      const double2 a0 = make_double2(u[0].x + u[2].x, u[0].y + u[2].y);
-      const double2 a1 = make_double2(u[0].x - u[2].x, u[0].y - u[2].y);
-      const double2 a2 = make_double2(u[1].x + u[3].x, u[1].y + u[3].y);
-      const double2 a3 = make_double2(u[1].x - u[3].x, u[1].y - u[3].y);
-      d[0] = make_double2(a0.x + a2.x, a0.y + a2.y);
-      d[p] = make_double2(a1.x + a3.y, a1.y - a3.x);       // a1 - i a3
-      d[2 * p] = make_double2(a0.x - a2.x, a0.y - a2.y);
-      d[3 * p] = make_double2(a1.x - a3.y, a1.y + a3.x);   // a1 + i a3
-    } else if constexpr (R == 2) {
-      d[0] = make_double2(u[0].x + u[1].x, u[0].y + u[1].y);
-      d[p] = make_double2(u[0].x - u[1].x, u[0].y - u[1].y);
-    } else {
-      // odd R, in pairs (t, R - t): with a_m = u_m + u_(R-m), b_m = u_m -
-      // u_(R-m) and W_R^(m t) = (c, s) = tw[(m t mod R) n / R],
-      // y_t = u_0 + sum_m (a_m c + i s b_m), y_(R-t) = u_0 + sum_m (a_m c - i s b_m)
-      constexpr int H = (R - 1) / 2;
-      const int stride = n / R;
-      double2 a[H], b[H];
-      double2 y0 = u[0];
+    butterfly<R>(u, y, tw, tn);
+    if (kDif && p > 1) {
 #pragma unroll
-      for (int m = 1; m <= H; ++m) {
-        a[m - 1] = make_double2(u[m].x + u[R - m].x, u[m].y + u[R - m].y);
-        b[m - 1] = make_double2(u[m].x - u[R - m].x, u[m].y - u[R - m].y);
-        y0 = make_double2(y0.x + a[m - 1].x, y0.y + a[m - 1].y);
-      }
-      d[0] = y0;
-#pragma unroll
-      for (int t = 1; t <= H; ++t) {
-        double2 re = u[0], im = make_double2(0.0, 0.0);
-#pragma unroll
-        for (int m = 1; m <= H; ++m) {
-          const double2 w = __ldg(tw + ((m * t) % R) * stride);
-          re = make_double2(re.x + a[m - 1].x * w.x, re.y + a[m - 1].y * w.x);
-          im = make_double2(im.x + b[m - 1].x * w.y, im.y + b[m - 1].y * w.y);
-        }
-        d[t * p] = make_double2(re.x - im.y, re.y + im.x);        // re + i im
-        d[(R - t) * p] = make_double2(re.x + im.y, re.y - im.x);  // re - i im
-      }
+      for (int t = 1; t < R; ++t) y[t] = cmul(y[t], __ldg(tw + t * k * step));
     }
+#pragma unroll
+    for (int t = 0; t < R; ++t) d[slot(base + t * p, n)] = y[t];
   }
 }
 
-// x (B, T) float32 unpadded; win (n) and tw (n complex) float64; out (B,
-// F, n/2 + 1) float32, re and im likewise or null; radices: the pass list.
-__global__ void __launch_bounds__(kThreads) stft_magnitude_kernel(
-    const float* __restrict__ x, const double* __restrict__ win,
-    const double2* __restrict__ tw, float* __restrict__ out, float* __restrict__ re_out,
-    float* __restrict__ im_out, int T, int n, int hop, int F, int ft,
-    unsigned long long radices) {
-  extern __shared__ __align__(16) double2 smd[];
-  const int n2 = n / 2, K = n2 + 1;
-  double2* buf0 = smd;              // [ft][n2]
-  double2* buf1 = buf0 + ft * n2;   // [ft][n2]
-  float* seg = reinterpret_cast<float*>(buf1 + ft * n2);  // [(ft-1)*hop + n]
-
-  const int b = blockIdx.y;
-  const int f0 = blockIdx.x * ft;
-  const int tid = threadIdx.x;
-  const float* row = x + static_cast<size_t>(b) * T;
-
-  // the raw segment of padded positions f0*hop .. f0*hop + seg_len
-  const int seg_len = (ft - 1) * hop + n;
-  const long long start = static_cast<long long>(f0) * hop;
-  for (int i = tid; i < seg_len; i += kThreads) seg[i] = reflected(row, start + i, T, n2);
-  __syncthreads();
-
-  // window and pack: z[m] = (x[2m] w[2m], x[2m+1] w[2m+1])
-  for (int g = tid; g < ft * n2; g += kThreads) {
-    const int f = g / n2, m = g - f * n2;
-    const float* fr = seg + f * hop + 2 * m;
-    buf0[g] = make_double2(static_cast<double>(fr[0]) * __ldg(win + 2 * m),
-                           static_cast<double>(fr[1]) * __ldg(win + 2 * m + 1));
+// Two DIT passes in one round trip through shared memory: radix RA at p,
+// then radix RB at RA p. The RA RB points at (i - k) RA RB + k + a p + b RA
+// p (k = i mod p; a < RA, b < RB) are closed under both passes, so a thread
+// takes them into registers once, runs the RB butterflies of radix RA and
+// the RA of radix RB there (the very butterflies and twiddles of the two
+// passes, in the same order per point) and writes them back: half the
+// shared traffic and barriers of two passes.
+template <int RA, int RB>
+__device__ __forceinline__ void pass_pair(double2* __restrict__ buf,
+                                          const double2* __restrict__ tw, int nfr, int n, int tn,
+                                          int p) {
+  constexpr int RR = RA * RB;
+  const int q = n / RR;
+  const int step_a = tn / (RA * p), step_b = tn / (RR * p);
+  for (int g = threadIdx.x; g < nfr * q; g += kThreads) {
+    const int f = g / q, i = g - f * q, k = i % p;
+    double2* d = buf + f * n;
+    const int base = (i - k) * RR + k;
+    double2 u[RR];
+#pragma unroll
+    for (int m = 0; m < RR; ++m) u[m] = d[slot(base + m * p, n)];  // u[a + RA b] at a p + b RA p
+    // the radix-RA butterflies at p, one per b
+#pragma unroll
+    for (int b = 0; b < RB; ++b) {
+      double2 v[RA], y[RA];
+#pragma unroll
+      for (int a = 0; a < RA; ++a) v[a] = u[a + RA * b];
+      if (p > 1) {
+#pragma unroll
+        for (int a = 1; a < RA; ++a) v[a] = cmul(v[a], __ldg(tw + a * k * step_a));
+      }
+      butterfly<RA>(v, y, tw, tn);
+#pragma unroll
+      for (int a = 0; a < RA; ++a) u[a + RA * b] = y[a];
+    }
+    // the radix-RB butterflies at RA p, one per t (k' = k + t p)
+#pragma unroll
+    for (int t = 0; t < RA; ++t) {
+      const int kk = k + t * p;
+      double2 v[RB], y[RB];
+#pragma unroll
+      for (int b = 0; b < RB; ++b) v[b] = u[t + RA * b];
+#pragma unroll
+      for (int b = 1; b < RB; ++b) v[b] = cmul(v[b], __ldg(tw + b * kk * step_b));
+      butterfly<RB>(v, y, tw, tn);
+#pragma unroll
+      for (int b = 0; b < RB; ++b) u[t + RA * b] = y[b];
+    }
+#pragma unroll
+    for (int m = 0; m < RR; ++m) d[slot(base + m * p, n)] = u[m];
   }
-  __syncthreads();
+}
 
-  double2* src = buf0;
-  double2* dst = buf1;
+template <bool kDif>
+__device__ __forceinline__ void run_pass(int r, double2* buf, const double2* tw, int nfr, int n,
+                                         int tn, int p) {
+  switch (r) {
+    case 4: pass<4, kDif>(buf, tw, nfr, n, tn, p); break;
+    case 2: pass<2, kDif>(buf, tw, nfr, n, tn, p); break;
+    case 3: pass<3, kDif>(buf, tw, nfr, n, tn, p); break;
+    case 5: pass<5, kDif>(buf, tw, nfr, n, tn, p); break;
+    default: pass<7, kDif>(buf, tw, nfr, n, tn, p); break;
+  }
+}
+
+// Two consecutive DIT passes (radix ra at p, rb at ra p) as one pass_pair
+// where the pair has one (the pairs of the pass lists' order 4, 2, 3, 5, 7
+// whose RA RB points fit in registers: at most 16): true if it ran them.
+__device__ __forceinline__ bool run_pair(int ra, int rb, double2* buf, const double2* tw, int nfr,
+                                         int n, int tn, int p) {
+  switch (ra * 16 + rb) {
+    case 4 * 16 + 4: pass_pair<4, 4>(buf, tw, nfr, n, tn, p); return true;
+    case 4 * 16 + 2: pass_pair<4, 2>(buf, tw, nfr, n, tn, p); return true;
+    case 4 * 16 + 3: pass_pair<4, 3>(buf, tw, nfr, n, tn, p); return true;
+    case 2 * 16 + 3: pass_pair<2, 3>(buf, tw, nfr, n, tn, p); return true;
+    case 2 * 16 + 5: pass_pair<2, 5>(buf, tw, nfr, n, tn, p); return true;
+    case 2 * 16 + 7: pass_pair<2, 7>(buf, tw, nfr, n, tn, p); return true;
+    case 3 * 16 + 3: pass_pair<3, 3>(buf, tw, nfr, n, tn, p); return true;
+    case 3 * 16 + 5: pass_pair<3, 5>(buf, tw, nfr, n, tn, p); return true;
+    default: return false;
+  }
+}
+
+// The DIT passes, first to last (with kPairs, two at a time where run_pair
+// takes them): digit-reversed in, natural order out.
+template <bool kPairs>
+__device__ __forceinline__ void dit_passes(double2* buf, const double2* tw, int nfr, int n,
+                                           int tn, unsigned long long radices) {
   int p = 1;
-  for (; radices != 0; radices >>= 4) {
-    const int r = static_cast<int>(radices & 15);
-    switch (r) {
-      case 4: fft_pass<4>(src, dst, tw, ft, n2, n, p); break;
-      case 2: fft_pass<2>(src, dst, tw, ft, n2, n, p); break;
-      case 3: fft_pass<3>(src, dst, tw, ft, n2, n, p); break;
-      case 5: fft_pass<5>(src, dst, tw, ft, n2, n, p); break;
-      default: fft_pass<7>(src, dst, tw, ft, n2, n, p); break;
+  while (radices != 0) {
+    const int ra = static_cast<int>(radices & 15), rb = static_cast<int>((radices >> 4) & 15);
+    if (kPairs && rb != 0 && run_pair(ra, rb, buf, tw, nfr, n, tn, p)) {
+      radices >>= 8;
+      p *= ra * rb;
+    } else {
+      run_pass<false>(ra, buf, tw, nfr, n, tn, p);
+      radices >>= 4;
+      p *= ra;
     }
     __syncthreads();
-    double2* t = src;
-    src = dst;
-    dst = t;
-    p *= r;
   }
+}
 
-  // X[k] = Ze[k] + W^k Zo[k]: Ze = (Z[k] + conj Z[n2-k]) / 2,
-  // Zo = (Z[k] - conj Z[n2-k]) / (2i); then the magnitude, rounded once
-  for (int g = tid; g < ft * K; g += kThreads) {
-    const int f = g / K, k = g - f * K;
+// The DIF passes, last to first: natural order in, digit-reversed out.
+__device__ __forceinline__ void dif_passes(double2* buf, const double2* tw, int nfr, int n,
+                                           int tn, unsigned long long radices, int passes) {
+  int p = n;
+  for (int j = passes - 1; j >= 0; --j) {
+    const int r = static_cast<int>((radices >> (4 * j)) & 15);
+    p /= r;
+    run_pass<true>(r, buf, tw, nfr, n, tn, p);
+    __syncthreads();
+  }
+}
+
+// The real spectrum of ft frames from the n2-point transforms Z of their
+// packed sequences (natural order in frames of `stride` slots): X[k] = Ze[k] +
+// W^k Zo[k], Ze = (Z[k] + conj Z[n2-k]) / 2, Zo = (Z[k] - conj Z[n2-k]) /
+// (2i), W^k = tw[k] of a table of 2 n2 entries; the magnitude, and re, im
+// where asked, each rounded once.
+__device__ __forceinline__ void write_real_spectrum(const double2* z, int stride, int n2,
+                                                    const double2* __restrict__ tw,
+                                                    float* __restrict__ out,
+                                                    float* __restrict__ re_out,
+                                                    float* __restrict__ im_out, int b, int f0,
+                                                    int ft, int F) {
+  const int K = n2 + 1;
+  for (int g = threadIdx.x; g < ft * K; g += kThreads) {
+    // bins k < n2 frame by frame (8 lanes on 8 consecutive points), then k = n2
+    const int f = g < ft * n2 ? g / n2 : g - ft * n2;
+    const int k = g < ft * n2 ? g - f * n2 : n2;
     if (f0 + f >= F) continue;
-    const double2 a = src[f * n2 + (k == n2 ? 0 : k)];
-    const double2 c = src[f * n2 + (k == 0 ? 0 : n2 - k)];  // conj: (c.x, -c.y)
+    const double2 a = z[f * stride + slot(k == n2 ? 0 : k, stride)];
+    const double2 c = z[f * stride + slot(k == 0 ? 0 : n2 - k, stride)];  // conj: (c.x, -c.y)
     const double er = 0.5 * (a.x + c.x), ei = 0.5 * (a.y - c.y);
     const double orr = 0.5 * (a.y + c.y), oi = -0.5 * (a.x - c.x);
     const double2 t = cmul(make_double2(orr, oi), __ldg(tw + k));
@@ -249,6 +380,156 @@ __global__ void __launch_bounds__(kThreads) stft_magnitude_kernel(
     if (re_out != nullptr) {
       re_out[o] = static_cast<float>(xr);
       im_out[o] = static_cast<float>(xi);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The real FFT.
+
+constexpr int kFramePoints = 4096;   // real samples of the frames a block holds
+// A block whose frames hold at least kPairPoints complex points, each at
+// least kPairFramePoints, runs the passes two at a time (pass_pair: ft n/2 /
+// 16 >= 128 butterfly pairs, half the threads busy); elsewhere the one-pass
+// kernel, whose lower register count (68 against 104) keeps more blocks on
+// an SM, is the faster (NVIDIA H100, 64 x 1 s: at n_fft 128, 400 and 2400
+// it is, at 256 to 12000 the pairs are).
+constexpr int kPairPoints = 2048;
+constexpr int kPairFramePoints = 128;
+
+// Shared-memory bytes of a block of ft frames: one buffer of n/2 complex
+// float64 points a frame, 8 n bytes (exported with the frames as
+// nsc_stft_fft_plan).
+__host__ __device__ inline int fft_smem(int n, int ft) { return 8 * ft * n; }
+// the largest power of two with ft * n <= kFramePoints (at least 1)
+inline int fft_frames(int n) {
+  int ft = 1;
+  while (2 * ft * n <= kFramePoints) ft *= 2;
+  return ft;
+}
+
+// x (B, T) float32 unpadded; win (n) and tw (n complex) float64; out (B,
+// F, n/2 + 1) float32, re and im likewise or null; radices: the pass list.
+template <bool kPairs>
+__global__ void __launch_bounds__(kThreads) stft_magnitude_kernel(
+    const float* __restrict__ x, const double* __restrict__ win,
+    const double2* __restrict__ tw, const int* __restrict__ order, float* __restrict__ out,
+    float* __restrict__ re_out, float* __restrict__ im_out, int T, int n, int hop, int F, int ft,
+    unsigned long long radices) {
+  extern __shared__ __align__(16) double2 smd[];  // [ft][n2]
+  const int n2 = n / 2;
+  const int b = blockIdx.y;
+  const int f0 = blockIdx.x * ft;
+  const float* row = x + static_cast<size_t>(b) * T;
+
+  // window and pack, digit-reversed: z[m] = (x[2m] w[2m], x[2m+1] w[2m+1])
+  for (int g = threadIdx.x; g < ft * n2; g += kThreads) {
+    const int f = g / n2, m = g - f * n2;
+    const long long P = static_cast<long long>(f0 + f) * hop + 2 * m;
+    smd[f * n2 + slot(__ldg(order + m), n2)] =
+        make_double2(static_cast<double>(reflected(row, P, T, n2)) * __ldg(win + 2 * m),
+                     static_cast<double>(reflected(row, P + 1, T, n2)) * __ldg(win + 2 * m + 1));
+  }
+  __syncthreads();
+  dit_passes<kPairs>(smd, tw, ft, n2, n, radices);
+  write_real_spectrum(smd, n2, n2, tw, out, re_out, im_out, b, f0, ft, F);
+}
+
+// ---------------------------------------------------------------------------
+// The chirp-z (Bluestein) transform.
+
+constexpr int kBluesteinPoints = 4096;  // complex points of the transforms a block holds
+
+// Shared-memory bytes of a block of ft transforms: one buffer of M complex
+// float64 points each, 16 M bytes (exported with the transforms as
+// nsc_stft_bluestein_plan).
+inline int bluestein_smem(int m, int ft) { return 16 * ft * m; }
+// the largest power of two with ft * M <= kBluesteinPoints (at least 1)
+inline int bluestein_frames(int m) {
+  int ft = 1;
+  while (2 * ft * m <= kBluesteinPoints) ft *= 2;
+  return ft;
+}
+
+// x (B, T) float32 unpadded; win (n) float64; chirp (2L complex) float64,
+// tw2L[j] = exp(-2 pi i j / 2L); twm (M complex) the M-point table; fb (M
+// complex) the transform of the conjugate chirp over M, in the DIF output
+// order, times 1/M; out (B, F, n/2 + 1) float32, re and im likewise or
+// null; radices: the pass list of M.
+__global__ void __launch_bounds__(kThreads) stft_magnitude_bluestein_kernel(
+    const float* __restrict__ x, const double* __restrict__ win,
+    const double2* __restrict__ chirp, const double2* __restrict__ twm,
+    const double2* __restrict__ fb, float* __restrict__ out, float* __restrict__ re_out,
+    float* __restrict__ im_out, int T, int n, int hop, int F, int ft, int M,
+    unsigned long long radices) {
+  extern __shared__ __align__(16) double2 smd[];  // [ft][M]
+  const bool odd = (n & 1) != 0;
+  const int L = odd ? n : n / 2;
+  const unsigned two_l = 2 * static_cast<unsigned>(L);  // j^2 < 2^32: L < 65536
+  const int pad = n / 2;
+  const int b = blockIdx.y;
+  const int fpt = odd ? 2 : 1;  // frames a transform carries
+  const int f0 = blockIdx.x * ft * fpt;
+  const float* row = x + static_cast<size_t>(b) * T;
+  const int passes = pass_count(radices);
+
+  // the chirped sequence z_j c_j, zero from L to M, natural order: for an
+  // even n the packed frame, for an odd n two frames, z_j = a_j + i a'_j
+  for (int g = threadIdx.x; g < ft * M; g += kThreads) {
+    const int t = g / M, j = g - t * M;
+    double2 v = make_double2(0.0, 0.0);
+    if (j < L) {
+      const long long P = static_cast<long long>(f0 + fpt * t) * hop + (odd ? j : 2 * j);
+      const int w = odd ? j : 2 * j;
+      const long long Q = odd ? P + hop : P + 1;  // the other frame's sample, or the odd one
+      const double2 z =
+          make_double2(static_cast<double>(reflected(row, P, T, pad)) * __ldg(win + w),
+                       static_cast<double>(reflected(row, Q, T, pad)) * __ldg(win + w + 1 - odd));
+      const unsigned jj = static_cast<unsigned>(j);
+      v = cmul(z, __ldg(chirp + (jj * jj) % two_l));
+    }
+    smd[t * M + slot(j, M)] = v;
+  }
+  __syncthreads();
+  dif_passes(smd, twm, ft, M, M, radices, passes);
+  // times the conjugate chirp's transform (both digit-reversed), conjugated:
+  // the DIT passes then give the conjugate of the convolution, times M
+  for (int g = threadIdx.x; g < ft * M; g += kThreads) {
+    const int t = g / M, pos = g - t * M;
+    double2* v = smd + t * M + slot(pos, M);
+    *v = conjugate(cmul(*v, __ldg(fb + pos)));
+  }
+  __syncthreads();
+  dit_passes<false>(smd, twm, ft, M, M, radices);
+  // Z[k] = c_k conj(G[k]), k < L, in place
+  for (int g = threadIdx.x; g < ft * L; g += kThreads) {
+    const int t = g / L, k = g - t * L;
+    const unsigned kk = static_cast<unsigned>(k);
+    double2* v = smd + t * M + slot(k, M);
+    *v = cmul(conjugate(*v), __ldg(chirp + (kk * kk) % two_l));
+  }
+  __syncthreads();
+  if (!odd) {
+    // the real FFT's post-twiddle (W^k = tw2L[k]: 2L = n)
+    write_real_spectrum(smd, M, L, chirp, out, re_out, im_out, b, f0, ft, F);
+    return;
+  }
+  // two real frames from Z = X + i X': X[k] = (Z[k] + conj Z[n-k]) / 2,
+  // X'[k] = (Z[k] - conj Z[n-k]) / (2i), for the n/2 + 1 bins
+  const int K = n / 2 + 1;
+  for (int g = threadIdx.x; g < 2 * ft * K; g += kThreads) {
+    const int h = g / K, k = g - h * K, t = h >> 1, second = h & 1;
+    const int f = f0 + h;
+    if (f >= F) continue;
+    const double2 a = smd[t * M + slot(k, M)];
+    const double2 c = smd[t * M + slot(k == 0 ? 0 : n - k, M)];  // conj: (c.x, -c.y)
+    const double2 v = second ? make_double2(0.5 * (a.y + c.y), -0.5 * (a.x - c.x))
+                             : make_double2(0.5 * (a.x + c.x), 0.5 * (a.y - c.y));
+    const size_t o = (static_cast<size_t>(b) * F + f) * K + k;
+    out[o] = static_cast<float>(sqrt(v.x * v.x + v.y * v.y + kEps));
+    if (re_out != nullptr) {
+      re_out[o] = static_cast<float>(v.x);
+      im_out[o] = static_cast<float>(v.y);
     }
   }
 }
@@ -355,36 +636,86 @@ __global__ void __launch_bounds__(kThreads) stft_magnitude_dft_kernel(
 // (cudaErrorInvalidValue for a pass list that is not a transform of n/2
 // points; an error of the attribute where the plan is over a block's
 // shared memory).
-extern "C" int nsc_stft_magnitude_fft(const void* x, const void* win, const void* tw, void* out,
-                                      void* re, void* im, int B, int T, int n_fft, int hop, int F,
-                                      unsigned long long radices, void* stream) {
-  if (B < 1 || B > 65535 || F < 1 || hop < 1 || T <= n_fft / 2 || fft_passes(n_fft, radices) == 0)
+extern "C" int nsc_stft_magnitude_fft(const void* x, const void* win, const void* tw,
+                                      const void* order, void* out, void* re, void* im, int B,
+                                      int T, int n_fft, int hop, int F, unsigned long long radices,
+                                      void* stream) {
+  if (B < 1 || B > 65535 || F < 1 || hop < 1 || T <= n_fft / 2 || n_fft < 2 || n_fft % 2 != 0 ||
+      transform_passes(n_fft / 2, radices) < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int ft = fft_frames(n_fft, hop);
-  const int smem = fft_smem(n_fft, hop, ft);
-  cudaError_t err = cudaFuncSetAttribute(stft_magnitude_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const int ft = fft_frames(n_fft);
+  const int smem = fft_smem(n_fft, ft);
+  const bool pairs = n_fft / 2 >= kPairFramePoints && ft * (n_fft / 2) >= kPairPoints;
+  const auto kernel = pairs ? stft_magnitude_kernel<true> : stft_magnitude_kernel<false>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) {
     cudaGetLastError();  // not left for the next launch's check
     return static_cast<int>(err);
   }
   const dim3 grid((F + ft - 1) / ft, B);
-  stft_magnitude_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<const double*>(win),
-      static_cast<const double2*>(tw), static_cast<float*>(out), static_cast<float*>(re),
-      static_cast<float*>(im), T, n_fft, hop, F, ft, radices);
+      static_cast<const double2*>(tw), static_cast<const int*>(order), static_cast<float*>(out),
+      static_cast<float*>(re), static_cast<float*>(im), T, n_fft, hop, F, ft, radices);
   return static_cast<int>(cudaGetLastError());
 }
 
 // The FFT kernel's plan at (n_fft, hop): plan[0] frames per block, plan[1]
-// shared-memory bytes (2 long longs). Returns 0, or cudaErrorInvalidValue
-// (plan 0) for an odd n_fft or one below 2.
+// shared-memory bytes (2 long longs; hop does not enter). Returns 0, or
+// cudaErrorInvalidValue (plan 0) for an odd n_fft or one below 2.
 extern "C" int nsc_stft_fft_plan(int n_fft, int hop, void* plan) {
   long long* o = static_cast<long long*>(plan);
   o[0] = o[1] = 0;
   if (n_fft < 2 || n_fft % 2 != 0 || hop < 1) return static_cast<int>(cudaErrorInvalidValue);
-  o[0] = fft_frames(n_fft, hop);
-  o[1] = fft_smem(n_fft, hop, static_cast<int>(o[0]));
+  o[0] = fft_frames(n_fft);
+  o[1] = fft_smem(n_fft, static_cast<int>(o[0]));
+  return 0;
+}
+
+// The chirp-z route. x, win, out, re, im, B, T, n_fft, hop, F as
+// nsc_stft_magnitude_fft's; chirp (2L, 2), twm (M, 2) and fb (M, 2)
+// float64 (kernels/stft.py::bluestein_tables), M the transform's length and
+// radices its pass list (kernels/stft.py::bluestein_plan). Returns the
+// launch's cudaError_t (cudaErrorInvalidValue for an M below 2L - 1 or a
+// pass list that is not a transform of M points; an error of the attribute
+// where the plan is over a block's shared memory).
+extern "C" int nsc_stft_magnitude_bluestein(const void* x, const void* win, const void* chirp,
+                                            const void* twm, const void* fb, void* out, void* re,
+                                            void* im, int B, int T, int n_fft, int hop, int F,
+                                            int M, unsigned long long radices, void* stream) {
+  const int L = n_fft % 2 != 0 ? n_fft : n_fft / 2;
+  if (B < 1 || B > 65535 || F < 1 || hop < 1 || n_fft < 2 || T <= n_fft / 2 || L >= 65536 ||
+      M < 2 * L - 1 || transform_passes(M, radices) < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int ft = bluestein_frames(M);
+  const int smem = bluestein_smem(M, ft);
+  const int frames = n_fft % 2 != 0 ? 2 * ft : ft;  // an odd n's transform carries two
+  cudaError_t err = cudaFuncSetAttribute(stft_magnitude_bluestein_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return static_cast<int>(err);
+  }
+  const dim3 grid((F + frames - 1) / frames, B);
+  stft_magnitude_bluestein_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<const double*>(win),
+      static_cast<const double2*>(chirp), static_cast<const double2*>(twm),
+      static_cast<const double2*>(fb), static_cast<float*>(out), static_cast<float*>(re),
+      static_cast<float*>(im), T, n_fft, hop, F, ft, M, radices);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The chirp-z kernel's plan at M: plan[0] transforms per block (each one
+// frame of an even n_fft, two of an odd one), plan[1] shared-memory bytes
+// (2 long longs). Returns 0, or cudaErrorInvalidValue (plan 0) for an M
+// below 1.
+extern "C" int nsc_stft_bluestein_plan(int M, void* plan) {
+  long long* o = static_cast<long long*>(plan);
+  o[0] = o[1] = 0;
+  if (M < 1) return static_cast<int>(cudaErrorInvalidValue);
+  o[0] = bluestein_frames(M);
+  o[1] = bluestein_smem(M, static_cast<int>(o[0]));
   return 0;
 }
 

@@ -49,13 +49,18 @@ SIGNATURES = {
     # which only chip_smoke.py times)
     "nsc_rvq_dequantize": [_P] * 3 + [_I] * 4 + [_P],
     "nsc_rvq_dequantize_rowwarp": [_P] * 3 + [_I] * 4 + [_P],
-    # x, win, tw, out, re, im (or null), B, T, n_fft, hop, F, the pass list
-    # (4 bits a radix), stream
-    "nsc_stft_magnitude_fft": [_P] * 6 + [_I] * 5 + [_U64, _P],
-    # the same but the pass list
+    # x, win, tw, order (the load's int32 positions), out, re, im (or null),
+    # B, T, n_fft, hop, F, the pass list (4 bits a radix), stream
+    "nsc_stft_magnitude_fft": [_P] * 7 + [_I] * 5 + [_U64, _P],
+    # x, win, tw, out, re, im (or null), B, T, n_fft, hop, F, stream
     "nsc_stft_magnitude_dft": [_P] * 6 + [_I] * 5 + [_P],
     # n_fft, hop, plan (2 long long: frames per block, bytes)
     "nsc_stft_fft_plan": [_I] * 2 + [_P],
+    # x, win, chirp, twm, fb, out, re, im (or null), B, T, n_fft, hop, F, M,
+    # the pass list of M, stream
+    "nsc_stft_magnitude_bluestein": [_P] * 8 + [_I] * 6 + [_U64, _P],
+    # M, plan (2 long long: frames per block, bytes)
+    "nsc_stft_bluestein_plan": [_I] + [_P],
     # x, out, w1, b1, a1, w2, b2, a2, w1p, w2p (bf16 planes or null),
     # dilations, B, C, T, U, is_bf16, fast, stream; x and out (B, T, C),
     # float32 weights

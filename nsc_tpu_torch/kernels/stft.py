@@ -11,30 +11,43 @@ T, as `frame_signal` cuts them). The plain version is the matmul-DFT path of
 `ops.stft.stft_magnitude`, which frames the signal in memory; the kernels
 compute the same magnitudes without the frame tensor.
 
-Two kernels, chosen by n_fft alone (`route`), never by a failed launch.
-Both compute in float64 (the float64 window and the float64 table
-`twiddles`) and round each output once to float32: the spectral losses'
-log-magnitude L1 turns any float32 rounding of the magnitudes into sign
-flips of its gradient at near-tie bins; the correctly rounded magnitudes
-make the gradient the float64 one up to float32 rounding of the loss and
-backward.
+Three kernels, chosen by n_fft alone (`route`), never by a failed launch.
+All compute in float64 (the float64 window and float64 tables `twiddles`)
+and round each output once to float32: the spectral losses' log-magnitude
+L1 turns any float32 rounding of the magnitudes into sign flips of its
+gradient at near-tie bins; the correctly rounded magnitudes make the
+gradient the float64 one up to float32 rounding of the loss and backward.
+The two transforms run the same passes (radix 4, 2, 3, 5 and 7, each in
+place in one shared buffer of complex float64 points: `csrc/stft.cu`).
 
   * "fft" (`stft_magnitude`, counted as "stft_magnitude"): even n_fft from
     FFT_MIN to FFT_MAX whose half has no prime factor above 7 (every
-    power of two there, and the usual speech windows: 320, 400, 480, 882,
-    960, 1200, ...). A real FFT in shared memory: each windowed frame is
-    packed into an n_fft/2-point complex sequence (even samples real, odd
-    imaginary), transformed by Stockham passes of radix 4, 2, 3, 5 and 7,
-    then split into the real spectrum by the post-twiddle. The pass list
-    is written here (`fft_passes`, the one source of the route's domain)
-    and passed to the kernel, which checks only that it is a transform of
-    n_fft/2 points. FFT_MAX is the largest n_fft whose one-frame plan
-    (20 n_fft bytes: `nsc_stft_fft_plan`) fits a block's shared memory.
-  * "dft" (counted as "stft_magnitude_dft"): the remainder, every other
-    n_fft >= 2. The O(n_fft^2) DFT against the twiddle table read at
-    (n k) mod n_fft, staged in chunks of n in static shared memory, so a
-    block's bytes are the same for every n_fft and hop and no shape is
-    refused.
+    power of two there, the usual speech windows 320, 400, 480, 882, 960,
+    1200, ..., and long ones such as 12000). A real FFT in shared memory:
+    each windowed frame is packed into an n_fft/2-point complex sequence
+    (even samples real, odd imaginary) and loaded in its passes' order
+    (`fft_order`), transformed, then split into the real spectrum by the
+    post-twiddle. The pass list is written here (`fft_passes`, the one
+    statement of the route's domain) and passed to the kernel, which checks
+    only that it is a transform of n_fft/2 points. FFT_MAX is the largest
+    n_fft whose one-frame plan (one buffer of n_fft/2 complex float64
+    points, 8 n_fft bytes: `nsc_stft_fft_plan`) fits a block's shared
+    memory.
+  * "bluestein" (counted as "stft_magnitude_bluestein"): every other
+    n_fft >= 2 whose chirp-z plan fits a block (`bluestein_plan`): two
+    frames as one complex sequence (odd n_fft, L = n_fft) or the packed
+    half of one (even, L = n_fft/2) as a cyclic convolution with a chirp
+    of length M, the smallest 7-smooth number >= 2L - 1, through two
+    M-point transforms on the same passes. 16 M bytes a transform, so M up
+    to BLUESTEIN_MAX_M: odd n_fft up to 7,203, even ones up to 14,404. Its
+    float64 tables (`bluestein_tables`) are made here with numpy, once per
+    (n_fft, device).
+  * "dft" (counted as "stft_magnitude_dft"): the remainder, every n_fft
+    the other two do not take (odd or a half with a prime factor above 7
+    beyond the chirp-z limit, a smooth even n_fft above FFT_MAX). The
+    O(n_fft^2) DFT against the twiddle table read at (n k) mod n_fft,
+    staged in chunks of n in static shared memory, so a block's bytes are
+    the same for every n_fft and hop and no shape is refused.
 
 `stft_magnitude` is differentiable. On a CUDA tensor its forward launches a
 kernel, which also writes the spectrum (re, im) when x takes a gradient,
@@ -58,11 +71,15 @@ from nsc_tpu_torch.ops import stft as S
 
 MAX_SMEM = 232448  # bytes of shared memory one block may use on Hopper
 
-# the FFT kernel's n_fft: one frame's plan takes 20 n_fft bytes (two
-# buffers of n_fft/2 complex float64 points and the float32 segment)
-FFT_MIN, FFT_MAX = 16, MAX_SMEM // 20
+# the FFT kernel's n_fft: one frame's plan takes 8 n_fft bytes (one buffer
+# of n_fft/2 complex float64 points)
+FFT_MIN, FFT_MAX = 16, MAX_SMEM // 8
+# the chirp-z kernel's transform length: one transform takes 16 M bytes
+BLUESTEIN_MAX_M = MAX_SMEM // 16
 
 _CONSTS: Dict[Tuple[int, torch.device], Tuple[torch.Tensor, torch.Tensor]] = {}
+_ORDER: Dict[Tuple[int, torch.device], torch.Tensor] = {}
+_BLUESTEIN: Dict[Tuple[int, torch.device], Tuple[torch.Tensor, ...]] = {}
 
 
 def stft_magnitude_plain(x: torch.Tensor, n_fft: int, hop: int) -> torch.Tensor:
@@ -70,18 +87,17 @@ def stft_magnitude_plain(x: torch.Tensor, n_fft: int, hop: int) -> torch.Tensor:
     return S.stft_magnitude(x, n_fft, hop, use_matmul_dft=True)
 
 
-def fft_passes(n_fft: int) -> Tuple[int, ...]:
-    """The FFT kernel's pass list over the n_fft/2 complex points: radix-4
-    passes while 4 divides what is left of n_fft/2, a radix-2 pass where a
-    2 is left, then radix 3, 5 and 7 passes (for a power of two, the
-    radix-4 passes and a radix-2 pass last where log2(n_fft/2) is odd).
-    Every prefix's product p times the next radix R divides n_fft/2, so
-    Stockham's twiddle stride n_fft / (R p) is an integer. Empty where
-    n_fft is outside the FFT route: odd, outside [FFT_MIN, FFT_MAX], or a
-    half with a prime factor above 7."""
-    if n_fft % 2 or not FFT_MIN <= n_fft <= FFT_MAX:
+def transform_passes(n: int) -> Tuple[int, ...]:
+    """The pass list of an n-point complex transform: radix-4 passes while 4
+    divides what is left of n, a radix-2 pass where a 2 is left, then radix
+    3, 5 and 7 passes (for a power of two, the radix-4 passes and a radix-2
+    pass last where log2(n) is odd). Every prefix's product p times the next
+    radix R divides n, so the twiddle stride t / (R p) of a table of t = a
+    multiple of n entries is an integer. Empty where n has a prime factor
+    above 7 (and for n = 1, the transform of one point)."""
+    if n < 1:
         return ()
-    left, out = n_fft // 2, []
+    left, out = n, []
     while left % 4 == 0:
         out.append(4)
         left //= 4
@@ -95,12 +111,64 @@ def fft_passes(n_fft: int) -> Tuple[int, ...]:
     return tuple(out) if left == 1 else ()
 
 
+def fft_passes(n_fft: int) -> Tuple[int, ...]:
+    """The FFT kernel's pass list over the n_fft/2 complex points
+    (`transform_passes(n_fft // 2)`). Empty where n_fft is outside the FFT
+    route: odd, outside [FFT_MIN, FFT_MAX], or a half with a prime factor
+    above 7."""
+    if n_fft % 2 or not FFT_MIN <= n_fft <= FFT_MAX:
+        return ()
+    return transform_passes(n_fft // 2)
+
+
+def smooth_at_least(n: int) -> int:
+    """The smallest number >= max(n, 1) with no prime factor above 7."""
+    m = max(n, 1)
+    while m > 1 and not transform_passes(m):
+        m += 1
+    return m
+
+
+def bluestein_plan(n_fft: int):
+    """(L, M, pass list of M) of the chirp-z kernel at n_fft: L = n_fft for
+    an odd n_fft (two real frames as one complex sequence), n_fft/2 for an
+    even one (the packed half), M the smallest 7-smooth number >= 2L - 1.
+    None where the FFT route takes n_fft, below 2, or where M is above
+    BLUESTEIN_MAX_M (one transform's 16 M bytes over a block's shared
+    memory)."""
+    if n_fft < 2 or fft_passes(n_fft):
+        return None
+    length = n_fft if n_fft % 2 else n_fft // 2
+    m = smooth_at_least(2 * length - 1)
+    if m > BLUESTEIN_MAX_M:
+        return None
+    return length, m, transform_passes(m)
+
+
 def route(n_fft: int) -> str:
-    """"fft" where `fft_passes` has a plan, "dft" for any other n_fft >= 2;
-    below 2 there is no STFT to take."""
+    """"fft" where `fft_passes` has a plan, "bluestein" where
+    `bluestein_plan` has one, "dft" for any other n_fft >= 2; below 2
+    there is no STFT to take."""
     if n_fft < 2:
         raise ValueError(f"stft: need n_fft >= 2, got {n_fft}")
-    return "fft" if fft_passes(n_fft) else "dft"
+    if fft_passes(n_fft):
+        return "fft"
+    return "bluestein" if bluestein_plan(n_fft) else "dft"
+
+
+def digit_reversed(passes: Tuple[int, ...]) -> np.ndarray:
+    """pos[m], the position of point m of a transform in the input order of
+    its DIT passes (the FFT kernel's load order, `fft_order`): m = sum_j
+    d_j Q_j (Q_j the product of the radices after pass j) sits at sum_j d_j
+    p_j (p_j the product of those before it). The DIF passes leave point m
+    of the transform there too (the order of `bluestein_tables`' last)."""
+    n = int(np.prod(passes)) if passes else 1
+    m = np.arange(n)
+    pos = np.zeros(n, dtype=np.int64)
+    for r in reversed(passes):
+        pos = pos * r + m % r
+        m = m // r
+    return pos
 
 
 @functools.lru_cache(maxsize=32)
@@ -114,8 +182,35 @@ def twiddles(n_fft: int, device=None) -> torch.Tensor:
     expression the DFT basis is cast from: cast to float32, row j is the
     basis' column 1, (cos, sin)[j, 1]. The FFT's passes read it at a
     stride of n_fft / (R p) and their odd radices' constants at n_fft / R,
-    its real post-twiddle at stride 1; the DFT reads it at (n k) mod n_fft."""
+    its real post-twiddle at stride 1; the DFT reads it at (n k) mod n_fft.
+    The chirp-z kernel reads the tables of 2L (its chirp, at j^2 mod 2L, and
+    for an even n_fft its post-twiddle: 2L = n_fft) and of M (its passes)."""
     return torch.from_numpy(_twiddles_np(n_fft)).to(device)
+
+
+@functools.lru_cache(maxsize=32)
+def _bluestein_np(n_fft: int):
+    length, m, passes = bluestein_plan(n_fft)
+    chirp = _twiddles_np(2 * length)
+    j = np.arange(length, dtype=np.int64)
+    c = chirp[(j * j) % (2 * length)]
+    b = np.zeros(m, dtype=np.complex128)
+    b[:length] = c[:, 0] - 1j * c[:, 1]  # conj(c_j), and at M - j for 0 < j < L
+    b[m - length + 1:] = b[1:length][::-1]
+    fb = np.fft.fft(b) / m
+    ordered = np.empty_like(fb)
+    ordered[digit_reversed(passes)] = fb
+    return chirp, _twiddles_np(m), np.stack([ordered.real, ordered.imag], axis=-1)
+
+
+def bluestein_tables(n_fft: int, device=None):
+    """The chirp-z kernel's float64 tables at n_fft: the chirp table (2L, 2)
+    (`twiddles(2L)`, read at j^2 mod 2L, the index reduced in integers), the
+    M-point twiddle table (M, 2), and the transform over M of the conjugate
+    chirp (conj(c_j) at j and M - j for j < L, zero between; float64
+    `numpy.fft.fft`), times 1/M and stored where the DIF passes leave each
+    point (`digit_reversed`), (M, 2)."""
+    return tuple(torch.from_numpy(t).to(device) for t in _bluestein_np(n_fft))
 
 
 # ---------------------------------------------------------------------------
@@ -123,13 +218,33 @@ def twiddles(n_fft: int, device=None) -> torch.Tensor:
 
 
 def _constants(n_fft: int, device: torch.device):
-    """The float64 window and twiddle table both kernels read, cached per
-    (n_fft, device)."""
+    """The float64 window and twiddle table the FFT and DFT kernels read,
+    cached per (n_fft, device)."""
     key = (n_fft, device)
     if key not in _CONSTS:
         _CONSTS[key] = (S.hann_window(n_fft, device, torch.float64).contiguous(),
                         twiddles(n_fft, device).contiguous())
     return _CONSTS[key]
+
+
+COUNTERS = {"fft": "stft_magnitude", "bluestein": "stft_magnitude_bluestein",
+            "dft": "stft_magnitude_dft"}
+
+
+def pack_passes(passes: Tuple[int, ...]) -> int:
+    """A pass list as the kernels take it: 4 bits a radix from the lowest."""
+    return sum(r << (4 * i) for i, r in enumerate(passes))
+
+
+def fft_order(n_fft: int, device=None) -> torch.Tensor:
+    """(n_fft/2,) int32: the FFT kernel's load order, where each packed
+    point goes in its DIT passes' input (`digit_reversed` of its pass list),
+    cached per (n_fft, device)."""
+    key = (n_fft, device)
+    if key not in _ORDER:
+        pos = digit_reversed(fft_passes(n_fft)).astype(np.int32)
+        _ORDER[key] = torch.from_numpy(pos).to(device).contiguous()
+    return _ORDER[key]
 
 
 def _check(x: torch.Tensor, n_fft: int, hop: int) -> str:
@@ -160,19 +275,29 @@ def launch(x: torch.Tensor, n_fft: int, hop: int, spectrum: bool = False):
     out = torch.empty(b, n_frames, k, dtype=torch.float32, device=x.device)
     re, im = (torch.empty_like(out), torch.empty_like(out)) if spectrum else (None, None)
     ptrs = (re.data_ptr(), im.data_ptr()) if spectrum else (None, None)
-    win, tw = _constants(n_fft, x.device)
-    args = (x.data_ptr(), win.data_ptr(), tw.data_ptr(), out.data_ptr(), *ptrs, b, t, n_fft,
-            hop, n_frames)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    if kind == "fft":
-        # the pass list, 4 bits a radix from the lowest
-        radices = sum(r << (4 * i) for i, r in enumerate(fft_passes(n_fft)))
-        err = _build.library().nsc_stft_magnitude_fft(*args, radices, stream)
+    lib = _build.library()
+    if kind == "bluestein":
+        key = (n_fft, x.device)
+        if key not in _BLUESTEIN:
+            _BLUESTEIN[key] = (S.hann_window(n_fft, x.device, torch.float64).contiguous(),
+                               *(t_.contiguous() for t_ in bluestein_tables(n_fft, x.device)))
+        _, m, passes = bluestein_plan(n_fft)
+        err = lib.nsc_stft_magnitude_bluestein(
+            x.data_ptr(), *(t_.data_ptr() for t_ in _BLUESTEIN[key]), out.data_ptr(), *ptrs, b,
+            t, n_fft, hop, n_frames, m, pack_passes(passes), stream)
     else:
-        err = _build.library().nsc_stft_magnitude_dft(*args, stream)
-    name = "stft_magnitude" if kind == "fft" else "stft_magnitude_dft"
+        win, tw = _constants(n_fft, x.device)
+        rest = (out.data_ptr(), *ptrs, b, t, n_fft, hop, n_frames)
+        if kind == "fft":
+            err = lib.nsc_stft_magnitude_fft(
+                x.data_ptr(), win.data_ptr(), tw.data_ptr(), fft_order(n_fft, x.device).data_ptr(),
+                *rest, pack_passes(fft_passes(n_fft)), stream)
+        else:
+            err = lib.nsc_stft_magnitude_dft(x.data_ptr(), win.data_ptr(), tw.data_ptr(), *rest,
+                                             stream)
     _build.check(err, f"nsc_stft_magnitude_{kind}")
-    kernels.LAUNCHES[name] += 1
+    kernels.LAUNCHES[COUNTERS[kind]] += 1
     return (out, re, im) if spectrum else out
 
 

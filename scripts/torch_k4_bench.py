@@ -13,12 +13,17 @@ magnitudes (and the spectrum, where kept) must be equal bit for bit.
 Inputs, from fixed seeds: the training step's launch shapes (the shipped
 bank n_fft 2048-128 and the mel STFT's 1024, hop n_fft/4) on 64 x 1 s of
 N(0, 0.3^2) noise (the target) and on it plus 0.05 N(0, 1) (the
-reconstruction, with the spectrum kept, as the loss launches it), and every
-power of two 16-4096 at B = 2 on a T that no hop divides. Shapes outside a
-tree's FFT route are skipped.
+reconstruction, with the spectrum kept, as the loss launches it), every
+power of two 16-4096 at B = 2 on a T that no hop divides, and the long and
+odd windows (8192, 12000, 441, 2018, hop n_fft/4) on the target. Only
+shapes on a tree's FFT route keep a digest (so two trees whose routes
+differ at a shape are not compared there); every shape is timed, with the
+route the tree took.
 
-One JSON line per run: the card, each shape's ms (CUDA events, mean of 20
-launches after one), and K4's ms per training step (the 12 launches).
+One JSON line per run: the card, each shape's route and ms (CUDA events,
+mean of 20 launches after one) and graph_ms (the same 20 launches
+captured in a CUDA graph: the card's time without the host's), and K4's
+ms and graph_ms per training step (the 12 launches).
 """
 
 from __future__ import annotations
@@ -39,7 +44,8 @@ def run(tree: str, save: str | None) -> dict:
     if not torch.cuda.is_available():
         raise SystemExit("torch_k4_bench: CUDA is not available")
     dev = torch.device("cuda", 0)
-    out = {"tree": tree, "card": TB.card(), "shapes": {}, "train_step_ms": 0.0}
+    out = {"tree": tree, "card": TB.card(), "shapes": {}, "train_step_ms": 0.0,
+           "train_step_graph_ms": 0.0}
     digests = {}
     g = torch.Generator(device=dev).manual_seed(0)
     target = torch.randn(64, 16000, device=dev, generator=g) * 0.3
@@ -51,19 +57,25 @@ def run(tree: str, save: str | None) -> dict:
     for n in (16, 32, 64, 128, 256, 512, 1024, 2048, 4096):
         x = torch.randn(2, 3 * n + 101, device=dev, generator=g) * 0.3
         cases.append((f"pow2_{n}", x, n, n // 4, True))
+    cases += [(f"long_{n}", target, n, n // 4, False) for n in (8192, 12000, 441, 2018)]
     with torch.no_grad():
         for name, x, n_fft, hop, spectrum in cases:
-            if KS.route(n_fft) != "fft":
-                continue
+            route = KS.route(n_fft)
             got = KS.launch(x, n_fft, hop, spectrum=spectrum)
             torch.cuda.synchronize()
             parts = got if spectrum else (got,)
-            digests[name] = [hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest() for t in parts]
-            ms = TB.events_ms(torch, lambda: KS.launch(x, n_fft, hop, spectrum=spectrum), 20)
+            if route == "fft":
+                digests[name] = [hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()
+                                 for t in parts]
+            fn = lambda: KS.launch(x, n_fft, hop, spectrum=spectrum)  # noqa: E731
+            reps = 3 if route == "dft" else 20
+            ms, gms = TB.events_ms(torch, fn, reps), TB.graph_ms(torch, fn, reps)
             out["shapes"][name] = {"n_fft": n_fft, "hop": hop, "B": x.shape[0], "T": x.shape[1],
-                                   "spectrum": spectrum, "ms": ms}
+                                   "spectrum": spectrum, "route": route, "ms": ms,
+                                   "graph_ms": gms}
             if name.startswith("train_"):
                 out["train_step_ms"] += ms
+                out["train_step_graph_ms"] += gms
     if save:
         with open(save, "w") as f:
             json.dump(digests, f)

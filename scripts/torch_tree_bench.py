@@ -50,6 +50,23 @@ def events_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(torch, fn, reps: int) -> float:
+    """Mean ms of fn on the card alone: `reps` calls captured in one CUDA
+    graph (after a call outside it, which also fills the callee's caches)
+    and the graph replayed 5 times by CUDA events, so the host's share of
+    each call is not in it."""
+    fn()
+    torch.cuda.synchronize()
+    graph, stream = torch.cuda.CUDAGraph(), torch.cuda.Stream()
+    with torch.cuda.stream(stream):
+        fn()
+        stream.synchronize()
+        with torch.cuda.graph(graph, stream=stream):
+            for _ in range(reps):
+                fn()
+    return events_ms(torch, graph.replay, 5) / reps
+
+
 def compare(files, load, equal) -> dict:
     saved = [load(f) for f in files]
     out = {}

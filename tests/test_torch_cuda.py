@@ -493,7 +493,8 @@ def test_stft_fft_route_matches_plain_at_every_power_of_two(dev, n_fft):
     kernels.reset_launches()
     got = KS.stft_magnitude(x, n_fft, hop)
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES["stft_magnitude"] == 1 and kernels.LAUNCHES["stft_magnitude_dft"] == 0
+    assert kernels.LAUNCHES["stft_magnitude"] == 1
+    assert kernels.LAUNCHES["stft_magnitude_bluestein"] == kernels.LAUNCHES["stft_magnitude_dft"] == 0
     ref = KS.stft_magnitude_plain(x, n_fft, hop)
     assert got.shape == ref.shape == (1, 1 + t // hop, n_fft // 2 + 1)
     assert (got - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
@@ -515,25 +516,35 @@ def _rfft64(x, n_fft, hop):
 
 
 def _launch_counted(x, n_fft, hop, route):
+    """The wrapper's magnitudes, after checking that it launched `route`'s
+    kernel once and no other K4 kernel."""
     from nsc_tpu_torch import kernels
 
     kernels.reset_launches()
     got = KS.stft_magnitude(x, n_fft, hop)
     torch.cuda.synchronize()
-    other = "stft_magnitude_dft" if route == "stft_magnitude" else "stft_magnitude"
-    assert kernels.LAUNCHES[route] == 1 and kernels.LAUNCHES[other] == 0
+    assert {name: kernels.LAUNCHES[name] for name in KS.COUNTERS.values()} == {
+        name: int(name == route) for name in KS.COUNTERS.values()}
     return got
 
 
+def _within_ulps_of_float64(got, x, n_fft, hop, ulps=2.0):
+    m64, _ = _rfft64(x, n_fft, hop)
+    a = m64.float()
+    ulp = (torch.nextafter(a, torch.full_like(a, float("inf"))) - a).double()
+    return ((got.double() - m64).abs() / ulp).max().item() <= ulps
+
+
 # even n_fft whose half factors into 2, 3, 5, 7 take the FFT route: the
-# speech windows, 1568 = 2^5 7^2, 6000, 8192 and the largest the plan admits
-# (11520), B = 2 and T that no hop divides; with the 25 ms window at 16 kHz
-# on 1 s and at hop 160
+# speech windows, 1568 = 2^5 7^2, 6000, 8192, 11520, 12000 and the largest
+# the one-buffer plan admits (28812 = 4 x 3 x 7^4), B = 2 and T that no hop
+# divides; with the 25 ms window at 16 kHz on 1 s and at hop 160
 @pytest.mark.parametrize("n_fft,hop,t", [(120, 30, 2017), (320, 80, 3001), (400, 100, 16000),
                                          (400, 160, 3001), (480, 120, 4001), (882, 220, 4001),
                                          (960, 240, 6001), (1200, 300, 6001), (1568, 392, 5001),
                                          (2400, 600, 16001), (6000, 1500, 16001),
-                                         (8192, 2048, 16001), (11520, 2880, 16001)])
+                                         (8192, 2048, 16001), (11520, 2880, 16001),
+                                         (12000, 3000, 16000), (28812, 7203, 40001)])
 def test_stft_mixed_radix_route_matches_plain_and_float64(dev, n_fft, hop, t):
     """Launches `stft_magnitude` (not the DFT); within 1e-4 of the peak of
     the plain version, and every magnitude within 2 float32 ulps of float64."""
@@ -543,16 +554,34 @@ def test_stft_mixed_radix_route_matches_plain_and_float64(dev, n_fft, hop, t):
     ref = KS.stft_magnitude_plain(x, n_fft, hop)
     assert got.shape == ref.shape == (2, 1 + t // hop, n_fft // 2 + 1)
     assert (got - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
-    m64, _ = _rfft64(x, n_fft, hop)
-    a = m64.float()
-    ulp = (torch.nextafter(a, torch.full_like(a, float("inf"))) - a).double()
-    assert ((got.double() - m64).abs() / ulp).max().item() <= 2.0
+    assert _within_ulps_of_float64(got, x, n_fft, hop)
 
 
-# the remainder: n_fft odd, or below the FFT's 16, a half with a prime
-# factor above 7 (1009), above the FFT's one-frame limit (12000)
-@pytest.mark.parametrize("n_fft,hop,t", [(2, 1, 997), (441, 110, 16000), (2018, 504, 16001),
-                                         (12000, 3000, 16000), (8, 2, 501), (17, 4, 3000)])
+# the chirp-z route: odd n_fft (3, 17, 441 = 3^2 7^2, the largest, 7203),
+# even ones below the FFT's 16 (2, 8), a half with a prime factor above 7
+# (2018 = 2 x 1009, 10006 = 2 x 5003) and the largest even one (14404 = 4 x
+# 3601); B = 2, T that no hop divides or that one does
+@pytest.mark.parametrize("n_fft,hop,t", [(2, 1, 997), (3, 1, 60), (8, 2, 501), (17, 4, 3000),
+                                         (441, 110, 16000), (2018, 504, 16001),
+                                         (7203, 1800, 16000), (10006, 2501, 16001),
+                                         (14404, 3601, 16001)])
+def test_stft_bluestein_route_matches_plain_and_float64(dev, n_fft, hop, t):
+    """Launches `stft_magnitude_bluestein`; within 1e-4 of the peak of the
+    plain version, and every magnitude within 2 float32 ulps of float64."""
+    g = torch.Generator(device=dev).manual_seed(t + n_fft)
+    x = torch.randn(2, t, device=dev, generator=g) * 0.3
+    got = _launch_counted(x, n_fft, hop, "stft_magnitude_bluestein")
+    ref = KS.stft_magnitude_plain(x, n_fft, hop)
+    assert got.shape == ref.shape
+    assert (got - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
+    assert _within_ulps_of_float64(got, x, n_fft, hop)
+
+
+# the remainder: odd n_fft above the chirp-z plan's limit (8191, 7205), an
+# even one whose half is not smooth above it (14410 = 2 x 5 x 11 x 131),
+# and a smooth even one above the FFT's one-buffer limit (30000)
+@pytest.mark.parametrize("n_fft,hop,t", [(8191, 2048, 16000), (7205, 1801, 16001),
+                                         (14410, 3602, 16001), (30000, 7500, 40000)])
 def test_stft_dft_route_matches_plain(dev, n_fft, hop, t):
     """Launches `stft_magnitude_dft`; within 1e-4 of the peak of the plain
     version, and within 2^-23 of each frame's peak of float64 (one rounding
@@ -568,7 +597,8 @@ def test_stft_dft_route_matches_plain(dev, n_fft, hop, t):
     assert ((got.double() - m64).abs() / m64.amax(-1, keepdim=True)).max().item() <= 2.0 ** -23
 
 
-@pytest.mark.parametrize("n_fft,hop", [(2048, 512), (128, 32), (400, 100), (441, 110)])
+@pytest.mark.parametrize("n_fft,hop", [(2048, 512), (128, 32), (400, 100), (441, 110),
+                                       (2018, 504), (8191, 2048)])
 def test_stft_kernel_spectrum_outputs(dev, n_fft, hop):
     """With the spectrum kept, the magnitudes are sqrt(re^2 + im^2 + 1e-8) of
     it and the spectrum is the plain path's within the forward tolerance."""
@@ -604,9 +634,10 @@ def _fft_launch(x, n_fft, hop, radices):
     win = S.hann_window(n_fft, x.device, torch.float64).contiguous()
     tw = KS.twiddles(n_fft, x.device).contiguous()
     packed = sum(r << (4 * i) for i, r in enumerate(radices))
+    order = torch.from_numpy(KS.digit_reversed(tuple(radices)).astype("int32")).to(x.device)
     rc = _build.library().nsc_stft_magnitude_fft(
-        x.data_ptr(), win.data_ptr(), tw.data_ptr(), out.data_ptr(), None, None, b, t, n_fft,
-        hop, n_frames, packed, torch.cuda.current_stream(x.device).cuda_stream)
+        x.data_ptr(), win.data_ptr(), tw.data_ptr(), order.data_ptr(), out.data_ptr(), None, None,
+        b, t, n_fft, hop, n_frames, packed, torch.cuda.current_stream(x.device).cuda_stream)
     torch.cuda.synchronize()
     return rc, out
 
@@ -614,20 +645,22 @@ def _fft_launch(x, n_fft, hop, radices):
 def test_stft_fft_plan_fits_one_block(dev):
     """The FFT kernel's own plan at the wrapper's pass lists: frames per
     block a power of two, at most 4096 / n_fft, shared memory within one
-    block's, passes whose radices multiply to n_fft/2, up to 8192 and 11520
-    (the largest n_fft the route takes). The one-frame plan fits at FFT_MAX
-    and not at the next even n_fft: the wrapper's limit is the kernel's."""
+    block's, passes whose radices multiply to n_fft/2, up to 8192, 11520,
+    12000 and 28812 (the largest n_fft the route takes). The one-frame plan
+    (one buffer, 8 n_fft bytes) fits at FFT_MAX and not at the next even
+    n_fft: the wrapper's limit is the kernel's."""
     for n_fft, hop in ((16, 4), (16, 1000), (128, 32), (512, 1), (1024, 256), (2048, 512),
                        (4096, 1024), (4096, 4096), (400, 100), (882, 1), (6000, 1500),
-                       (8192, 2048), (8192, 1), (11520, 2880)):
+                       (8192, 2048), (8192, 1), (11520, 2880), (12000, 3000), (28812, 7203)):
         rc, ft, smem = _fft_plan(n_fft, hop)
         assert rc == 0, n_fft
         assert 1 <= ft <= max(1, 4096 // n_fft) and ft & (ft - 1) == 0, (n_fft, hop, ft)
-        assert smem <= KS.MAX_SMEM, (n_fft, hop, smem)
+        assert smem == 8 * ft * n_fft <= KS.MAX_SMEM, (n_fft, hop, smem)
         radices = KS.fft_passes(n_fft)
         assert math.prod(radices) == n_fft // 2 and set(radices) <= {2, 3, 4, 5, 7}, radices
-    assert _fft_plan(8192, 2048)[1:] == (1, 163840) and KS.fft_passes(8192) == (4,) * 6
-    assert _fft_plan(11520, 2880)[1:] == (1, 230400)
+    assert _fft_plan(8192, 2048)[1:] == (1, 65536) and KS.fft_passes(8192) == (4,) * 6
+    assert _fft_plan(11520, 2880)[1:] == (1, 92160)
+    assert _fft_plan(12000, 3000)[1:] == (1, 96000)
     assert KS.fft_passes(11520) == (4, 4, 4, 2, 3, 3, 5)
     assert KS.FFT_MAX % 2 == 0
     assert _fft_plan(KS.FFT_MAX, 1)[2] <= KS.MAX_SMEM < _fft_plan(KS.FFT_MAX + 2, 1)[2]
@@ -643,19 +676,60 @@ def test_stft_fft_launcher_checks_the_pass_list(dev):
     x = torch.randn(2, 4001, device=dev)
     for radices in ((4, 4, 2, 3), (4, 4, 2, 3, 5, 5), (4, 2, 5, 5, 1), (8, 5, 5), ()):
         assert _fft_launch(x, 400, 100, radices)[0] == 1, radices
-    big = torch.randn(1, 20000, device=dev)
-    assert _fft_launch(big, 16384, 4096, (4,) * 6 + (2,))[0] != 0
+    big = torch.randn(1, 40000, device=dev)
+    assert _fft_launch(big, 32768, 8192, (4,) * 7)[0] != 0
     rc, got = _fft_launch(x, 400, 100, KS.fft_passes(400))
     assert rc == 0 and torch.equal(got, KS.launch(x, 400, 100))
 
 
+def test_stft_bluestein_plan_and_launcher(dev):
+    """The chirp-z kernel's own plan (`nsc_stft_bluestein_plan`): frames per
+    block the largest power of two with frames x M <= 4096, 16 M bytes a
+    frame, within a block's shared memory up to BLUESTEIN_MAX_M. Its
+    launcher refuses an M below 2L - 1 and a pass list that is not a
+    transform of M points (cudaErrorInvalidValue, 1); a launch after either
+    runs and equals the wrapper's."""
+    def plan(m):
+        out = (ctypes.c_longlong * 2)()
+        rc = _build.library().nsc_stft_bluestein_plan(m, out)
+        return rc, out[0], out[1]
+
+    for m, ft in ((1, 4096), (5, 512), (882, 4), (2025, 2), (2048, 2), (14406, 1)):
+        assert plan(m) == (0, ft, 16 * ft * m), m
+    assert plan(KS.BLUESTEIN_MAX_M)[2] <= KS.MAX_SMEM < plan(KS.BLUESTEIN_MAX_M + 1)[2]
+    assert plan(0)[0] != 0
+
+    x = torch.randn(2, 4001, device=dev)
+    n_fft, hop = 441, 110
+    _, m, passes = KS.bluestein_plan(n_fft)
+    tables = [t.contiguous() for t in KS.bluestein_tables(n_fft, dev)]
+    from nsc_tpu_torch.ops import stft as S
+
+    win = S.hann_window(n_fft, dev, torch.float64).contiguous()
+    frames = 1 + (4001 + 440 - 441) // hop
+    out = torch.zeros(2, frames, n_fft // 2 + 1, device=dev)
+
+    def launch(m_, radices):
+        rc = _build.library().nsc_stft_magnitude_bluestein(
+            x.data_ptr(), win.data_ptr(), *(t.data_ptr() for t in tables), out.data_ptr(), None,
+            None, 2, 4001, n_fft, hop, frames, m_, KS.pack_passes(radices),
+            torch.cuda.current_stream(dev).cuda_stream)
+        torch.cuda.synchronize()
+        return rc
+
+    assert launch(875, KS.transform_passes(875)) == 1  # 875 < 2 x 441 - 1
+    for radices in ((2, 3, 3, 7), (2, 3, 3, 7, 7, 1), (9, 2, 7, 7)):
+        assert launch(m, radices) == 1, radices
+    assert launch(m, passes) == 0 and torch.equal(out, KS.launch(x, n_fft, hop))
+
+
 def test_stft_fft_plan_keeps_the_power_of_two_passes(dev):
-    """At every power of two the plan is the earlier kernel's, pass for pass
-    (its loop, copied: radix-4 while 4 p <= n/2, then radix-2 where p <
-    n/2) and frames for frames (4096 / n_fft halved while above 80 KB), so
-    the kernel runs the same float64 arithmetic in the same order; the
-    kernel given that copied pass list gives the wrapper's output bit for
-    bit."""
+    """At every power of two the pass list is the earlier kernel's, pass for
+    pass (its loop, copied: radix-4 while 4 p <= n/2, then radix-2 where p <
+    n/2), so the one-buffer kernel runs the same butterflies and twiddles;
+    frames per block 4096 / n_fft (at least 1: one buffer of 8 n_fft bytes a
+    frame, 32 KB a block up to 4096); the kernel given that copied pass list
+    gives the wrapper's output bit for bit."""
     for n_fft in (16, 32, 64, 128, 256, 512, 1024, 2048, 4096, 8192):
         n2, p, passes = n_fft // 2, 1, []
         while 4 * p <= n2:
@@ -665,10 +739,8 @@ def test_stft_fft_plan_keeps_the_power_of_two_passes(dev):
             passes.append(2)
         assert KS.fft_passes(n_fft) == tuple(passes), n_fft
         for hop in (1, n_fft // 4, n_fft):
-            ft = max(1, 4096 // n_fft)
-            while ft > 1 and 16 * ft * n_fft + 4 * ((ft - 1) * hop + n_fft) > 81920:
-                ft //= 2
-            assert _fft_plan(n_fft, hop)[1] == ft, n_fft
+            assert _fft_plan(n_fft, hop)[1:] == (max(1, 4096 // n_fft),
+                                                 8 * max(n_fft, 4096)), n_fft
         x = torch.randn(2, 3 * n_fft + 101, device=dev)
         rc, got = _fft_launch(x, n_fft, n_fft // 4, passes)
         assert rc == 0 and torch.equal(got, KS.launch(x, n_fft, n_fft // 4)), n_fft
@@ -715,6 +787,7 @@ def test_full_width_train_step_launches_the_kernels(dev):
     torch.cuda.synchronize()
     assert kernels.LAUNCHES == {"residual_stack": 0, "rvq_quantize": 1, "rvq_split_planes": 1,
                                 "rvq_dequantize": 0, "stft_magnitude": 12,
+                                "stft_magnitude_bluestein": 0,
                                 "stft_magnitude_dft": 0, "residual_stack_cl": 0,
                                 "fused_stage": 0, "int_mm": 0}
     assert all(torch.isfinite(v).item() for v in metrics.values())

@@ -1,19 +1,27 @@
-"""The plan of the FFT route of the port's |STFT| kernel (K4), restated in
-PyTorch (`stft_magnitude_fft_plain` below), on the CPU: against the
-plain matmul-DFT version and the JAX package's Pallas kernel in interpret
-mode, and at the mixed-radix n_fft against float64 `numpy.fft.rfft`; the
-DFT remainder's arithmetic (`stft_magnitude_dft_plain`) against float64;
-its twiddle table against the DFT basis; the routing rule; and the
-spectrum backward against autograd of the plain version.
+"""The plans of the port's |STFT| kernels (K4), restated in PyTorch, on
+the CPU: the FFT route's one-buffer plan (`stft_magnitude_fft_plain`:
+digit-reversed load, in-place DIT passes, post-twiddle) and the chirp-z
+route's (`stft_magnitude_bluestein_plain`: chirp from integer j^2 mod 2L,
+M the smallest 7-smooth number >= 2L - 1, DIF passes, the conjugate
+chirp's transform, DIT passes), each against the plain matmul-DFT version
+and the JAX package's Pallas kernel in interpret mode and against float64
+`numpy.fft.rfft`; the one-buffer plan against the two-buffer Stockham plan
+the FFT kernel ran before (`stft_magnitude_stockham_plain`), bit for bit;
+the DFT remainder's arithmetic (`stft_magnitude_dft_plain`) against
+float64; the twiddle table against the DFT basis; the routing rule and its
+boundaries; and the spectrum backward against autograd of the plain
+version.
 
 Tolerances:
-  * the FFT plan (float64, rounded once) vs the plain version and
-    `stft_magnitude_pallas(interpret=True)`: rtol 1e-4, atol 1e-4 *
+  * the FFT and chirp-z plans (float64, rounded once) vs the plain version
+    and `stft_magnitude_pallas(interpret=True)`: rtol 1e-4, atol 1e-4 *
     max|ref|, the JAX package's own kernel-test tolerance (the float32 DFT
     sums' error).
-  * the FFT plan vs float64 rfft magnitudes (the same float64 window):
-    2 float32 ulps elementwise, the plan's float64 passes rounded once
-    (half an ulp) and their own float64 rounding far below it.
+  * the FFT and chirp-z plans vs float64 rfft magnitudes (the same float64
+    window): 2 float32 ulps elementwise, the plan's float64 passes rounded
+    once (half an ulp) and their own float64 rounding far below it.
+  * the one-buffer plan vs the Stockham plan: equal, bit for bit (the same
+    butterflies and twiddles in the same order per point, in other slots).
   * the DFT remainder's float64 sums vs float64 rfft: DFT_F64_TOL = 2^-23
     of each frame's peak magnitude. One rounding to float32 moves a
     magnitude v by at most 2^-24 v, so a float64 sum reads at most 2^-24
@@ -29,34 +37,46 @@ Tolerances:
     spectrum: float32 summation order, 1e-5 * max|g|.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from nsc_tpu.losses import spectral as JSP
 from nsc_tpu.ops.pallas import stft as JPS
 from nsc_tpu_torch.kernels import stft as KS
+from nsc_tpu_torch.losses import spectral as SP
 from nsc_tpu_torch.ops import stft as S
 from torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 POWERS = [16, 128, 256, 512, 1024, 2048, 4096]
 # even n_fft whose half factors into 2, 3, 5 and 7: speech windows (20 and
 # 25 ms at 16, 24, 44.1 and 48 kHz), 882 = 2 x 3^2 x 7^2, 1568 = 2^5 x 7^2,
-# and two beyond the powers of two the route took before
-MIXED = [120, 320, 400, 480, 882, 960, 1200, 1568, 6000, 8192]
-# n_fft the remainder takes: odd, a half with a prime factor above 7 (1009
-# is prime), above the FFT's one-frame limit
-REMAINDER = [2, 3, 17, 441, 2018, 12000]
+# and three long windows (12000 fits a block only as one buffer of n_fft/2
+# complex points: 8 bytes a point)
+MIXED = [120, 320, 400, 480, 882, 960, 1200, 1568, 6000, 8192, 12000]
+# n_fft the chirp-z route takes: odd, below the FFT's 16, a half with a
+# prime factor above 7 (1009 is prime)
+BLUESTEIN = [2, 3, 4, 8, 10, 17, 38, 441, 2018]
+# n_fft the remainder takes: odd or a non-smooth half beyond the chirp-z
+# plan's limit, a smooth even n_fft above the FFT's one-buffer limit
+REMAINDER = [7205, 8191, 14410, 29056, 30000]
 DFT_F64_TOL = 2.0 ** -23
 
 
 def fft_passes(n_fft):
-    """(radix, p) of each Stockham pass over the n_fft/2 complex points, the
-    kernel's pass list (`KS.fft_passes`, restated): radix-4 passes while 4
-    divides what is left of n_fft/2, a radix-2 pass where a 2 is left, then
-    radix 3, 5 and 7 passes; p is the length of the sub-transforms a pass
-    combines R at a time."""
-    left, p, out = n_fft // 2, 1, []
+    """(radix, p) of each pass over the n_fft/2 complex points, the FFT
+    kernel's pass list (`KS.fft_passes`, restated)."""
+    return transform_passes(n_fft // 2)
+
+
+def transform_passes(n):
+    """(radix, p) of each pass of an n-point transform (`KS.transform_passes`,
+    restated): radix-4 passes while 4 divides what is left of n, a radix-2
+    pass where a 2 is left, then radix 3, 5 and 7 passes; p is the length
+    of the sub-transforms a pass combines R at a time."""
+    left, p, out = n, 1, []
 
     def take(radix):
         nonlocal left, p
@@ -71,8 +91,42 @@ def fft_passes(n_fft):
     for radix in (3, 5, 7):
         while left % radix == 0:
             take(radix)
-    assert left == 1, f"n_fft/2 = {n_fft // 2} has a prime factor above 7"
+    assert left == 1, f"{n} has a prime factor above 7"
     return out
+
+
+def smallest_smooth(n):
+    """The smallest number >= n with no prime factor above 7."""
+    m = max(n, 1)
+    while True:
+        left = m
+        for r in (2, 3, 5, 7):
+            while left % r == 0:
+                left //= r
+        if left == 1:
+            return m
+        m += 1
+
+
+def digit_reversed(passes):
+    """pos[m]: where point m of a transform sits in its DIT passes' input
+    order, m = sum_j d_j Q_j -> sum_j d_j p_j (Q_j the product of the radices
+    after pass j, p_j of those before it), digit by digit."""
+    radices = [r for r, _ in passes]
+    n = int(np.prod(radices)) if radices else 1
+    pos = []
+    for m in range(n):
+        digits = []
+        for r in reversed(radices):  # the last pass's digit is the lowest of m
+            digits.append(m % r)
+            m //= r
+        digits.reverse()
+        p, q = 1, 0
+        for d, r in zip(digits, radices):
+            q += d * p
+            p *= r
+        pos.append(q)
+    return torch.tensor(pos)
 
 
 def _cmul(ar, ai, br, bi):
@@ -109,18 +163,164 @@ def _butterfly(radix, ur, ui, c, s, n_fft):
     return yr, yi
 
 
-def stft_magnitude_fft_plain(x, n_fft, hop):
-    """The FFT kernel's plan (csrc/stft.cu) restated in PyTorch, in float64
-    with the magnitudes rounded to float32 (the same packing, passes,
-    twiddle table and post-twiddle; the kernel may fuse a multiply and an
-    add where this rounds each): (B, T) float32 -> (B, F, n_fft//2 + 1)."""
+def _passes_in_place(zr, zi, passes, c, s, tn, dif):
+    """The kernels' in-place passes over the last axis (its length the
+    product of the radices): butterfly i of radix R at p (k = i mod p) owns
+    the points (i - k) R + k + m p. DIT (passes first to last) twiddles
+    u_m by W^(m k tn/(R p)) from the table (c, s) of tn entries before the
+    R-point DFT; DIF (last to first) twiddles its outputs after it."""
+    n = zr.shape[-1]
+    for radix, p in (reversed(passes) if dif else passes):
+        q = n // radix
+        i = torch.arange(q, device=zr.device)
+        k = i % p
+        at = [(i - k) * radix + k + m * p for m in range(radix)]
+        ur = [zr[..., a] for a in at]
+        ui = [zi[..., a] for a in at]
+        step = tn // (radix * p)
+        if not dif:
+            for m in range(1, radix):
+                j = m * k * step
+                ur[m], ui[m] = _cmul(ur[m], ui[m], c[j], s[j])
+        yr, yi = _butterfly(radix, ur, ui, c, s, tn)
+        if dif:
+            for t in range(1, radix):
+                j = t * k * step
+                yr[t], yi[t] = _cmul(yr[t], yi[t], c[j], s[j])
+        zr, zi = zr.clone(), zi.clone()
+        for t in range(radix):
+            zr[..., at[t]] = yr[t]
+            zi[..., at[t]] = yi[t]
+    return zr, zi
+
+
+def _rounded(xr, xi, spectrum):
+    """The magnitudes of (xr, xi) rounded once to float32, and with
+    `spectrum` the (re, im) they came from, each rounded once."""
+    mag = torch.sqrt(xr * xr + xi * xi + 1e-8).float()
+    return (mag, xr.float(), xi.float()) if spectrum else mag
+
+
+def _real_spectrum(zr, zi, c, s, spectrum=False):
+    """X[k] = Ze[k] + W^k Zo[k] from the n2-point transform Z of the packed
+    sequence (W^k = (c, s)[k] of a table of 2 n2 entries), the magnitudes
+    rounded to float32 (and with `spectrum` re and im)."""
+    n2 = zr.shape[-1]
+    k = torch.arange(n2 + 1, device=zr.device)
+    ar, ai = zr[..., k % n2], zi[..., k % n2]
+    br, bi = zr[..., (n2 - k) % n2], -zi[..., (n2 - k) % n2]
+    er, ei = 0.5 * (ar + br), 0.5 * (ai + bi)
+    o_r, o_i = 0.5 * (ai - bi), -0.5 * (ar - br)
+    tr, ti = _cmul(o_r, o_i, c[k], s[k])
+    return _rounded(er + tr, ei + ti, spectrum)
+
+
+def _windowed_frames(x, n_fft, hop):
+    return S.frame_signal(x.float().double(), n_fft, hop) * S.hann_window(
+        n_fft, x.device, torch.float64)
+
+
+def stft_magnitude_fft_plain(x, n_fft, hop, spectrum=False):
+    """The FFT kernel's one-buffer plan (csrc/stft.cu) restated in PyTorch,
+    in float64 with the magnitudes rounded to float32: each windowed frame
+    packed (even samples real, odd imaginary) and loaded digit-reversed,
+    the DIT passes in place, the post-twiddle (the kernel may fuse a
+    multiply and an add where this rounds each): (B, T) float32 -> (B, F,
+    n_fft//2 + 1)."""
+    if KS.route(n_fft) != "fft":
+        raise ValueError(f"the FFT route does not take n_fft {n_fft}")
+    tw = KS.twiddles(n_fft, x.device)
+    c, s = tw[:, 0], tw[:, 1]
+    frames = _windowed_frames(x, n_fft, hop)
+    passes = fft_passes(n_fft)
+    pos = digit_reversed(passes)
+    zr, zi = torch.empty_like(frames[..., 0::2]), torch.empty_like(frames[..., 0::2])
+    zr[..., pos], zi[..., pos] = frames[..., 0::2], frames[..., 1::2]
+    zr, zi = _passes_in_place(zr, zi, passes, c, s, n_fft, dif=False)
+    return _real_spectrum(zr, zi, c, s, spectrum)
+
+
+def bluestein_tables(n_fft):
+    """The chirp-z kernel's tables restated (numpy, float64): the chirp
+    table of 2L entries, the M-point twiddle table, and the transform over
+    M of the conjugate chirp (conj c_j at j and M - j for j < L), times
+    1/M, stored where the DIF passes leave each point."""
+    length = n_fft if n_fft % 2 else n_fft // 2
+    m = smallest_smooth(2 * length - 1)
+    ang = -np.pi * np.arange(2 * length) / length
+    chirp = np.stack([np.cos(ang), np.sin(ang)], axis=-1)
+    j = np.arange(length, dtype=np.int64)
+    cj = chirp[(j * j) % (2 * length)]
+    b = np.zeros(m, dtype=np.complex128)
+    b[j] = cj[:, 0] - 1j * cj[:, 1]
+    b[(m - j[1:]) % m] = cj[1:, 0] - 1j * cj[1:, 1]
+    fb = np.fft.fft(b) / m
+    ordered = np.empty_like(fb)
+    ordered[digit_reversed(transform_passes(m)).numpy()] = fb
+    ang = -2.0 * np.pi * np.arange(m) / m
+    return chirp, np.stack([np.cos(ang), np.sin(ang)], axis=-1), np.stack(
+        [ordered.real, ordered.imag], axis=-1)
+
+
+def stft_magnitude_bluestein_plain(x, n_fft, hop, spectrum=False):
+    """The chirp-z kernel's plan (csrc/stft.cu) restated in PyTorch, in
+    float64 with the magnitudes rounded to float32: two frames as one
+    complex sequence z = a + i a' (odd n_fft, L = n_fft; a zero frame after
+    an odd count) or the packed frame (even, L = n_fft/2) times the chirp
+    c_j = tw2L[j^2 mod 2L] (the index reduced in int64), zero-padded to M;
+    the DIF passes; times the conjugate chirp's transform, conjugated; the
+    DIT passes; conjugated back and times c_k: Z; for an odd n_fft the two
+    frames' spectra (Z[k] +- conj Z[n-k]) / (2 or 2i), for an even one the
+    real FFT's post-twiddle (W^k = tw2L[k]): (B, T) float32 -> (B, F,
+    n_fft//2 + 1)."""
+    if KS.route(n_fft) != "bluestein":
+        raise ValueError(f"the chirp-z route does not take n_fft {n_fft}")
+    odd = n_fft % 2 == 1
+    length = n_fft if odd else n_fft // 2
+    chirp, twm, fb = (torch.from_numpy(t) for t in bluestein_tables(n_fft))
+    m = twm.shape[0]
+    passes = transform_passes(m)
+    frames = _windowed_frames(x, n_fft, hop)
+    n_frames = frames.shape[-2]
+    if odd:
+        frames = torch.cat([frames, torch.zeros_like(frames[..., :n_frames % 2, :])], dim=-2)
+        ar, ai = frames[..., 0::2, :], frames[..., 1::2, :]
+    else:
+        ar, ai = frames[..., 0::2], frames[..., 1::2]
+    j = torch.arange(length, dtype=torch.int64)
+    cj = chirp[(j * j) % (2 * length)]
+    ar, ai = _cmul(ar, ai, cj[:, 0], cj[:, 1])
+    zr = torch.zeros(*ar.shape[:-1], m, dtype=torch.float64)
+    zi = torch.zeros_like(zr)
+    zr[..., :length], zi[..., :length] = ar, ai
+    zr, zi = _passes_in_place(zr, zi, passes, twm[:, 0], twm[:, 1], m, dif=True)
+    zr, zi = _cmul(zr, zi, fb[:, 0], fb[:, 1])
+    zr, zi = _passes_in_place(zr, -zi, passes, twm[:, 0], twm[:, 1], m, dif=False)
+    zr, zi = _cmul(zr[..., :length], -zi[..., :length], cj[:, 0], cj[:, 1])
+    if odd:
+        k = torch.arange(n_fft // 2 + 1)
+        ar, ai = zr[..., k], zi[..., k]
+        br, bi = zr[..., (n_fft - k) % n_fft], -zi[..., (n_fft - k) % n_fft]
+        first = (0.5 * (ar + br), 0.5 * (ai + bi))
+        second = (0.5 * (ai - bi), -0.5 * (ar - br))
+        xr = torch.stack([first[0], second[0]], dim=-2).flatten(-3, -2)[..., :n_frames, :]
+        xi = torch.stack([first[1], second[1]], dim=-2).flatten(-3, -2)[..., :n_frames, :]
+        return _rounded(xr, xi, spectrum)
+    return _real_spectrum(zr, zi, chirp[:, 0], chirp[:, 1], spectrum)
+
+
+def stft_magnitude_stockham_plain(x, n_fft, hop):
+    """The two-buffer Stockham plan the FFT kernel ran before the one-buffer
+    plan, restated in float64 with the magnitudes rounded to float32: the
+    packed frame in natural order, pass R at p reading u_m = z[i + m n2/R]
+    and writing the R-point DFT to (i - k) R + k + t p, then the
+    post-twiddle: (B, T) float32 -> (B, F, n_fft//2 + 1)."""
     if KS.route(n_fft) != "fft":
         raise ValueError(f"the FFT route does not take n_fft {n_fft}")
     n2 = n_fft // 2
     tw = KS.twiddles(n_fft, x.device)
     c, s = tw[:, 0], tw[:, 1]
-    frames = S.frame_signal(x.float().double(), n_fft, hop) * S.hann_window(
-        n_fft, x.device, torch.float64)
+    frames = _windowed_frames(x, n_fft, hop)
     zr, zi = frames[..., 0::2], frames[..., 1::2]
     for radix, p in fft_passes(n_fft):
         q = n2 // radix
@@ -139,15 +339,7 @@ def stft_magnitude_fft_plain(x, n_fft, hop):
             nr[..., out + t * p] = yr[t]
             ni[..., out + t * p] = yi[t]
         zr, zi = nr, ni
-    # real spectrum: X[k] = Ze[k] + W^k Zo[k], Ze/Zo from Z[k] and Z[n2-k]*
-    k = torch.arange(n2 + 1, device=x.device)
-    ar, ai = zr[..., k % n2], zi[..., k % n2]
-    br, bi = zr[..., (n2 - k) % n2], -zi[..., (n2 - k) % n2]
-    er, ei = 0.5 * (ar + br), 0.5 * (ai + bi)
-    o_r, o_i = 0.5 * (ai - bi), -0.5 * (ar - br)
-    tr, ti = _cmul(o_r, o_i, c[k], s[k])
-    xr, xi = er + tr, ei + ti
-    return torch.sqrt(xr * xr + xi * xi + 1e-8).float()
+    return _real_spectrum(zr, zi, c, s)
 
 
 def stft_magnitude_dft_plain(x, n_fft, hop):
@@ -218,36 +410,54 @@ def test_fft_passes_cover_the_transform(n_fft):
 
 
 def test_routing_rule():
-    for n in (16, 32, 64, 128, 256, 512, 1024, 2048, 4096):
+    for n in (16, 32, 64, 128, 256, 512, 1024, 2048, 4096, 8192, 16384):
         assert KS.route(n) == "fft"
     for n in (2, 4, 8, 17, 3):
-        assert KS.route(n) == "dft"
+        assert KS.route(n) == "bluestein"
     for n in (400, 1000, 8192):  # 2^3 5^2, 2^3 5^3, 2^13
         assert KS.route(n) == "fft"
-    for n in MIXED + [11520]:  # 11520 = 2 x 2^7 3^2 5, the largest the plan admits
+    # 11520 = 2 x 2^7 3^2 5; 12000 = 2 x 2^4 3 5^3 and 28812 = 2 x 2 3 7^4 (the
+    # largest the one-buffer plan admits), beyond the two-buffer plan's 11,622
+    for n in MIXED + [11520, 12000, 28812]:
         assert KS.route(n) == "fft", n
-    for n in REMAINDER + [11522, 16384, KS.FFT_MAX + 2]:
+    # 11522 = 2 x 7 x 823, 2018 = 2 x 1009: non-smooth halves within the
+    # chirp-z limit, as 7203 (odd) and 14404 = 2 x 2 x 3601 at its edge
+    for n in BLUESTEIN + [11522, 7203, 14404]:
+        assert KS.route(n) == "bluestein", n
+    for n in REMAINDER + [KS.FFT_MAX + 2, 32768, 60000, 127999]:
         assert KS.route(n) == "dft", n
-    assert KS.FFT_MAX == 11622  # 20 bytes a point at one frame
+    assert KS.FFT_MAX == 29056  # 8 bytes a point at one frame
     for n in (1, 0, -4):
         with pytest.raises(ValueError):
             KS.route(n)
     with pytest.raises(ValueError):
         stft_magnitude_fft_plain(torch.zeros(1, 999), 441, 110)
+    with pytest.raises(ValueError):
+        stft_magnitude_bluestein_plain(torch.zeros(1, 999), 400, 100)
 
 
 def test_wrapper_pass_list_is_the_restated_plan():
-    """The pass list the wrapper gives the kernel (`KS.fft_passes`) is the
-    restated plan at every n_fft the route takes (even, 16 to 11,622, a
-    half with no prime factor above 7), and empty at every other."""
+    """The pass list the wrapper gives the FFT kernel (`KS.fft_passes`) is
+    the restated plan at every n_fft the route takes (even, 16 to 29,056, a
+    half with no prime factor above 7), and empty at every other; the
+    chirp-z plan (`KS.bluestein_plan`) is (L, M, the restated passes of M)
+    at every other n_fft from 2 whose M is within BLUESTEIN_MAX_M, and None
+    at the rest (every 7th n_fft, to keep the scan short)."""
     for n in range(-2, KS.FFT_MAX + 40):
         left = abs(n) // 2
         for r in (2, 3, 5, 7):
             while left and left % r == 0:
                 left //= r
-        taken = n % 2 == 0 and 16 <= n <= 11622 and left == 1
+        taken = n % 2 == 0 and 16 <= n <= 29056 and left == 1
         want = tuple(r for r, _ in fft_passes(n)) if taken else ()
         assert KS.fft_passes(n) == want, n
+        if n % 7 or n < 2:
+            continue
+        length = n if n % 2 else n // 2
+        m = smallest_smooth(2 * length - 1)
+        want = (None if taken or m > 14528
+                else (length, m, tuple(r for r, _ in transform_passes(m))))
+        assert KS.bluestein_plan(n) == want, n
 
 
 @pytest.mark.parametrize("n_fft", MIXED)
@@ -264,7 +474,7 @@ def test_mixed_radix_plan_against_float64_rfft(n_fft):
     assert (np.abs(got - ref) / ulp).max() <= 2.0
 
 
-@pytest.mark.parametrize("n_fft", [n for n in MIXED if n <= 1568])
+@pytest.mark.parametrize("n_fft", [n for n in MIXED if n <= 1568] + [12000])
 def test_mixed_radix_plan_matches_plain_and_pallas(n_fft):
     hop = n_fft // 4
     t = 2 * n_fft + 37
@@ -290,6 +500,159 @@ def test_mixed_radix_passes_cover_the_transform(n_fft):
         assert pp == p and (n_fft // 2) % (radix * p) == 0
         p *= radix
     assert p == n_fft // 2
+
+
+@pytest.mark.parametrize("n_fft", POWERS + MIXED)
+def test_one_buffer_plan_is_the_stockham_plan(n_fft):
+    """The one-buffer plan (digit-reversed load, passes in place) computes
+    the two-buffer Stockham plan's float64 values bit for bit: the same
+    butterflies and twiddles in the same order per point, in other slots."""
+    hop = n_fft // 4
+    x = torch.from_numpy(_x(1, 2 * n_fft + 37, seed=n_fft + 2))
+    assert torch.equal(stft_magnitude_fft_plain(x, n_fft, hop),
+                       stft_magnitude_stockham_plain(x, n_fft, hop))
+
+
+@pytest.mark.parametrize("n_fft", BLUESTEIN)
+def test_bluestein_plan_against_float64_rfft(n_fft):
+    """The chirp-z plan gives the float64 spectrum's magnitudes, rounded
+    once: within 2 float32 ulps each, for odd n_fft (the real frame as a
+    complex sequence) and even ones (the packed half and the post-twiddle)."""
+    hop = max(1, n_fft // 4)
+    t = 2 * n_fft + 37 if n_fft > 3 else 60
+    x = _x(2, t, seed=n_fft)
+    got = stft_magnitude_bluestein_plain(torch.from_numpy(x), n_fft, hop).numpy()
+    ref = rfft_magnitude_f64(x, n_fft, hop)
+    assert got.shape == ref.shape
+    ulp = np.spacing(ref.astype(np.float32)).astype(np.float64)
+    assert (np.abs(got - ref) / ulp).max() <= 2.0
+
+
+@pytest.mark.parametrize("n_fft,hop", [(3, 1), (17, 5), (441, 110), (2018, 504)])
+def test_bluestein_plan_matches_plain_and_pallas(n_fft, hop):
+    t = 2 * n_fft + 37 if n_fft > 3 else 60
+    x = _x(1, t, seed=n_fft + 1)
+    got = stft_magnitude_bluestein_plain(torch.from_numpy(x), n_fft, hop).numpy()
+    plain = KS.stft_magnitude_plain(torch.from_numpy(x), n_fft, hop).numpy()
+    pallas = np.asarray(JPS.stft_magnitude_pallas(jnp.asarray(x), n_fft, hop, interpret=True))
+    assert got.shape == plain.shape == pallas.shape
+    for ref in (plain, pallas):
+        np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-4 * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("n_fft", [2, 3, 17, 441, 2018, 7203, 14404])
+def test_bluestein_tables_are_the_restated_tables(n_fft):
+    """The wrapper's float64 tables (`KS.bluestein_tables`) are the restated
+    ones: the chirp table of 2L entries, the M-point table, and the
+    conjugate chirp's transform times 1/M in the DIF passes' output order
+    (equal up to the float64 rounding of the two angle expressions)."""
+    want = bluestein_tables(n_fft)
+    got = [t.numpy() for t in KS.bluestein_tables(n_fft)]
+    length, m, _ = KS.bluestein_plan(n_fft)
+    assert [g.shape for g in got] == [(2 * length, 2), (m, 2), (m, 2)]
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, w, rtol=0, atol=1e-15)
+    # the table read at j^2 mod 2L is the chirp exp(-i pi j^2 / L)
+    j = np.arange(length, dtype=np.int64)
+    c = got[0][(j * j) % (2 * length)]
+    np.testing.assert_allclose(c[:, 0] + 1j * c[:, 1], np.exp(-1j * np.pi * (j * j) / length),
+                               rtol=0, atol=1e-11)
+
+
+def test_bluestein_length_is_the_smallest_smooth():
+    """M is the smallest 7-smooth number >= 2L - 1 (the first of them by a
+    scan), so the M-point transforms run on the FFT's passes: 441 -> L 441,
+    M 882; 2018 -> L 1009, M 2025; 2 -> L 1, M 1 (the empty pass list)."""
+    assert KS.bluestein_plan(441) == (441, 882, (2, 3, 3, 7, 7))
+    assert KS.bluestein_plan(2018) == (1009, 2025, (3, 3, 3, 3, 5, 5))
+    assert KS.bluestein_plan(2) == (1, 1, ())
+    for n in range(1, 3000):
+        m = KS.smooth_at_least(n)
+        assert m >= n and KS.transform_passes(m) or m == 1
+        assert all(not KS.transform_passes(v) for v in range(max(n, 2), m)), n
+
+
+def test_route_boundaries():
+    """FFT_MAX is the largest n_fft whose one-frame plan (8 n_fft bytes)
+    fits a block; BLUESTEIN_MAX_M the largest M whose (16 M bytes) does.
+    The largest n_fft each route takes: 28812 (FFT), 7203 (odd) and 14404
+    (even) on the chirp-z route, M 14406 = 2 x 3 x 7^4 the largest 7-smooth
+    number within its limit; one past them the next route takes over."""
+    assert 8 * KS.FFT_MAX <= KS.MAX_SMEM < 8 * (KS.FFT_MAX + 1)
+    assert 16 * KS.BLUESTEIN_MAX_M <= KS.MAX_SMEM < 16 * (KS.BLUESTEIN_MAX_M + 1)
+    assert KS.BLUESTEIN_MAX_M == 14528
+    assert max(n for n in range(28000, KS.FFT_MAX + 1, 2) if KS.fft_passes(n)) == 28812
+    assert KS.smooth_at_least(14407) > KS.BLUESTEIN_MAX_M >= KS.smooth_at_least(14406) == 14406
+    assert KS.route(7203) == KS.route(14404) == "bluestein"
+    assert KS.route(7205) == KS.route(14410) == "dft"
+    assert KS.route(28812) == "fft" and KS.route(28814) == "dft"
+    assert KS.digit_reversed(KS.transform_passes(24)).tolist() == digit_reversed(
+        transform_passes(24)).tolist()
+    for n in (1, 5, 64, 882, 2025, 6000):
+        pos = KS.digit_reversed(KS.transform_passes(n))
+        assert sorted(pos.tolist()) == list(range(n)), n
+        assert pos.tolist() == digit_reversed(transform_passes(n)).tolist(), n
+
+
+def test_slice_losses_through_the_restated_kernels_match_jax(monkeypatch):
+    """The slice as a whole: both spectral losses on a bank whose every
+    resolution takes a route of this kernel's redesign (12000 on the
+    one-buffer FFT, 2018 and 441 on the chirp-z transform; the mel loss at
+    441), with the port's autograd function fed by the restated plans in
+    place of the launches (the forward's spectrum kept, the backward
+    `stft_magnitude_backward` on it, as on the card), against the JAX
+    package's losses (XLA matmul-DFT) on a (1, 12800) pair.
+
+    Values: rtol 1e-4. The mel gradient: rtol 1e-4, atol 1e-6, as
+    tests/test_torch_stft.py holds the speech windows'. The multi-resolution
+    gradient is held, as chip_smoke.py's C3 gate holds the kernels', to the
+    float64 gradient (the port's plain path on float64 input): its relative
+    L2 distance at most 1e-5 (the float32 rounding of the backward's
+    matmuls), and no farther than the JAX package's float32 gradient, whose
+    log-magnitude term amplifies the float32 DFT's rounding at the 12000
+    frame's small bins (it reads 5.2e-2 on this pair)."""
+    plans = {"fft": stft_magnitude_fft_plain, "bluestein": stft_magnitude_bluestein_plain}
+    routes = {}
+
+    def launch(x, n_fft, hop, spectrum=False):
+        routes[n_fft] = KS.route(n_fft)
+        return plans[routes[n_fft]](x, n_fft, hop, spectrum)
+
+    monkeypatch.setattr(KS, "launch", launch)
+
+    def restated(x, n_fft, hop):
+        return KS._STFTMagnitude.apply(x, n_fft, hop)
+
+    rng = np.random.RandomState(17)
+    target = (rng.randn(1, 12800) * 0.3).astype(np.float32)
+    pred = (target + rng.randn(1, 12800) * 0.05).astype(np.float32)
+    bank = SP.MultiResSTFTConfig(fft_sizes=(12000, 2018, 441))
+    mel_kw = dict(sample_rate=16000, n_fft=441, hop=110, n_mels=80)
+
+    def port(fn, st, dtype=torch.float32):
+        p = torch.from_numpy(pred).to(dtype).requires_grad_(True)
+        loss = fn(p, torch.from_numpy(target).to(dtype), st)
+        loss.backward()
+        return loss.item(), p.grad.double().numpy()
+
+    # the multi-resolution loss
+    rv, rg = jax.value_and_grad(lambda p: JSP.multi_res_stft_loss(
+        p, jnp.asarray(target), JSP.MultiResSTFTConfig(fft_sizes=bank.fft_sizes)))(
+            jnp.asarray(pred))
+    loss_fn = lambda p, t, st: SP.multi_res_stft_loss(p, t, bank, stft=st)  # noqa: E731
+    value, grad = port(loss_fn, restated)
+    _, g64 = port(loss_fn, KS.stft_magnitude_plain, torch.float64)
+    np.testing.assert_allclose(value, float(rv), rtol=1e-4)
+    dist = np.linalg.norm(grad - g64) / np.linalg.norm(g64)
+    dist_jax = np.linalg.norm(np.asarray(rg, np.float64) - g64) / np.linalg.norm(g64)
+    assert dist <= 1e-5 and dist <= dist_jax, (dist, dist_jax)
+    # the mel loss
+    rv, rg = jax.value_and_grad(lambda p: JSP.mel_loss(p, jnp.asarray(target), **mel_kw))(
+        jnp.asarray(pred))
+    value, grad = port(lambda p, t, st: SP.mel_loss(p, t, **mel_kw, stft=st), restated)
+    np.testing.assert_allclose(value, float(rv), rtol=1e-4)
+    np.testing.assert_allclose(grad, np.asarray(rg), rtol=1e-4, atol=1e-6)
+    assert routes == {12000: "fft", 2018: "bluestein", 441: "bluestein"}
 
 
 @pytest.mark.parametrize("n_fft,hop", [(2, 1), (3, 1), (17, 5), (441, 110), (2018, 504),
