@@ -42,17 +42,24 @@ every plain version compared here run their float32 work under
               launch shapes (B=64, T=16000), at the k4_any bank's six and
               at K4_MIXED_SHAPES (speech windows, 8192, 12000), the
               chirp-z route at K4_BLUESTEIN_SHAPES (441, 2018, 2), both at
-              the k4_chirp bank's four, the DFT remainder at K4_DFT_SHAPES
-              (8191), each with its launch counted on its route's counter
-              and against float64 magnitudes (FFT and chirp-z: 2 float32
-              ulps; remainder: 2^-23 of the frame's peak, the plain
-              float32 sums' reading beside it as a control); the
-              spectral losses through the kernel against the plain path
-              (values; the mel gradient), and the multi-resolution
-              gradient of the kernel, the float32 matmul-DFT path and the
-              float32 rfft path against a float64 matmul-DFT gradient, on
-              five noise seeds, for the shipped bank, the k4_any bank and
-              the k4_chirp bank
+              the k4_chirp bank's four, the chirp-z cluster route at
+              K4_CLUSTER_SHAPES (8191, 11025, 30000, 31999: clusters of 2,
+              2, 4 and 8 blocks) and, with the FFT route, at the
+              k4_cluster bank's four, the DFT remainder at K4_DFT_SHAPES
+              (60001, beyond an 8-block cluster, on K4_DFT_ROWS x 4 s),
+              each with its launch counted on its route's counter and
+              against float64 magnitudes (FFT and both chirp-z routes: 2
+              float32 ulps; remainder: 2^-23 of the frame's peak, the
+              plain float32 sums' reading beside it as a control); the
+              cluster kernel bit for bit against the one-block chirp-z
+              kernel given the same M and pass list (K4_CLUSTER_EQUAL:
+              441 and 2018 at C 2, 4 and 8); the spectral losses through
+              the kernel against the plain path (values; the mel
+              gradient), and the multi-resolution gradient of the kernel,
+              the float32 matmul-DFT path and the float32 rfft path
+              against a float64 matmul-DFT gradient, on five noise seeds,
+              for the shipped bank, the k4_any bank, the k4_chirp bank
+              and the k4_cluster bank
   4. main     serving: for each serving path, reconstruct with the launch
               counters reset just before and read just after (its stage
               kernel x8, K2 and its codebook split x1, K3 x1); a
@@ -122,6 +129,9 @@ every plain version compared here run their float32 work under
               k4_chirp: the same with the loss STFTs at 12000/2018/441 and
               the mel STFT at 441: K4's FFT route x2 (12000, one-buffer
               plan) and chirp-z route x6 a step.
+              k4_cluster: the same with the loss STFTs at 11025/8191/1024
+              and the mel STFT at 1024: K4's chirp-z cluster route x4 and
+              FFT route x4 a step.
               loop: the entry point (`loop.parse_args`, then `loop.run`
               with a metrics row per step) at full width on a WAV
               directory (synthetic2 rows and speech-probe rows, one at
@@ -199,8 +209,10 @@ every plain version compared here run their float32 work under
               memory and split; each kernel's time beside its plain
               version's, its bound and a PyTorch yardstick where one call
               computes the same function (K4 at every shape it checks, the
-              kernel and `torch.stft` + `abs` in turns, and at the k4_any
-              and k4_chirp banks'); K4's backward beside its forward
+              kernel and `torch.stft` + `abs` in turns, and at the k4_any,
+              k4_chirp and k4_cluster banks'; at the cluster shapes the
+              DFT remainder's time beside the cluster kernel's); K4's
+              backward beside its forward
               and beside the plain recompute it replaced; K3 beside the
               row-warp design and beside its L2 gather floor (the bytes it gathers
               over the L2 read rate of one PyTorch reduction of an
@@ -302,7 +314,22 @@ K4_F64_L2_TOL = 1.0315e-2
 K4_MIXED_SHAPES = ((400, 100), (320, 80), (480, 120), (882, 220), (960, 240), (8192, 2048),
                    (12000, 3000))
 K4_BLUESTEIN_SHAPES = ((441, 110), (2018, 504), (2, 1))
-K4_DFT_SHAPES = ((8191, 2048),)
+# The chirp-z cluster route (the chirp-z transform over a thread-block
+# cluster's distributed shared memory: odd n_fft 7,205-57,599, even ones
+# 14,408-115,200 off the FFT route) at odd n_fft above the one-block plan's
+# limit (8191: C 2; 11025, 250 ms at 44.1 kHz: C 2; 31999: C 8) and a smooth
+# even one above the FFT's (30000: C 4); each also timed beside the DFT
+# remainder's kernel at the same shape (called through its C entry point,
+# uncounted). The cluster kernel bit for bit against the one-block kernel
+# given the same M and pass list: (n_fft, C) at shapes both run.
+K4_CLUSTER_SHAPES = ((8191, 2048), (11025, 2756), (30000, 7500), (31999, 8000))
+K4_CLUSTER_EQUAL = tuple((n, c) for n in (441, 2018) for c in (2, 4, 8))
+# The remainder beyond an 8-block cluster: 60001 (odd, L 60001) on
+# K4_DFT_ROWS rows of 4 s (its plain version's two float32 bases are 14.4
+# GB on the card; their float64 construction on the host is dropped after
+# the shape's checks)
+K4_DFT_SHAPES = ((60001, 15000),)
+K4_DFT_ROWS, K4_DFT_SAMPLES = 4, 64000
 K4_F64_ULPS = 2.0
 K4_DFT_F64_TOL = 2.0 ** -23
 # The k4_any phase: base_fast trained at full width (TrainConfig defaults
@@ -319,8 +346,16 @@ K4_ANY_SHAPES = tuple((n, n // 4) for n in K4_ANY_BANK + (K4_ANY_MEL,))
 # its multi-resolution gradient is gated on K4_GRAD_SEEDS.
 K4_CHIRP_BANK, K4_CHIRP_MEL = (12000, 2018, 441), 441
 K4_CHIRP_SHAPES = tuple((n, n // 4) for n in K4_CHIRP_BANK + (K4_CHIRP_MEL,))
+# The k4_cluster phase: the same, with a bank whose two longest
+# resolutions take the cluster route (11025 and 8191) and 1024 the FFT, the
+# mel STFT at 1024; K4_ANY_STEPS steps. Its launch shapes are also held
+# against plain and float64, and its multi-resolution gradient is gated on
+# K4_GRAD_SEEDS.
+K4_CLUSTER_BANK, K4_CLUSTER_MEL = (11025, 8191, 1024), 1024
+K4_CLUSTER_BANK_SHAPES = tuple((n, n // 4) for n in K4_CLUSTER_BANK + (K4_CLUSTER_MEL,))
 # the route each checked K4 shape must take
 K4_ROUTE = {**{n: "bluestein" for n, _ in K4_BLUESTEIN_SHAPES},
+            **{n: "bluestein_cluster" for n, _ in K4_CLUSTER_SHAPES},
             **{n: "dft" for n, _ in K4_DFT_SHAPES}, 2018: "bluestein", 441: "bluestein"}
 # K2's streamed plan (padded widths over 128): (n_q, K, D) at M frames
 K2_WIDE = ((8, 1024, 256), (4, 1024, 384))
@@ -480,9 +515,13 @@ def kernel_label(symbol: str) -> str:
     stage kernels as name<dtype,activation[,tc]>."""
     m = re.search(r"(residual_stack_cl|residual_stack|fused_stage|rvq_quantize"
                   r"|rvq_dequantize_rowwarp|rvq_dequantize|rvq_split_planes|stft_magnitude_dft"
-                  r"|stft_magnitude_bluestein|stft_magnitude)(_tc)?_kernel", symbol)
+                  r"|stft_magnitude_bluestein_cluster|stft_magnitude_bluestein|stft_magnitude)"
+                  r"(_tc)?_kernel", symbol)
     if m is None:
         return symbol
+    if m.group(1) == "stft_magnitude_bluestein_cluster":  # one instantiation per cluster size
+        c = re.search(r"_kernelILi(\d)E", symbol)
+        return "stft_magnitude_bluestein_cluster<%s>" % (c.group(1) if c else "?")
     if m.group(1) == "stft_magnitude":
         return "stft_magnitude<%s>" % ("pairs" if "Lb1E" in symbol else "one pass")
     if m.group(1) == "rvq_quantize":
@@ -527,7 +566,12 @@ def hmma_counts(lib_path: str, cuda_bin: str) -> dict:
 # reconstruction's launches also write for the backward (spectrum_bytes_ms)
 # and the FFT's operations at the float64 rate it computes in (f64_ops_ms).
 def k4_bound(b, t, n_fft, hop):
-    frames, bins = 1 + t // hop, n_fft // 2 + 1
+    from nsc_tpu_torch.ops import stft as S
+
+    # the frames the wrapper writes (an odd n_fft loses the last one where
+    # hop divides t)
+    frames = S.num_frames(t + 2 * (n_fft // 2), n_fft, hop, center=False)
+    bins = n_fft // 2 + 1
     flops = b * frames * (2.5 * n_fft * math.log2(n_fft) + n_fft + 4 * bins)
     nbytes = 4 * (b * t + b * frames * bins + n_fft)
     spectrum_bytes = 4 * 2 * b * frames * bins
@@ -575,11 +619,12 @@ def plain_stft():
             setattr(SP, name, fn)
 
 
-def k4_timing(pred, target, n_fft, hop, events_ms) -> dict:
+def k4_timing(pred, target, n_fft, hop, events_ms, plain_reps=3) -> dict:
     """One K4 launch shape on 64 x 1 s: the kernel on the target (`ms`) and
     on the reconstruction keeping the spectrum (`ms_spectrum`, as the loss
-    launches it), its plain version, `torch.stft` + `abs`, in turns
-    (kernel, library, library, kernel), and the bound."""
+    launches it), its plain version (mean of `plain_reps` calls after one),
+    `torch.stft` + `abs`, in turns (kernel, library, library, kernel), and
+    the bound."""
     import torch
 
     from nsc_tpu_torch.kernels import stft as KS
@@ -591,7 +636,7 @@ def k4_timing(pred, target, n_fft, hop, events_ms) -> dict:
     library = lambda: torch_stft_abs(target, n_fft, hop, win)  # noqa: E731
     turns = [events_ms(fn, reps=10) for fn in (kernel, library, library, kernel)]
     with float32_numerics():
-        plain_ms = events_ms(lambda: KS.stft_magnitude_plain(target, n_fft, hop), reps=3)
+        plain_ms = events_ms(lambda: KS.stft_magnitude_plain(target, n_fft, hop), reps=plain_reps)
     b, t = target.shape
     _, _, bytes_ms, ops_ms, _, f64_ops_ms = k4_bound(b, t, n_fft, hop)
     row = {"route": KS.route(n_fft), "n_fft": n_fft, "hop": hop, "B": b, "T": t,
@@ -602,6 +647,203 @@ def k4_timing(pred, target, n_fft, hop, events_ms) -> dict:
            "bound_by": "bytes" if bytes_ms > ops_ms else "operations", "f64_ops_ms": f64_ops_ms}
     del win
     return row
+
+
+def k4_check(x, n_fft, hop, what: str):
+    """K4 at one launch shape on x, with the counters around it: its route
+    (K4_ROUTE), one launch on its counter and none on another, the plain
+    version's shape, finite values, within K4_TOL x max|plain| of the plain
+    version, and against float64 magnitudes (FFT and chirp-z routes:
+    K4_F64_ULPS float32 ulps; the remainder: K4_DFT_F64_TOL of the frame's
+    peak), the plain version's float32 sums' reading beside it as a
+    control. Returns (route, max abs error, float64 reading, control)."""
+    import torch
+
+    from nsc_tpu_torch import kernels
+    from nsc_tpu_torch.kernels import stft as KS
+    from nsc_tpu_torch.ops.precision import float32_numerics
+
+    kind = KS.route(n_fft)
+    check(kind == K4_ROUTE.get(n_fft, "fft"), f"K4 n_fft={n_fft}: route {kind}")
+    name = KS.COUNTERS[kind]
+    kernels.reset_launches()
+    got = KS.stft_magnitude(x, n_fft, hop)
+    torch.cuda.synchronize()
+    launched = {k: kernels.LAUNCHES[k] for k in KS.COUNTERS.values()}
+    with float32_numerics():
+        ref = KS.stft_magnitude_plain(x, n_fft, hop)
+    err = (got - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    m64 = k4_float64(x, n_fft, hop)
+    unit = f32_ulp(m64) if kind != "dft" else m64.amax(-1, keepdim=True)
+    f64 = ((got.double() - m64).abs() / unit).max().item()
+    control = ((ref.double() - m64).abs() / unit).max().item()
+    measure = "float64_max_ulps" if kind != "dft" else "float64_max_err_over_frame_peak"
+    emit({"phase": "kernel_check", "kernel": name, "route": kind,
+          "input": what, "B": x.shape[0], "T": x.shape[1], "n_fft": n_fft, "hop": hop,
+          "shape": list(got.shape), "launches": launched, "max_abs_err": err,
+          "max_abs_ref": scale, "max_rel_err": err / scale, measure: f64,
+          "plain_float32_control": control})
+    check(launched == {k: int(k == name) for k in KS.COUNTERS.values()},
+          f"K4 n_fft={n_fft}: launches {launched}")
+    check(tuple(got.shape) == tuple(ref.shape), f"K4 n_fft={n_fft}: shape")
+    check(torch.isfinite(got).all().item(), f"K4 n_fft={n_fft}: non-finite output")
+    check(err <= K4_TOL * scale, f"K4 n_fft={n_fft} {what}: max abs err {err}")
+    check(f64 <= (K4_F64_ULPS if kind != "dft" else K4_DFT_F64_TOL),
+          f"K4 n_fft={n_fft} {what}: {f64} from float64")
+    return kind, err, f64, control
+
+
+# The plain version's bases at the largest n_fft chip_smoke.py checks are
+# built by numpy in float64 on the host: ~2 minutes of one core for 60001
+# (~40 GB at the peak), ~30 s each for 30000 and 31999. Two threads build
+# them (numpy's loops release the interpreter lock: 60001 on one, 31999 and
+# 30000 on the other, ~55 GB at the peak) while the CLI phase runs, which
+# takes no timing (its subprocesses' wall seconds are printed, not used);
+# the phase after it waits for them, so no timed phase runs beside them.
+PLAIN_BASIS_PREFETCH = (tuple(n for n, _ in K4_DFT_SHAPES), (31999, 30000))
+# the cluster shapes checked and timed with the remainder, before the other
+# K4 checks, while their prefetched bases are cached
+K4_CLUSTER_LARGE = tuple((n, h) for n, h in K4_CLUSTER_SHAPES
+                         if n in sum(PLAIN_BASIS_PREFETCH, ()))
+
+
+def plain_basis_prefetch():
+    """Start building the float32 plain bases of PLAIN_BASIS_PREFETCH into
+    `ops.stft`'s cache, a thread for each group; returns a join() that
+    re-raises what a thread raised and returns each n_fft's build seconds."""
+    import threading
+
+    import numpy as np
+
+    from nsc_tpu_torch.ops import stft as S
+
+    failure, seconds = [], {}
+
+    def build(group):
+        try:
+            for n_fft in group:
+                t0 = time.perf_counter()
+                S._dft_basis_np(n_fft, np.float32)
+                seconds[n_fft] = time.perf_counter() - t0
+        except BaseException as e:  # re-raised by join
+            failure.append(e)
+
+    threads = [threading.Thread(target=build, args=(group,), name="plain-basis-prefetch",
+                                daemon=True) for group in PLAIN_BASIS_PREFETCH]
+    for thread in threads:
+        thread.start()
+
+    def join():
+        for thread in threads:
+            thread.join()
+        if failure:
+            raise failure[0]
+        return seconds
+
+    return join
+
+
+def k4_remainder_smoke(dev, card, events_ms) -> dict:
+    """The DFT remainder, which no 8-block cluster's n_fft reaches: at
+    K4_DFT_SHAPES on K4_DFT_ROWS x 4 s of N(0, 0.3^2) noise, checked
+    (`k4_check`) and timed (`k4_timing`, its plain version once after one:
+    each plain call copies its 14.4 GB of bases to the card); then the
+    plain version's cached bases are dropped (the other K4 checks build
+    theirs after it). Returns the kernels-line entry of
+    stft_magnitude_dft."""
+    import torch
+
+    from nsc_tpu_torch.kernels import stft as KS
+    from nsc_tpu_torch.ops import stft as S
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    x = torch.randn(K4_DFT_ROWS, K4_DFT_SAMPLES, device=dev, generator=gen) * 0.3
+    err, f64, control, rows = 0.0, 0.0, {}, []
+    with torch.no_grad():
+        for n_fft, hop in K4_DFT_SHAPES:
+            _, e, f, c = k4_check(x, n_fft, hop, "target")
+            err, f64, control[f"{n_fft}/{hop}"] = max(err, e), max(f64, f), c
+            row = k4_timing(x, x, n_fft, hop, events_ms, plain_reps=1)
+            emit({"phase": "timing", "kernel": KS.COUNTERS[row["route"]], **row, "card": card})
+            rows.append(row)
+    S._dft_basis_np.cache_clear()
+    torch.cuda.empty_cache()
+    dft = rows[0]
+    keys = ("n_fft", "hop", "B", "T", "ms", "plain_ms", "library_ms", "bound_ms")
+    return {"name": "stft_magnitude_dft", "route": "cuda",
+            "source": "nsc_tpu_torch/csrc/stft.cu", "replaces": "nsc_tpu/ops/pallas/stft.py:80",
+            "domain": "every n_fft no 8-block cluster holds (odd above 57,599, even above "
+                      "115,200 off the FFT route)",
+            "per": f"one launch at n_fft {dft['n_fft']}, hop {dft['hop']}, on "
+                   f"{K4_DFT_ROWS} x {K4_DFT_SAMPLES}",
+            "max_abs_err": err, "float64_max_err_over_frame_peak": f64,
+            "float64_limit": K4_DFT_F64_TOL, "plain_float32_control": control,
+            **{k: dft[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            "shapes": [{k: r[k] for k in keys} for r in rows]}
+
+
+def k4_remainder(x, n_fft, hop, events_ms) -> dict:
+    """The DFT remainder's kernel at a shape the cluster route now takes,
+    through its C entry point (no launch counted): its time (`remainder_ms`,
+    mean of 2 launches after one), how far its magnitudes lie from the
+    cluster kernel's (both float64, rounded once), and from float64 rfft's
+    over each frame's peak, gated at K4_DFT_F64_TOL as `k4_check` gates the
+    remainder (so its even branch stays checked: 30000); with the cluster
+    plan's C and M."""
+    import torch
+
+    from nsc_tpu_torch.kernels import _build
+    from nsc_tpu_torch.kernels import stft as KS
+
+    lib = _build.library()
+    win, tw = KS._constants(n_fft, x.device)
+    got = KS.stft_magnitude(x, n_fft, hop)
+    out = torch.empty_like(got)
+
+    def call():
+        _build.check(lib.nsc_stft_magnitude_dft(
+            x.data_ptr(), win.data_ptr(), tw.data_ptr(), out.data_ptr(), None, None, x.shape[0],
+            x.shape[1], n_fft, hop, out.shape[1], torch.cuda.current_stream(x.device).cuda_stream),
+            "nsc_stft_magnitude_dft")
+
+    ms = events_ms(call, reps=2)
+    m64 = k4_float64(x, n_fft, hop)
+    f64 = ((out.double() - m64).abs() / m64.amax(-1, keepdim=True)).max().item()
+    check(f64 <= K4_DFT_F64_TOL, f"K4 remainder at n_fft {n_fft}: {f64} of the frame's peak "
+          "from float64")
+    _, m, c, _ = KS.chirp_plan(n_fft)
+    return {"remainder_ms": ms, "remainder_max_abs_diff": (out - got).abs().max().item(),
+            "remainder_float64_max_err_over_frame_peak": f64, "C": c, "M": m}
+
+
+def k4_cluster_equal(dev, gen) -> None:
+    """The cluster kernel against the one-block chirp-z kernel given the
+    same M and pass list (`KS.bluestein_cluster_plan(n_fft, C)`, run by both
+    through `KS.launch_chirp`) at K4_CLUSTER_EQUAL, magnitudes and spectrum:
+    equal bit for bit (the same butterflies and twiddles per point)."""
+    import torch
+
+    from nsc_tpu_torch import kernels
+    from nsc_tpu_torch.kernels import stft as KS
+
+    rows = []
+    for n_fft, c in K4_CLUSTER_EQUAL:
+        x = torch.randn(3, 4 * n_fft + 37, device=dev, generator=gen) * 0.3
+        plan = KS.bluestein_cluster_plan(n_fft, c)
+        kernels.reset_launches()
+        one = KS.launch_chirp(x, n_fft, n_fft // 4, (plan[0], plan[1], 1, plan[3]), spectrum=True)
+        got = KS.launch_chirp(x, n_fft, n_fft // 4, plan, spectrum=True)
+        torch.cuda.synchronize()
+        equal = all(torch.equal(a, b) for a, b in zip(one, got))
+        launched = {k: kernels.LAUNCHES[k] for k in KS.COUNTERS.values() if kernels.LAUNCHES[k]}
+        rows.append({"n_fft": n_fft, "C": c, "M": plan[1], "passes": list(plan[3]),
+                     "bit_equal": equal, "launches": launched})
+        check(equal, f"K4 cluster kernel at n_fft {n_fft}, C {c}: not the one-block kernel's values")
+        check(launched == {"stft_magnitude_bluestein": 1, "stft_magnitude_bluestein_cluster": 1},
+              f"K4 cluster equality at n_fft {n_fft}: launches {launched}")
+    emit({"phase": "kernel_check", "kernel": "stft_magnitude_bluestein_cluster",
+          "against": "stft_magnitude_bluestein at the same M and pass list", "cases": rows})
 
 
 def stage_list(cfg, t_len: int) -> list:
@@ -685,10 +927,12 @@ def k1_bound(x, p, dil, products: int = 1):
 
 def train_smoke(dev, card, events_ms):
     """Phases 3-5 of the training path: stft_magnitude against its plain
-    version and float64 on its three routes, the C3 gradient gate, the
-    full-width training steps with the launch counters, the entry point
-    with a resume, and the timings. Returns the kernels-line entries of
-    stft_magnitude (the FFT route), stft_magnitude_bluestein and
+    version and float64 on its four routes, the cluster kernel against the
+    one-block chirp-z kernel, the C3 gradient gate, the full-width training
+    steps with the launch counters, the entry point with a resume, and the
+    timings (the largest shapes' and the remainder's first, with their
+    checks). Returns the kernels-line entries of stft_magnitude (the FFT
+    route), stft_magnitude_bluestein, stft_magnitude_bluestein_cluster and
     stft_magnitude_dft and the training path's launch counts."""
     import tempfile
 
@@ -721,66 +965,58 @@ def train_smoke(dev, card, events_ms):
 
     # 3. stft_magnitude against its plain version and float64 ------------
     # the launch shapes of a step (the FFT route), of the shipped bank (five
-    # resolutions and the mel STFT), of the k4_any bank and of the k4_chirp
-    # bank, each on the reconstruction and on the target; then the other
-    # FFT-route shapes, the chirp-z route's and the remainder's, on the
-    # target; each call with the counters around it
+    # resolutions and the mel STFT), of the k4_any, k4_chirp and k4_cluster
+    # banks, each on the reconstruction and on the target; then the other
+    # FFT-route shapes and the chirp-z routes', on the target (the
+    # remainder's: `k4_remainder_smoke`); each call with the counters
+    # around it
     shapes = [(n, n // 4) for n in tcfg.stft_fft_sizes] + [(tcfg.mel_fft_size, tcfg.mel_fft_size // 4)]
-    in_steps = set(shapes) | set(K4_ANY_SHAPES) | set(K4_CHIRP_SHAPES)
+    in_steps = set(shapes) | set(K4_ANY_SHAPES) | set(K4_CHIRP_SHAPES) | set(K4_CLUSTER_BANK_SHAPES)
     checked = dict.fromkeys(shapes + list(K4_ANY_SHAPES) + list(K4_CHIRP_SHAPES)
-                            + list(K4_MIXED_SHAPES) + list(K4_BLUESTEIN_SHAPES)
-                            + list(K4_DFT_SHAPES))
+                            + list(K4_CLUSTER_BANK_SHAPES) + list(K4_MIXED_SHAPES)
+                            + list(K4_BLUESTEIN_SHAPES) + list(K4_CLUSTER_SHAPES))
     k4_err = dict.fromkeys(KS.COUNTERS, 0.0)
     k4_f64 = dict.fromkeys(KS.COUNTERS, 0.0)  # max ulps; max error over the frame's peak
-    k4_control = {}  # the plain version's float32 sums, the same measure, per remainder shape
+    t_checks = time.perf_counter()
     with torch.no_grad():
+        # first the largest: the cluster route's shapes whose plain bases
+        # were prefetched, checked and timed (`k4_rows`), then the remainder's
+        # (which drops the cached bases)
+        k4_rows = {}
+        for n_fft, hop in K4_CLUSTER_LARGE:
+            kind, err, f64, _ = k4_check(target, n_fft, hop, "target")
+            k4_err[kind] = max(k4_err[kind], err)
+            k4_f64[kind] = max(k4_f64[kind], f64)
+            k4_rows[n_fft, hop] = row = k4_timing(pred, target, n_fft, hop, events_ms)
+            row.update(k4_remainder(target, n_fft, hop, events_ms))
+            emit({"phase": "timing", "kernel": KS.COUNTERS[row["route"]], **row, "card": card})
+        dft_entry = k4_remainder_smoke(dev, card, events_ms)
+        emit({"phase": "timing", "what": "k4_large_shapes",
+              "seconds": time.perf_counter() - t_checks})
         for n_fft, hop in checked:
-            kind = KS.route(n_fft)
-            check(kind == K4_ROUTE.get(n_fft, "fft"), f"K4 n_fft={n_fft}: route {kind}")
-            name = KS.COUNTERS[kind]
-            for what, x in (("pred", pred), ("target", target)):
-                if (n_fft, hop) not in in_steps and what == "pred":
-                    continue
-                kernels.reset_launches()
-                got = KS.stft_magnitude(x, n_fft, hop)
-                torch.cuda.synchronize()
-                launched = {k: kernels.LAUNCHES[k] for k in KS.COUNTERS.values()}
-                with float32_numerics():
-                    ref = KS.stft_magnitude_plain(x, n_fft, hop)
-                err = (got - ref).abs().max().item()
-                scale = ref.abs().max().item()
-                m64 = k4_float64(x, n_fft, hop)
-                unit = f32_ulp(m64) if kind != "dft" else m64.amax(-1, keepdim=True)
-                f64 = ((got.double() - m64).abs() / unit).max().item()
-                control = ((ref.double() - m64).abs() / unit).max().item()
-                measure = "float64_max_ulps" if kind != "dft" else "float64_max_err_over_frame_peak"
-                emit({"phase": "kernel_check", "kernel": name, "route": kind,
-                      "input": what, "B": x.shape[0], "T": x.shape[1], "n_fft": n_fft, "hop": hop,
-                      "shape": list(got.shape), "launches": launched, "max_abs_err": err,
-                      "max_abs_ref": scale, "max_rel_err": err / scale, measure: f64,
-                      "plain_float32_control": control})
-                if kind == "dft":
-                    k4_control[f"{n_fft}/{hop}"] = control
-                check(launched == {k: int(k == name) for k in KS.COUNTERS.values()},
-                      f"K4 n_fft={n_fft}: launches {launched}")
-                check(tuple(got.shape) == tuple(ref.shape), f"K4 n_fft={n_fft}: shape")
-                check(torch.isfinite(got).all().item(), f"K4 n_fft={n_fft}: non-finite output")
-                check(err <= K4_TOL * scale, f"K4 n_fft={n_fft} {what}: max abs err {err}")
-                check(f64 <= (K4_F64_ULPS if kind != "dft" else K4_DFT_F64_TOL),
-                      f"K4 n_fft={n_fft} {what}: {f64} from float64")
+            if (n_fft, hop) in k4_rows:
+                continue
+            inputs = (("pred", pred), ("target", target)) if (n_fft, hop) in in_steps else (
+                ("target", target),)
+            for what, x in inputs:
+                kind, err, f64, _ = k4_check(x, n_fft, hop, what)
                 k4_err[kind] = max(k4_err[kind], err)
                 k4_f64[kind] = max(k4_f64[kind], f64)
-                del got, ref, m64, unit
+        k4_cluster_equal(dev, gen)
+    emit({"phase": "timing", "what": "k4_checks", "seconds": time.perf_counter() - t_checks})
 
     mrstft = SP.MultiResSTFTConfig(fft_sizes=tcfg.stft_fft_sizes)
     mrstft_any = SP.MultiResSTFTConfig(fft_sizes=K4_ANY_BANK)
     mrstft_chirp = SP.MultiResSTFTConfig(fft_sizes=K4_CHIRP_BANK)
+    mrstft_cluster = SP.MultiResSTFTConfig(fft_sizes=K4_CLUSTER_BANK)
     losses = {
         "multi_res_stft": lambda p, st: SP.multi_res_stft_loss(p, target, mrstft, stft=st),
         "multi_res_stft_k4_any": lambda p, st: SP.multi_res_stft_loss(p, target, mrstft_any,
                                                                       stft=st),
         "multi_res_stft_k4_chirp": lambda p, st: SP.multi_res_stft_loss(p, target, mrstft_chirp,
                                                                         stft=st),
+        "multi_res_stft_k4_cluster": lambda p, st: SP.multi_res_stft_loss(
+            p, target, mrstft_cluster, stft=st),
         "mel": lambda p, st: SP.mel_loss(
             p, target, sample_rate=cfg.sample_rate, n_fft=tcfg.mel_fft_size,
             hop=tcfg.mel_fft_size // 4, n_mels=tcfg.mel_bins, stft=st),
@@ -795,13 +1031,14 @@ def train_smoke(dev, card, events_ms):
         return value.item(), grad
 
     # the mel loss on seed 2; the multi-resolution loss, on the shipped bank,
-    # the k4_any bank and the k4_chirp bank, on every seed of K4_GRAD_SEEDS,
+    # the k4_any, k4_chirp and k4_cluster banks, on every seed of K4_GRAD_SEEDS,
     # each gradient against the float64 one (max-abs figures printed, the
     # relative L2 distances gated)
     t_grad = time.perf_counter()
     for name, seeds in (("mel", (2,)), ("multi_res_stft", K4_GRAD_SEEDS),
                         ("multi_res_stft_k4_any", K4_GRAD_SEEDS),
-                        ("multi_res_stft_k4_chirp", K4_GRAD_SEEDS)):
+                        ("multi_res_stft_k4_chirp", K4_GRAD_SEEDS),
+                        ("multi_res_stft_k4_cluster", K4_GRAD_SEEDS)):
         fn = losses[name]
         for seed in seeds:
             p = pred if seed == 2 else noisy(seed)
@@ -903,7 +1140,7 @@ def train_smoke(dev, card, events_ms):
     expect = dict.fromkeys(kernels.LAUNCHES, 0)
     expect.update({"rvq_quantize": init_k2 + n_steps, "rvq_split_planes": init_k2 + n_steps,
                    "stft_magnitude": 12 * n_steps})
-    # (stft_magnitude_bluestein and _dft stay 0: every training n_fft takes the FFT)
+    # (the chirp-z routes and _dft stay 0: every training n_fft takes the FFT)
     check(data_init_launches["rvq_quantize"] == data_init_launches["rvq_split_planes"] == init_k2,
           f"data-init launches {data_init_launches}")
     check(launches == expect, f"training launch counts {launches}, expected {expect}")
@@ -997,19 +1234,24 @@ def train_smoke(dev, card, events_ms):
                 k4[key] += 2 * v
         emit({"phase": "timing", "kernel": "stft_magnitude",
               "per": "train step (12 forward launches, 6 backwards)", **k4, "card": card})
-        # the other FFT-route shapes, the chirp-z route's and the
-        # remainder's, one launch each
-        rows = {}
-        for n_fft, hop in K4_MIXED_SHAPES + K4_BLUESTEIN_SHAPES + K4_DFT_SHAPES:
-            rows[n_fft, hop] = row = k4_timing(pred, target, n_fft, hop, events_ms)
+        # the other FFT-route shapes and the chirp-z routes' (the cluster
+        # route's beside the remainder's kernel at the same shape; the
+        # largest were timed with their checks), one launch each
+        for n_fft, hop in K4_MIXED_SHAPES + K4_BLUESTEIN_SHAPES + K4_CLUSTER_SHAPES:
+            if (n_fft, hop) in k4_rows:
+                continue
+            k4_rows[n_fft, hop] = row = k4_timing(pred, target, n_fft, hop, events_ms)
+            if row["route"] == "bluestein_cluster":
+                row.update(k4_remainder(target, n_fft, hop, events_ms))
             emit({"phase": "timing", "kernel": KS.COUNTERS[row["route"]], **row, "card": card})
-        at_400 = rows[400, 100]
+
+        at_400 = k4_rows[400, 100]
         emit({"phase": "timing", "kernel": "stft_magnitude", "n_fft": 400, "hop": 100,
               "ms": at_400["ms"], "library_ms": at_400["library_ms"],
               "kernel_over_library": at_400["ms"] / at_400["library_ms"],
               "no_slower_than_library": at_400["ms"] <= at_400["library_ms"], "card": card})
-    keys = ("n_fft", "hop", "ms", "plain_ms", "library_ms", "bound_ms")
-    dft, blu = rows[K4_DFT_SHAPES[0]], rows[K4_BLUESTEIN_SHAPES[0]]
+    keys = ("n_fft", "hop", "B", "T", "ms", "plain_ms", "library_ms", "bound_ms")
+    blu, clu = k4_rows[K4_BLUESTEIN_SHAPES[0]], k4_rows[K4_CLUSTER_SHAPES[0]]
     summaries = [
         {"name": "stft_magnitude", "route": "cuda", "source": "nsc_tpu_torch/csrc/stft.cu",
          "replaces": "nsc_tpu/ops/pallas/stft.py:80",
@@ -1019,7 +1261,7 @@ def train_smoke(dev, card, events_ms):
          "ms": k4["ms"], "plain_ms": k4["plain_ms"], "bound_ms": k4["bound_ms"],
          "bound_by": "bytes" if k4["bytes_ms"] > k4["ops_ms"] else "operations",
          "library_ms": k4["library_ms"],
-         "shapes": [{k: r[k] for k in keys} for r in rows.values() if r["route"] == "fft"]},
+         "shapes": [{k: r[k] for k in keys} for r in k4_rows.values() if r["route"] == "fft"]},
         {"name": "stft_magnitude_bluestein", "route": "cuda",
          "source": "nsc_tpu_torch/csrc/stft.cu", "replaces": "nsc_tpu/ops/pallas/stft.py:80",
          "domain": "every other n_fft >= 2 whose chirp-z length M (the smallest 7-smooth "
@@ -1027,16 +1269,19 @@ def train_smoke(dev, card, events_ms):
          "per": f"one launch at n_fft {blu['n_fft']}, hop {blu['hop']}",
          "max_abs_err": k4_err["bluestein"], "float64_max_ulps": k4_f64["bluestein"],
          **{k: blu[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
-         "shapes": [{k: r[k] for k in keys} for r in rows.values() if r["route"] == "bluestein"]},
-        {"name": "stft_magnitude_dft", "route": "cuda", "source": "nsc_tpu_torch/csrc/stft.cu",
-         "replaces": "nsc_tpu/ops/pallas/stft.py:80",
-         "domain": "every n_fft the other two do not take (odd or a non-smooth half beyond "
-                   f"the chirp-z limit, a smooth even n_fft above {KS.FFT_MAX})",
-         "per": f"one launch at n_fft {dft['n_fft']}, hop {dft['hop']}",
-         "max_abs_err": k4_err["dft"], "float64_max_err_over_frame_peak": k4_f64["dft"],
-         "float64_limit": K4_DFT_F64_TOL, "plain_float32_control": k4_control,
-         **{k: dft[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
-         "shapes": [{k: r[k] for k in keys} for r in rows.values() if r["route"] == "dft"]},
+         "shapes": [{k: r[k] for k in keys} for r in k4_rows.values() if r["route"] == "bluestein"]},
+        {"name": "stft_magnitude_bluestein_cluster", "route": "cuda",
+         "source": "nsc_tpu_torch/csrc/stft.cu", "replaces": "nsc_tpu/ops/pallas/stft.py:80",
+         "domain": "the chirp-z transform over a cluster of 2, 4 or 8 blocks: odd n_fft "
+                   "7,205-57,599 and even ones 14,408-115,200 off the FFT route",
+         "per": f"one launch at n_fft {clu['n_fft']}, hop {clu['hop']}",
+         "max_abs_err": k4_err["bluestein_cluster"],
+         "float64_max_ulps": k4_f64["bluestein_cluster"],
+         **{k: clu[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                "remainder_ms")},
+         "shapes": [{k: r[k] for k in keys + ("C", "M", "remainder_ms")} for r in k4_rows.values()
+                    if r["route"] == "bluestein_cluster"]},
+        dft_entry,
     ]
     return summaries, launches, step_s * 1e3
 
@@ -3428,6 +3673,10 @@ def main() -> int:
     for label, (stores, loads) in spills.items():
         if label.startswith(STAGE_KERNELS + ("stft_magnitude",)):
             check(stores == 0 and loads == 0, f"ptxas: {label} spills registers")
+    if ptxas:  # K4's cluster kernel, one instantiation per cluster size, each read
+        for c in (2, 4, 8):
+            check(f"stft_magnitude_bluestein_cluster<{c}>" in spills,
+                  f"ptxas: no line for stft_magnitude_bluestein_cluster<{c}>")
     for label, n in hmma.items():
         if "<f32" in label:
             check(n == 0, f"{label}: {n} HMMA in a float32 instantiation")
@@ -3873,7 +4122,13 @@ def main() -> int:
     streaming_launches = streaming_smoke(serve, f32, card, events_ms)
     del f32
     t_cli = time.perf_counter()
+    join_plain_bases = plain_basis_prefetch()
     cli_smoke(serve, qserve)
+    t_wait = time.perf_counter()
+    basis_seconds = join_plain_bases()
+    emit({"phase": "timing", "what": "plain_basis_prefetch", "beside": "cli",
+          "cli_seconds": t_wait - t_cli, "wait_seconds": time.perf_counter() - t_wait,
+          "build_seconds": basis_seconds})
     t_trace = time.perf_counter()
     trace_smoke(serve, qserve, wav_np, card)
     doctor_smoke(card)
@@ -3885,7 +4140,7 @@ def main() -> int:
           "native_seconds": time.perf_counter() - t_native})
     emit({"phase": "timing", "what": "flagship_int8_stacked_streaming_cli_trace_doctor",
           "flagship_seconds": t_int8 - t_phase, "int8_and_stacked_seconds": t_stream - t_int8,
-          "streaming_seconds": t_cli - t_stream, "cli_seconds": t_trace - t_cli,
+          "streaming_seconds": t_cli - t_stream, "cli_seconds": t_wait - t_cli,
           "trace_and_doctor_seconds": time.perf_counter() - t_trace})
     del serve, qserve
     torch.cuda.empty_cache()
@@ -3897,8 +4152,12 @@ def main() -> int:
         t_k4_chirp = time.perf_counter()
         k4_chirp_launches = k4_bank_smoke(dev, card, events_ms, "k4_chirp", K4_CHIRP_BANK,
                                           K4_CHIRP_MEL)
+        t_k4_cluster = time.perf_counter()
+        k4_cluster_launches = k4_bank_smoke(dev, card, events_ms, "k4_cluster", K4_CLUSTER_BANK,
+                                            K4_CLUSTER_MEL)
     emit({"phase": "timing", "what": "k4_any", "seconds": t_k4_chirp - t_k4_any})
-    emit({"phase": "timing", "what": "k4_chirp", "seconds": time.perf_counter() - t_k4_chirp})
+    emit({"phase": "timing", "what": "k4_chirp", "seconds": t_k4_cluster - t_k4_chirp})
+    emit({"phase": "timing", "what": "k4_cluster", "seconds": time.perf_counter() - t_k4_cluster})
     t_dp = time.perf_counter()
     with torch.enable_grad():
         dp_launches = dp_smoke(dev, card, step_ms)
@@ -3945,7 +4204,8 @@ def main() -> int:
                "refit": refit_launches, "finetune": finetune_launches,
                "finetune_serving": finetune_serving, "dp": dp_launches,
                "sweep": sweep_launches, "k4_any": k4_any_launches,
-               "k4_chirp": k4_chirp_launches, "close": close_launches,
+               "k4_chirp": k4_chirp_launches, "k4_cluster": k4_cluster_launches,
+               "close": close_launches,
                "close_training": close_training, **configs_launches,
                "small_trained_sweep": small_launches}
 

@@ -7,12 +7,12 @@
 //   out[b, f, k] = sqrt(re*re + im*im + 1e-8)
 // with the periodic Hann window. The point of the TPU kernel is that the
 // frame tensor, n_fft/hop times the signal, never reaches device memory;
-// the three kernels here keep that property, and each reads the frame's
+// the four kernels here keep that property, and each reads the frame's
 // samples from the unpadded signal through the reflect index (no padded
 // copy, nothing staged). The wrapper (kernels/stft.py::route) picks one by
 // n_fft alone.
 //
-// All three compute in float64 and round each output once to float32: each
+// All four compute in float64 and round each output once to float32: each
 // magnitude is that of the true float64 spectrum of the float32 input,
 // correctly rounded. The spectral losses' gradients need that: the
 // log-magnitude term is an L1 whose gradient changes sign where
@@ -84,9 +84,35 @@
 // two M-point transforms, ~4-9x the real FFT's at the same n (half that a frame
 // for an odd n).
 //
-// stft_magnitude_dft_kernel, the remainder: every n_fft the other two do
-// not take (odd n or a non-smooth half beyond the chirp-z plan's limit,
-// and a smooth even n above 29,056). The O(n^2) DFT, summed in float64
+// stft_magnitude_bluestein_cluster_kernel, the same chirp-z transform where
+// its M points outgrow a block (kernels/stft.py::bluestein_cluster_plan):
+// odd n from 7,205 to 57,599 and even n from 14,408 to 115,200 that the FFT
+// route does not take. A thread-block cluster of C = 2, 4 or 8 blocks on
+// neighbouring SMs owns one transform; block r holds the contiguous points
+// [r S, (r + 1) S), S = M / C, in its shared memory (16 S bytes, up to 225 KB,
+// so one block an SM). M is the smallest 7-smooth number >= 2L - 1 that 8 C
+// divides, and the pass list that of S followed by that of C: every pass but
+// the last one or two (whose radices multiply to C) has butterflies within
+// a share, and runs on it alone through the one-block kernel's device
+// functions; the passes across the shares (`cross_passes`: the first DIF
+// passes, at the largest strides, and the last DIT ones) gather the C
+// points k + j S of each local offset k from the C blocks' shared memory
+// (distributed shared memory, `map_shared_rank`), run in registers and
+// write back, a cluster barrier before and after. The end steps read Z[n -
+// k] (odd n) or Z[L - k] (even n) from the block that holds it. The same
+// float64 butterflies and twiddles per point as the one-block kernel at the
+// same M and pass list, so the two agree bit for bit there. What bounds it:
+// as the one-block kernel, the shared-memory traffic of the passes (16
+// bytes a point each way), far above the byte bound (the samples read once,
+// the bins written once); a cross pass moves its points through the SM-to-
+// SM network instead, once per transform each way. What the cluster does
+// about the O(n^2) DFT it replaces: 8x a block's shared memory for one
+// transform, so an n whose chirp-z plan outgrows a block still runs on
+// two M-point FFTs. Clusters stop at 8, the portable size.
+//
+// stft_magnitude_dft_kernel, the remainder: every n_fft no 8-block cluster
+// holds (odd n above 57,599, even n above 115,200 that the FFT route does
+// not take: their M would be above 8 x 14,528). The O(n^2) DFT, summed in float64
 // against the float64 table read at (n k) mod n_fft. One block owns one
 // (row, tile of 32 frames, tile of 64 bins) and walks n in chunks of 32:
 // per chunk it stages the windowed samples of its frames (float64) and the
@@ -98,9 +124,11 @@
 // im) float64 sums, and a warp whose frames all lie past F skips the sums.
 // Its operations grow as n_fft^2 per frame.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <mutex>
 
 namespace {
 
@@ -211,12 +239,12 @@ __device__ __forceinline__ void butterfly(const double2 (&u)[R], double2 (&y)[R]
 // + k + m p, m < R. DIT (kDif false) twiddles the inputs by W^(m k tn/(R
 // p)) (tw[j] = W^j = exp(-2 pi i j / tn)) before the R-point DFT; DIF, its
 // transpose, twiddles the outputs after it.
-template <int R, bool kDif>
+template <int R, bool kDif, int kT>
 __device__ __forceinline__ void pass(double2* __restrict__ buf, const double2* __restrict__ tw,
                                      int nfr, int n, int tn, int p) {
   const int q = n / R;
   const int step = tn / (R * p);
-  for (int g = threadIdx.x; g < nfr * q; g += kThreads) {
+  for (int g = threadIdx.x; g < nfr * q; g += kT) {
     const int f = g / q, i = g - f * q, k = i % p;
     double2* d = buf + f * n;
     const int base = (i - k) * R + k;
@@ -244,14 +272,14 @@ __device__ __forceinline__ void pass(double2* __restrict__ buf, const double2* _
 // the RA of radix RB there (the very butterflies and twiddles of the two
 // passes, in the same order per point) and writes them back: half the
 // shared traffic and barriers of two passes.
-template <int RA, int RB>
+template <int RA, int RB, int kT>
 __device__ __forceinline__ void pass_pair(double2* __restrict__ buf,
                                           const double2* __restrict__ tw, int nfr, int n, int tn,
                                           int p) {
   constexpr int RR = RA * RB;
   const int q = n / RR;
   const int step_a = tn / (RA * p), step_b = tn / (RR * p);
-  for (int g = threadIdx.x; g < nfr * q; g += kThreads) {
+  for (int g = threadIdx.x; g < nfr * q; g += kT) {
     const int f = g / q, i = g - f * q, k = i % p;
     double2* d = buf + f * n;
     const int base = (i - k) * RR + k;
@@ -290,49 +318,50 @@ __device__ __forceinline__ void pass_pair(double2* __restrict__ buf,
   }
 }
 
-template <bool kDif>
+template <bool kDif, int kT>
 __device__ __forceinline__ void run_pass(int r, double2* buf, const double2* tw, int nfr, int n,
                                          int tn, int p) {
   switch (r) {
-    case 4: pass<4, kDif>(buf, tw, nfr, n, tn, p); break;
-    case 2: pass<2, kDif>(buf, tw, nfr, n, tn, p); break;
-    case 3: pass<3, kDif>(buf, tw, nfr, n, tn, p); break;
-    case 5: pass<5, kDif>(buf, tw, nfr, n, tn, p); break;
-    default: pass<7, kDif>(buf, tw, nfr, n, tn, p); break;
+    case 4: pass<4, kDif, kT>(buf, tw, nfr, n, tn, p); break;
+    case 2: pass<2, kDif, kT>(buf, tw, nfr, n, tn, p); break;
+    case 3: pass<3, kDif, kT>(buf, tw, nfr, n, tn, p); break;
+    case 5: pass<5, kDif, kT>(buf, tw, nfr, n, tn, p); break;
+    default: pass<7, kDif, kT>(buf, tw, nfr, n, tn, p); break;
   }
 }
 
 // Two consecutive DIT passes (radix ra at p, rb at ra p) as one pass_pair
 // where the pair has one (the pairs of the pass lists' order 4, 2, 3, 5, 7
 // whose RA RB points fit in registers: at most 16): true if it ran them.
+template <int kT>
 __device__ __forceinline__ bool run_pair(int ra, int rb, double2* buf, const double2* tw, int nfr,
                                          int n, int tn, int p) {
   switch (ra * 16 + rb) {
-    case 4 * 16 + 4: pass_pair<4, 4>(buf, tw, nfr, n, tn, p); return true;
-    case 4 * 16 + 2: pass_pair<4, 2>(buf, tw, nfr, n, tn, p); return true;
-    case 4 * 16 + 3: pass_pair<4, 3>(buf, tw, nfr, n, tn, p); return true;
-    case 2 * 16 + 3: pass_pair<2, 3>(buf, tw, nfr, n, tn, p); return true;
-    case 2 * 16 + 5: pass_pair<2, 5>(buf, tw, nfr, n, tn, p); return true;
-    case 2 * 16 + 7: pass_pair<2, 7>(buf, tw, nfr, n, tn, p); return true;
-    case 3 * 16 + 3: pass_pair<3, 3>(buf, tw, nfr, n, tn, p); return true;
-    case 3 * 16 + 5: pass_pair<3, 5>(buf, tw, nfr, n, tn, p); return true;
+    case 4 * 16 + 4: pass_pair<4, 4, kT>(buf, tw, nfr, n, tn, p); return true;
+    case 4 * 16 + 2: pass_pair<4, 2, kT>(buf, tw, nfr, n, tn, p); return true;
+    case 4 * 16 + 3: pass_pair<4, 3, kT>(buf, tw, nfr, n, tn, p); return true;
+    case 2 * 16 + 3: pass_pair<2, 3, kT>(buf, tw, nfr, n, tn, p); return true;
+    case 2 * 16 + 5: pass_pair<2, 5, kT>(buf, tw, nfr, n, tn, p); return true;
+    case 2 * 16 + 7: pass_pair<2, 7, kT>(buf, tw, nfr, n, tn, p); return true;
+    case 3 * 16 + 3: pass_pair<3, 3, kT>(buf, tw, nfr, n, tn, p); return true;
+    case 3 * 16 + 5: pass_pair<3, 5, kT>(buf, tw, nfr, n, tn, p); return true;
     default: return false;
   }
 }
 
 // The DIT passes, first to last (with kPairs, two at a time where run_pair
 // takes them): digit-reversed in, natural order out.
-template <bool kPairs>
+template <bool kPairs, int kT>
 __device__ __forceinline__ void dit_passes(double2* buf, const double2* tw, int nfr, int n,
                                            int tn, unsigned long long radices) {
   int p = 1;
   while (radices != 0) {
     const int ra = static_cast<int>(radices & 15), rb = static_cast<int>((radices >> 4) & 15);
-    if (kPairs && rb != 0 && run_pair(ra, rb, buf, tw, nfr, n, tn, p)) {
+    if (kPairs && rb != 0 && run_pair<kT>(ra, rb, buf, tw, nfr, n, tn, p)) {
       radices >>= 8;
       p *= ra * rb;
     } else {
-      run_pass<false>(ra, buf, tw, nfr, n, tn, p);
+      run_pass<false, kT>(ra, buf, tw, nfr, n, tn, p);
       radices >>= 4;
       p *= ra;
     }
@@ -341,22 +370,52 @@ __device__ __forceinline__ void dit_passes(double2* buf, const double2* tw, int 
 }
 
 // The DIF passes, last to first: natural order in, digit-reversed out.
+template <int kT>
 __device__ __forceinline__ void dif_passes(double2* buf, const double2* tw, int nfr, int n,
                                            int tn, unsigned long long radices, int passes) {
   int p = n;
   for (int j = passes - 1; j >= 0; --j) {
     const int r = static_cast<int>((radices >> (4 * j)) & 15);
     p /= r;
-    run_pass<true>(r, buf, tw, nfr, n, tn, p);
+    run_pass<true, kT>(r, buf, tw, nfr, n, tn, p);
     __syncthreads();
   }
 }
 
+// Bin k of the real spectrum from the n2-point transform Z of a packed
+// sequence: X[k] = Ze[k] + W^k Zo[k], Ze = (Z[k] + conj Z[n2-k]) / 2, Zo =
+// (Z[k] - conj Z[n2-k]) / (2i), from a = Z[k mod n2], c = Z[(n2 - k) mod
+// n2] and w = W^k.
+__device__ __forceinline__ double2 real_bin(double2 a, double2 c, double2 w) {
+  const double er = 0.5 * (a.x + c.x), ei = 0.5 * (a.y - c.y);
+  const double orr = 0.5 * (a.y + c.y), oi = -0.5 * (a.x - c.x);
+  const double2 t = cmul(make_double2(orr, oi), w);
+  return make_double2(er + t.x, ei + t.y);
+}
+
+// Bin k of one of two real frames carried as Z = X + i X': X[k] = (Z[k] +
+// conj Z[n-k]) / 2 (the first), X'[k] = (Z[k] - conj Z[n-k]) / (2i) (the
+// second), from a = Z[k] and c = Z[(n - k) mod n].
+__device__ __forceinline__ double2 split_bin(double2 a, double2 c, bool second) {
+  return second ? make_double2(0.5 * (a.y + c.y), -0.5 * (a.x - c.x))
+                : make_double2(0.5 * (a.x + c.x), 0.5 * (a.y - c.y));
+}
+
+// The magnitude of v at o, and re, im where asked, each rounded once.
+__device__ __forceinline__ void store_bin(double2 v, size_t o, float* __restrict__ out,
+                                          float* __restrict__ re_out,
+                                          float* __restrict__ im_out) {
+  out[o] = static_cast<float>(sqrt(v.x * v.x + v.y * v.y + kEps));
+  if (re_out != nullptr) {
+    re_out[o] = static_cast<float>(v.x);
+    im_out[o] = static_cast<float>(v.y);
+  }
+}
+
 // The real spectrum of ft frames from the n2-point transforms Z of their
-// packed sequences (natural order in frames of `stride` slots): X[k] = Ze[k] +
-// W^k Zo[k], Ze = (Z[k] + conj Z[n2-k]) / 2, Zo = (Z[k] - conj Z[n2-k]) /
-// (2i), W^k = tw[k] of a table of 2 n2 entries; the magnitude, and re, im
-// where asked, each rounded once.
+// packed sequences (natural order in frames of `stride` slots; `real_bin`,
+// W^k = tw[k] of a table of 2 n2 entries).
+template <int kT>
 __device__ __forceinline__ void write_real_spectrum(const double2* z, int stride, int n2,
                                                     const double2* __restrict__ tw,
                                                     float* __restrict__ out,
@@ -364,23 +423,15 @@ __device__ __forceinline__ void write_real_spectrum(const double2* z, int stride
                                                     float* __restrict__ im_out, int b, int f0,
                                                     int ft, int F) {
   const int K = n2 + 1;
-  for (int g = threadIdx.x; g < ft * K; g += kThreads) {
+  for (int g = threadIdx.x; g < ft * K; g += kT) {
     // bins k < n2 frame by frame (8 lanes on 8 consecutive points), then k = n2
     const int f = g < ft * n2 ? g / n2 : g - ft * n2;
     const int k = g < ft * n2 ? g - f * n2 : n2;
     if (f0 + f >= F) continue;
     const double2 a = z[f * stride + slot(k == n2 ? 0 : k, stride)];
-    const double2 c = z[f * stride + slot(k == 0 ? 0 : n2 - k, stride)];  // conj: (c.x, -c.y)
-    const double er = 0.5 * (a.x + c.x), ei = 0.5 * (a.y - c.y);
-    const double orr = 0.5 * (a.y + c.y), oi = -0.5 * (a.x - c.x);
-    const double2 t = cmul(make_double2(orr, oi), __ldg(tw + k));
-    const double xr = er + t.x, xi = ei + t.y;
-    const size_t o = (static_cast<size_t>(b) * F + f0 + f) * K + k;
-    out[o] = static_cast<float>(sqrt(xr * xr + xi * xi + kEps));
-    if (re_out != nullptr) {
-      re_out[o] = static_cast<float>(xr);
-      im_out[o] = static_cast<float>(xi);
-    }
+    const double2 c = z[f * stride + slot(k == 0 ? 0 : n2 - k, stride)];
+    store_bin(real_bin(a, c, __ldg(tw + k)), (static_cast<size_t>(b) * F + f0 + f) * K + k, out,
+              re_out, im_out);
   }
 }
 
@@ -431,8 +482,8 @@ __global__ void __launch_bounds__(kThreads) stft_magnitude_kernel(
                      static_cast<double>(reflected(row, P + 1, T, n2)) * __ldg(win + 2 * m + 1));
   }
   __syncthreads();
-  dit_passes<kPairs>(smd, tw, ft, n2, n, radices);
-  write_real_spectrum(smd, n2, n2, tw, out, re_out, im_out, b, f0, ft, F);
+  dit_passes<kPairs, kThreads>(smd, tw, ft, n2, n, radices);
+  write_real_spectrum<kThreads>(smd, n2, n2, tw, out, re_out, im_out, b, f0, ft, F);
 }
 
 // ---------------------------------------------------------------------------
@@ -491,7 +542,7 @@ __global__ void __launch_bounds__(kThreads) stft_magnitude_bluestein_kernel(
     smd[t * M + slot(j, M)] = v;
   }
   __syncthreads();
-  dif_passes(smd, twm, ft, M, M, radices, passes);
+  dif_passes<kThreads>(smd, twm, ft, M, M, radices, passes);
   // times the conjugate chirp's transform (both digit-reversed), conjugated:
   // the DIT passes then give the conjugate of the convolution, times M
   for (int g = threadIdx.x; g < ft * M; g += kThreads) {
@@ -500,7 +551,7 @@ __global__ void __launch_bounds__(kThreads) stft_magnitude_bluestein_kernel(
     *v = conjugate(cmul(*v, __ldg(fb + pos)));
   }
   __syncthreads();
-  dit_passes<false>(smd, twm, ft, M, M, radices);
+  dit_passes<false, kThreads>(smd, twm, ft, M, M, radices);
   // Z[k] = c_k conj(G[k]), k < L, in place
   for (int g = threadIdx.x; g < ft * L; g += kThreads) {
     const int t = g / L, k = g - t * L;
@@ -511,7 +562,7 @@ __global__ void __launch_bounds__(kThreads) stft_magnitude_bluestein_kernel(
   __syncthreads();
   if (!odd) {
     // the real FFT's post-twiddle (W^k = tw2L[k]: 2L = n)
-    write_real_spectrum(smd, M, L, chirp, out, re_out, im_out, b, f0, ft, F);
+    write_real_spectrum<kThreads>(smd, M, L, chirp, out, re_out, im_out, b, f0, ft, F);
     return;
   }
   // two real frames from Z = X + i X': X[k] = (Z[k] + conj Z[n-k]) / 2,
@@ -522,16 +573,202 @@ __global__ void __launch_bounds__(kThreads) stft_magnitude_bluestein_kernel(
     const int f = f0 + h;
     if (f >= F) continue;
     const double2 a = smd[t * M + slot(k, M)];
-    const double2 c = smd[t * M + slot(k == 0 ? 0 : n - k, M)];  // conj: (c.x, -c.y)
-    const double2 v = second ? make_double2(0.5 * (a.y + c.y), -0.5 * (a.x - c.x))
-                             : make_double2(0.5 * (a.x + c.x), 0.5 * (a.y - c.y));
-    const size_t o = (static_cast<size_t>(b) * F + f) * K + k;
-    out[o] = static_cast<float>(sqrt(v.x * v.x + v.y * v.y + kEps));
-    if (re_out != nullptr) {
-      re_out[o] = static_cast<float>(v.x);
-      im_out[o] = static_cast<float>(v.y);
+    const double2 c = smd[t * M + slot(k == 0 ? 0 : n - k, M)];
+    store_bin(split_bin(a, c, second), (static_cast<size_t>(b) * F + f) * K + k, out, re_out,
+              im_out);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The chirp-z transform over a thread-block cluster.
+
+// Threads of a cluster block: a share of 117-227 KB leaves one block on an
+// SM, so the block alone has to hide the float64 and shared-memory latency
+// (kThreads would be 8 warps on the SM). 512 keeps 128 registers a thread;
+// 1024 (64 registers) spills.
+constexpr int kClusterThreads = 512;
+
+// The passes across a cluster's blocks, the last of the pass list: radix C
+// for C 2 and 4, radix 4 then radix 2 for C 8, at p = S (the share) and, for
+// the radix 2 of C 8, 4 S. Their butterflies touch, for each local offset k
+// < S, the C points k + j S (j < C), point j in block j: a thread gathers
+// them through distributed shared memory (pts[j], block j's slot of k), runs
+// the passes in registers and writes them back. DIT (kDif false): the very
+// butterflies and twiddles of `pass<C, false>` at p = S, or of `pass_pair<4,
+// 2>` (the radix-4 pass at S and the radix-2 pass at 4 S in one round trip);
+// DIF, the transpose: the radix-2 pass at 4 S then the radix-4 pass at S,
+// each as `pass<R, true>` does it. tw: the M-point table.
+template <int C, bool kDif>
+__device__ __forceinline__ void cross_passes(double2 (&u)[C], const double2* __restrict__ tw, int M,
+                                             int k) {
+  if constexpr (C == 8 && !kDif) {
+    // radix 4 at p = S (twiddle step M / (4 S) = 2), radix 2 at 4 S (step 1)
+#pragma unroll
+    for (int b = 0; b < 2; ++b) {
+      double2 v[4], y[4];
+#pragma unroll
+      for (int a = 0; a < 4; ++a) v[a] = u[a + 4 * b];
+#pragma unroll
+      for (int a = 1; a < 4; ++a) v[a] = cmul(v[a], __ldg(tw + a * k * 2));
+      butterfly<4>(v, y, tw, M);
+#pragma unroll
+      for (int a = 0; a < 4; ++a) u[a + 4 * b] = y[a];
+    }
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      const int kk = k + t * (M / 8);
+      double2 v[2] = {u[t], u[t + 4]}, y[2];
+      v[1] = cmul(v[1], __ldg(tw + kk));
+      butterfly<2>(v, y, tw, M);
+      u[t] = y[0];
+      u[t + 4] = y[1];
+    }
+  } else if constexpr (C == 8) {
+    const int S = M / 8;
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {  // radix 2 at p = 4 S: points k + a S and k + (a + 4) S
+      const double2 v[2] = {u[a], u[a + 4]};
+      double2 y[2];
+      butterfly<2>(v, y, tw, M);
+      u[a] = y[0];
+      u[a + 4] = cmul(y[1], __ldg(tw + (k + a * S)));  // step M / (2 * 4 S) = 1
+    }
+#pragma unroll
+    for (int b = 0; b < 2; ++b) {  // radix 4 at p = S: points k + (4 b + m) S
+      double2 v[4], y[4];
+#pragma unroll
+      for (int m = 0; m < 4; ++m) v[m] = u[4 * b + m];
+      butterfly<4>(v, y, tw, M);
+#pragma unroll
+      for (int t = 1; t < 4; ++t) y[t] = cmul(y[t], __ldg(tw + t * k * 2));  // step M / (4 S)
+#pragma unroll
+      for (int m = 0; m < 4; ++m) u[4 * b + m] = y[m];
+    }
+  } else {
+    double2 y[C];
+    if (!kDif) {
+#pragma unroll
+      for (int m = 1; m < C; ++m) u[m] = cmul(u[m], __ldg(tw + m * k));  // step M / (C S) = 1
+    }
+    butterfly<C>(u, y, tw, M);
+    if (kDif) {
+#pragma unroll
+      for (int t = 1; t < C; ++t) y[t] = cmul(y[t], __ldg(tw + t * k));
+    }
+#pragma unroll
+    for (int t = 0; t < C; ++t) u[t] = y[t];
+  }
+}
+
+// x (B, T) float32 unpadded; win (n) float64; chirp (2L complex), twm (M
+// complex) and fb (M complex) as stft_magnitude_bluestein_kernel's; out (B,
+// F, n/2 + 1) float32, re and im likewise or null; S = M / C, the points a
+// block holds; radices: the pass list of S (the passes within a share). A
+// cluster of C blocks (blockIdx.x / C) owns one transform, two frames of an
+// odd n or one of an even n, of row blockIdx.y; block rank r holds the
+// points [r S, (r + 1) S) in its dynamic shared memory.
+template <int C>
+__global__ void __launch_bounds__(kClusterThreads, 1) stft_magnitude_bluestein_cluster_kernel(
+    const float* __restrict__ x, const double* __restrict__ win,
+    const double2* __restrict__ chirp, const double2* __restrict__ twm,
+    const double2* __restrict__ fb, float* __restrict__ out, float* __restrict__ re_out,
+    float* __restrict__ im_out, int T, int n, int hop, int F, int M, int S,
+    unsigned long long radices) {
+  extern __shared__ __align__(16) double2 smd[];  // [S]
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const bool odd = (n & 1) != 0;
+  const int L = odd ? n : n / 2;
+  const unsigned two_l = 2 * static_cast<unsigned>(L);  // j^2 < 2^32: L < 65536
+  const int pad = n / 2;
+  const int b = blockIdx.y;
+  const int f0 = (blockIdx.x / C) * (odd ? 2 : 1);
+  const float* row = x + static_cast<size_t>(b) * T;
+  const int base = rank * S;  // the global position of the share's first point
+  // point g of the transform, in the block that holds it
+  auto point = [&](int g) -> double2* {
+    return cluster.map_shared_rank(smd, g / S) + slot(g % S, S);
+  };
+
+  // the chirped sequence z_j c_j of the share's points, zero from L to M
+  for (int j = threadIdx.x; j < S; j += kClusterThreads) {
+    const int g = base + j;
+    double2 v = make_double2(0.0, 0.0);
+    if (g < L) {
+      const long long P = static_cast<long long>(f0) * hop + (odd ? g : 2 * g);
+      const int w = odd ? g : 2 * g;
+      const long long Q = odd ? P + hop : P + 1;  // the other frame's sample, or the odd one
+      const double2 z =
+          make_double2(static_cast<double>(reflected(row, P, T, pad)) * __ldg(win + w),
+                       static_cast<double>(reflected(row, Q, T, pad)) * __ldg(win + w + 1 - odd));
+      const unsigned gg = static_cast<unsigned>(g);
+      v = cmul(z, __ldg(chirp + (gg * gg) % two_l));
+    }
+    smd[slot(j, S)] = v;
+  }
+  cluster.sync();
+  // the DIF passes across the blocks first (the largest strides), the
+  // butterflies of each local offset k dealt out to the blocks in turn
+  for (int k = rank * kClusterThreads + threadIdx.x; k < S; k += C * kClusterThreads) {
+    double2* pts[C];
+    double2 u[C];
+#pragma unroll
+    for (int j = 0; j < C; ++j) {
+      pts[j] = cluster.map_shared_rank(smd, j) + slot(k, S);
+      u[j] = *pts[j];
+    }
+    cross_passes<C, true>(u, twm, M, k);
+#pragma unroll
+    for (int j = 0; j < C; ++j) *pts[j] = u[j];
+  }
+  cluster.sync();
+  const int local = pass_count(radices);
+  dif_passes<kClusterThreads>(smd, twm, 1, S, M, radices, local);
+  // times the conjugate chirp's transform (digit-reversed, as the points),
+  // conjugated; the DIT passes then give the conjugate of the convolution
+  for (int j = threadIdx.x; j < S; j += kClusterThreads) {
+    double2* v = smd + slot(j, S);
+    *v = conjugate(cmul(*v, __ldg(fb + base + j)));
+  }
+  __syncthreads();
+  dit_passes<false, kClusterThreads>(smd, twm, 1, S, M, radices);
+  cluster.sync();
+  // the DIT passes across the blocks, and Z[g] = c_g conj(G[g]) for g < L
+  for (int k = rank * kClusterThreads + threadIdx.x; k < S; k += C * kClusterThreads) {
+    double2* pts[C];
+    double2 u[C];
+#pragma unroll
+    for (int j = 0; j < C; ++j) {
+      pts[j] = cluster.map_shared_rank(smd, j) + slot(k, S);
+      u[j] = *pts[j];
+    }
+    cross_passes<C, false>(u, twm, M, k);
+#pragma unroll
+    for (int j = 0; j < C; ++j) {
+      const unsigned g = static_cast<unsigned>(k + j * S);
+      *pts[j] = g < static_cast<unsigned>(L) ? cmul(conjugate(u[j]), __ldg(chirp + (g * g) % two_l))
+                                             : u[j];
     }
   }
+  cluster.sync();
+  // the end, the bins dealt out to the blocks in turn, Z[n - k] or Z[L - k]
+  // read from the block that holds it: for an even n the real FFT's
+  // post-twiddle (W^k = tw2L[k]: 2L = n), for an odd n the two frames
+  const int K = n / 2 + 1;
+  for (int g = rank * kClusterThreads + threadIdx.x; g < (odd ? 2 * K : K);
+       g += C * kClusterThreads) {
+    const int h = g / K, k = g - h * K, f = f0 + h;
+    if (f >= F) continue;
+    const size_t o = (static_cast<size_t>(b) * F + f) * K + k;
+    if (odd) {
+      store_bin(split_bin(*point(k), *point(k == 0 ? 0 : n - k), h != 0), o, out, re_out, im_out);
+    } else {
+      store_bin(real_bin(*point(k == L ? 0 : k), *point(k == 0 ? 0 : L - k), __ldg(chirp + k)), o,
+                out, re_out, im_out);
+    }
+  }
+  cluster.sync();  // no block leaves while another still reads its points
 }
 
 // ---------------------------------------------------------------------------
@@ -716,6 +953,163 @@ extern "C" int nsc_stft_bluestein_plan(int M, void* plan) {
   if (M < 1) return static_cast<int>(cudaErrorInvalidValue);
   o[0] = bluestein_frames(M);
   o[1] = bluestein_smem(M, static_cast<int>(o[0]));
+  return 0;
+}
+
+// The host queries of a cluster launch, made once per (device, C, share
+// bytes) and cached: each n_fft has one M, so a training step repeats the
+// same few keys. The kernel's shared-memory attribute is raised to the
+// largest share queried on the device (a larger cap admits every smaller
+// share), and the occupancy answer is kept, 0 included.
+struct ClusterFit {
+  int device, C, smem, active;
+};
+constexpr int kClusterFits = 64, kClusterDevices = 64;
+std::mutex cluster_fits_mutex;
+ClusterFit cluster_fits[kClusterFits];
+int cluster_fit_count = 0;
+int cluster_attr_smem[3][kClusterDevices];  // per C (2, 4, 8) and device
+
+// The cluster's launch configuration at (B, transforms a row, M, C) and
+// the clusters the card can hold at once (`active`, 0 where it can hold
+// none); S = M / C points a block, 16 S bytes.
+template <int C>
+cudaError_t cluster_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr, int B, int nt,
+                           int M, void* stream, int* active) {
+  const int smem = 16 * (M / C);
+  const auto kernel = stft_magnitude_bluestein_cluster_kernel<C>;
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  cfg = cudaLaunchConfig_t{};
+  cfg.gridDim = dim3(nt * C, B);
+  cfg.blockDim = dim3(kClusterThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = C;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  std::lock_guard<std::mutex> lock(cluster_fits_mutex);
+  for (int i = 0; i < cluster_fit_count; ++i) {
+    const ClusterFit& fit = cluster_fits[i];
+    if (fit.device == device && fit.C == C && fit.smem == smem) {
+      *active = fit.active;
+      return cudaSuccess;
+    }
+  }
+  const bool cached = device < kClusterDevices;
+  int* attr_smem = cached ? &cluster_attr_smem[C == 2 ? 0 : C == 4 ? 1 : 2][device] : nullptr;
+  if (!cached || smem > *attr_smem) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    if (cached) *attr_smem = smem;
+  }
+  err = cudaOccupancyMaxActiveClusters(active, reinterpret_cast<const void*>(kernel), &cfg);
+  if (err == cudaSuccess && cached && cluster_fit_count < kClusterFits)
+    cluster_fits[cluster_fit_count++] = ClusterFit{device, C, smem, *active};
+  return err;
+}
+
+template <int C>
+cudaError_t launch_cluster(int B, int nt, int M, void* stream, const void* x, const void* win,
+                           const void* chirp, const void* twm, const void* fb, void* out,
+                           void* re, void* im, int T, int n_fft, int hop, int F,
+                           unsigned long long radices) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  int active = 0;
+  cudaError_t err = cluster_config<C>(cfg, attr, B, nt, M, stream, &active);
+  if (err != cudaSuccess) return err;
+  if (active < 1) return cudaErrorInvalidConfiguration;  // the card holds no such cluster
+  err = cudaLaunchKernelEx(&cfg, stft_magnitude_bluestein_cluster_kernel<C>,
+                           static_cast<const float*>(x), static_cast<const double*>(win),
+                           static_cast<const double2*>(chirp), static_cast<const double2*>(twm),
+                           static_cast<const double2*>(fb), static_cast<float*>(out),
+                           static_cast<float*>(re), static_cast<float*>(im), T, n_fft, hop, F, M,
+                           M / C, radices);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// The pass list of M with its last passes, those across a cluster of C
+// blocks (2: radix 2; 4: radix 4; 8: radix 4 then 2), cut off: the passes
+// within a share. Returns false where the list does not end with them.
+inline bool share_passes(unsigned long long radices, int C, unsigned long long* local) {
+  int count = 0;
+  for (unsigned long long r = radices; r != 0; r >>= 4) ++count;
+  const int cross = C == 8 ? 2 : 1;
+  if (count <= cross) return false;
+  const int last = static_cast<int>((radices >> (4 * (count - 1))) & 15);
+  const int before = static_cast<int>((radices >> (4 * (count - 2))) & 15);
+  if (C == 8 ? (before != 4 || last != 2) : last != C) return false;
+  *local = radices & ((1ull << (4 * (count - cross))) - 1);
+  return true;
+}
+
+// The chirp-z route over a cluster. Arguments as
+// nsc_stft_magnitude_bluestein's, and C the blocks of a cluster (2, 4 or 8),
+// M a multiple of C; radices the pass list of M, ending with the passes
+// across the blocks (kernels/stft.py::bluestein_cluster_plan). Returns the
+// launch's cudaError_t: cudaErrorInvalidValue for an M below 2L - 1, a C
+// not 2, 4 or 8, an M that C does not divide or a pass list that is not a
+// transform of M points ending with C's passes; cudaErrorInvalidConfiguration
+// where the card can hold no such cluster (cudaOccupancyMaxActiveClusters
+// 0); else the error of the attribute, of the occupancy query or of the
+// launch.
+extern "C" int nsc_stft_magnitude_bluestein_cluster(const void* x, const void* win,
+                                                    const void* chirp, const void* twm,
+                                                    const void* fb, void* out, void* re, void* im,
+                                                    int B, int T, int n_fft, int hop, int F, int M,
+                                                    int C, unsigned long long radices,
+                                                    void* stream) {
+  const int L = n_fft % 2 != 0 ? n_fft : n_fft / 2;
+  unsigned long long local = 0;
+  if (B < 1 || B > 65535 || F < 1 || hop < 1 || n_fft < 2 || T <= n_fft / 2 || L >= 65536 ||
+      M < 2 * L - 1 || (C != 2 && C != 4 && C != 8) || M % C != 0 ||
+      transform_passes(M, radices) < 0 || !share_passes(radices, C, &local))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int nt = n_fft % 2 != 0 ? (F + 1) / 2 : F;  // an odd n's transform carries two frames
+  cudaError_t err;
+  switch (C) {
+    case 2: err = launch_cluster<2>(B, nt, M, stream, x, win, chirp, twm, fb, out, re, im, T,
+                                    n_fft, hop, F, local); break;
+    case 4: err = launch_cluster<4>(B, nt, M, stream, x, win, chirp, twm, fb, out, re, im, T,
+                                    n_fft, hop, F, local); break;
+    default: err = launch_cluster<8>(B, nt, M, stream, x, win, chirp, twm, fb, out, re, im, T,
+                                     n_fft, hop, F, local); break;
+  }
+  if (err != cudaSuccess) cudaGetLastError();  // not left for the next launch's check
+  return static_cast<int>(err);
+}
+
+// The cluster kernel's plan at (M, C): plan[0] threads a block, plan[1]
+// shared-memory bytes a block (16 M / C), plan[2] the clusters the card
+// holds at once (cudaOccupancyMaxActiveClusters, at one row of one
+// transform; 3 long longs). Returns 0, or cudaErrorInvalidValue (plan 0)
+// for a C not 2, 4 or 8 or an M it does not divide, or the error of the
+// attribute or of the query.
+extern "C" int nsc_stft_bluestein_cluster_plan(int M, int C, void* plan) {
+  long long* o = static_cast<long long*>(plan);
+  o[0] = o[1] = o[2] = 0;
+  if ((C != 2 && C != 4 && C != 8) || M < C || M % C != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  int active = 0;
+  const cudaError_t err =
+      C == 2 ? cluster_config<2>(cfg, attr, 1, 1, M, nullptr, &active)
+      : C == 4 ? cluster_config<4>(cfg, attr, 1, 1, M, nullptr, &active)
+               : cluster_config<8>(cfg, attr, 1, 1, M, nullptr, &active);
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return static_cast<int>(err);
+  }
+  o[0] = kClusterThreads;
+  o[1] = 16LL * (M / C);
+  o[2] = active;
   return 0;
 }
 

@@ -17,6 +17,7 @@ LAUNCHES = {
     "rvq_dequantize": 0,
     "stft_magnitude": 0,
     "stft_magnitude_bluestein": 0,
+    "stft_magnitude_bluestein_cluster": 0,
     "stft_magnitude_dft": 0,
     "residual_stack_cl": 0,
     "fused_stage": 0,

@@ -61,6 +61,12 @@ SIGNATURES = {
     "nsc_stft_magnitude_bluestein": [_P] * 8 + [_I] * 6 + [_U64, _P],
     # M, plan (2 long long: frames per block, bytes)
     "nsc_stft_bluestein_plan": [_I] + [_P],
+    # x, win, chirp, twm, fb, out, re, im (or null), B, T, n_fft, hop, F, M,
+    # C (the blocks of a cluster), the pass list of M, stream
+    "nsc_stft_magnitude_bluestein_cluster": [_P] * 8 + [_I] * 7 + [_U64, _P],
+    # M, C, plan (3 long long: threads a block, bytes a block, clusters the
+    # card holds at once)
+    "nsc_stft_bluestein_cluster_plan": [_I] * 2 + [_P],
     # x, out, w1, b1, a1, w2, b2, a2, w1p, w2p (bf16 planes or null),
     # dilations, B, C, T, U, is_bf16, fast, stream; x and out (B, T, C),
     # float32 weights

@@ -11,14 +11,14 @@ T, as `frame_signal` cuts them). The plain version is the matmul-DFT path of
 `ops.stft.stft_magnitude`, which frames the signal in memory; the kernels
 compute the same magnitudes without the frame tensor.
 
-Three kernels, chosen by n_fft alone (`route`), never by a failed launch.
+Four kernels, chosen by n_fft alone (`route`), never by a failed launch.
 All compute in float64 (the float64 window and float64 tables `twiddles`)
 and round each output once to float32: the spectral losses' log-magnitude
 L1 turns any float32 rounding of the magnitudes into sign flips of its
 gradient at near-tie bins; the correctly rounded magnitudes make the
 gradient the float64 one up to float32 rounding of the loss and backward.
-The two transforms run the same passes (radix 4, 2, 3, 5 and 7, each in
-place in one shared buffer of complex float64 points: `csrc/stft.cu`).
+The transforms run the same passes (radix 4, 2, 3, 5 and 7, each in place
+in one buffer of complex float64 points: `csrc/stft.cu`).
 
   * "fft" (`stft_magnitude`, counted as "stft_magnitude"): even n_fft from
     FFT_MIN to FFT_MAX whose half has no prime factor above 7 (every
@@ -41,13 +41,26 @@ place in one shared buffer of complex float64 points: `csrc/stft.cu`).
     M-point transforms on the same passes. 16 M bytes a transform, so M up
     to BLUESTEIN_MAX_M: odd n_fft up to 7,203, even ones up to 14,404. Its
     float64 tables (`bluestein_tables`) are made here with numpy, once per
-    (n_fft, device).
-  * "dft" (counted as "stft_magnitude_dft"): the remainder, every n_fft
-    the other two do not take (odd or a half with a prime factor above 7
-    beyond the chirp-z limit, a smooth even n_fft above FFT_MAX). The
-    O(n_fft^2) DFT against the twiddle table read at (n k) mod n_fft,
-    staged in chunks of n in static shared memory, so a block's bytes are
-    the same for every n_fft and hop and no shape is refused.
+    (n_fft, plan, device).
+  * "bluestein_cluster" (counted as "stft_magnitude_bluestein_cluster"):
+    the same chirp-z transform where its M points outgrow one block, spread
+    over a thread-block cluster of C = 2, 4 or 8 blocks
+    (`bluestein_cluster_plan`): block r holds the contiguous share [r M/C,
+    (r + 1) M/C) of the points, the passes within a share run on it alone,
+    and the last passes of the list (their radices multiply to C) reach the
+    other blocks' shared memory. C is the smallest whose share, 16 M/C
+    bytes, fits a block, and M the smallest 7-smooth number >= 2L - 1 that
+    8 C divides (each share a multiple of 8 points, so the kernels' slot
+    swizzle works within each block). Clusters stop at 8, the portable
+    size: odd n_fft from 7,205 to 57,599 and even ones from 14,408 to
+    115,200 that the FFT route does not take (M up to 115,200, C 8, shares
+    of 14,400 points).
+  * "dft" (counted as "stft_magnitude_dft"): the remainder, every n_fft no
+    8-block cluster holds (odd n_fft above 57,599, even ones above 115,200
+    that the FFT route does not take). The O(n_fft^2) DFT against the
+    twiddle table read at (n k) mod n_fft, staged in chunks of n in static
+    shared memory, so a block's bytes are the same for every n_fft and hop
+    and no shape is refused.
 
 `stft_magnitude` is differentiable. On a CUDA tensor its forward launches a
 kernel, which also writes the spectrum (re, im) when x takes a gradient,
@@ -76,10 +89,12 @@ MAX_SMEM = 232448  # bytes of shared memory one block may use on Hopper
 FFT_MIN, FFT_MAX = 16, MAX_SMEM // 8
 # the chirp-z kernel's transform length: one transform takes 16 M bytes
 BLUESTEIN_MAX_M = MAX_SMEM // 16
+# the blocks of a chirp-z cluster, smallest first (8: the portable limit)
+CLUSTER_SIZES = (2, 4, 8)
 
 _CONSTS: Dict[Tuple[int, torch.device], Tuple[torch.Tensor, torch.Tensor]] = {}
 _ORDER: Dict[Tuple[int, torch.device], torch.Tensor] = {}
-_BLUESTEIN: Dict[Tuple[int, torch.device], Tuple[torch.Tensor, ...]] = {}
+_BLUESTEIN: Dict[tuple, Tuple[torch.Tensor, ...]] = {}
 
 
 def stft_magnitude_plain(x: torch.Tensor, n_fft: int, hop: int) -> torch.Tensor:
@@ -129,6 +144,7 @@ def smooth_at_least(n: int) -> int:
     return m
 
 
+@functools.lru_cache(maxsize=1024)
 def bluestein_plan(n_fft: int):
     """(L, M, pass list of M) of the chirp-z kernel at n_fft: L = n_fft for
     an odd n_fft (two real frames as one complex sequence), n_fft/2 for an
@@ -145,15 +161,50 @@ def bluestein_plan(n_fft: int):
     return length, m, transform_passes(m)
 
 
+def smooth_multiple(n: int, d: int) -> int:
+    """The smallest multiple of d that is >= n and has no prime factor
+    above 7 (d itself 7-smooth)."""
+    m = -(-max(n, 1) // d) * d
+    while not transform_passes(m):
+        m += d
+    return m
+
+
+@functools.lru_cache(maxsize=1024)
+def bluestein_cluster_plan(n_fft: int, clusters: int = 0):
+    """(L, M, C, pass list of M) of the chirp-z cluster kernel at n_fft: L
+    as `bluestein_plan`'s; C the first of CLUSTER_SIZES whose share of M/C
+    points (16 M/C bytes) fits a block; M the smallest 7-smooth number >=
+    2L - 1 that 8 C divides; the pass list `transform_passes(M/C)` (the
+    passes within a share) then `transform_passes(C)` (the passes across
+    the shares: radix 2, radix 4, or radix 4 then 2). None where another
+    route takes n_fft or no 8-block cluster holds it. `clusters` asks for
+    that C at any n_fft >= 2 whose share fits (the card's check that the
+    cluster kernel computes the one-block kernel's values)."""
+    if clusters and clusters not in CLUSTER_SIZES:
+        raise ValueError(f"a chirp-z cluster has 2, 4 or 8 blocks, not {clusters}")
+    if n_fft < 2 or not clusters and (fft_passes(n_fft) or bluestein_plan(n_fft)):
+        return None
+    length = n_fft if n_fft % 2 else n_fft // 2
+    for c in (clusters,) if clusters else CLUSTER_SIZES:
+        m = smooth_multiple(2 * length - 1, 8 * c)
+        if 16 * (m // c) <= MAX_SMEM:
+            return length, m, c, transform_passes(m // c) + transform_passes(c)
+    return None
+
+
 def route(n_fft: int) -> str:
     """"fft" where `fft_passes` has a plan, "bluestein" where
-    `bluestein_plan` has one, "dft" for any other n_fft >= 2; below 2
-    there is no STFT to take."""
+    `bluestein_plan` has one, "bluestein_cluster" where
+    `bluestein_cluster_plan` has one, "dft" for any other n_fft >= 2;
+    below 2 there is no STFT to take."""
     if n_fft < 2:
         raise ValueError(f"stft: need n_fft >= 2, got {n_fft}")
     if fft_passes(n_fft):
         return "fft"
-    return "bluestein" if bluestein_plan(n_fft) else "dft"
+    if bluestein_plan(n_fft):
+        return "bluestein"
+    return "bluestein_cluster" if bluestein_cluster_plan(n_fft) else "dft"
 
 
 def digit_reversed(passes: Tuple[int, ...]) -> np.ndarray:
@@ -188,9 +239,16 @@ def twiddles(n_fft: int, device=None) -> torch.Tensor:
     return torch.from_numpy(_twiddles_np(n_fft)).to(device)
 
 
+def chirp_plan(n_fft: int):
+    """(L, M, C, pass list) of the chirp-z route n_fft takes: the one-block
+    plan with C = 1, or the cluster plan."""
+    plan = bluestein_plan(n_fft)
+    return (*plan[:2], 1, plan[2]) if plan else bluestein_cluster_plan(n_fft)
+
+
 @functools.lru_cache(maxsize=32)
-def _bluestein_np(n_fft: int):
-    length, m, passes = bluestein_plan(n_fft)
+def _bluestein_np(n_fft: int, m: int, passes: Tuple[int, ...]):
+    length = n_fft if n_fft % 2 else n_fft // 2
     chirp = _twiddles_np(2 * length)
     j = np.arange(length, dtype=np.int64)
     c = chirp[(j * j) % (2 * length)]
@@ -203,14 +261,17 @@ def _bluestein_np(n_fft: int):
     return chirp, _twiddles_np(m), np.stack([ordered.real, ordered.imag], axis=-1)
 
 
-def bluestein_tables(n_fft: int, device=None):
-    """The chirp-z kernel's float64 tables at n_fft: the chirp table (2L, 2)
-    (`twiddles(2L)`, read at j^2 mod 2L, the index reduced in integers), the
-    M-point twiddle table (M, 2), and the transform over M of the conjugate
-    chirp (conj(c_j) at j and M - j for j < L, zero between; float64
-    `numpy.fft.fft`), times 1/M and stored where the DIF passes leave each
-    point (`digit_reversed`), (M, 2)."""
-    return tuple(torch.from_numpy(t).to(device) for t in _bluestein_np(n_fft))
+def bluestein_tables(n_fft: int, device=None, plan=None):
+    """The chirp-z kernels' float64 tables at n_fft and `plan` (an (L, M,
+    C, pass list) of `chirp_plan`'s form; by default the route's): the
+    chirp table (2L, 2) (`twiddles(2L)`, read at j^2 mod 2L, the index
+    reduced in integers), the M-point twiddle table (M, 2), and the
+    transform over M of the conjugate chirp (conj(c_j) at j and M - j for j
+    < L, zero between; float64 `numpy.fft.fft`), times 1/M and stored where
+    the DIF passes leave each point (`digit_reversed` of the pass list),
+    (M, 2)."""
+    _, m, _, passes = plan or chirp_plan(n_fft)
+    return tuple(torch.from_numpy(t).to(device) for t in _bluestein_np(n_fft, m, tuple(passes)))
 
 
 # ---------------------------------------------------------------------------
@@ -228,7 +289,7 @@ def _constants(n_fft: int, device: torch.device):
 
 
 COUNTERS = {"fft": "stft_magnitude", "bluestein": "stft_magnitude_bluestein",
-            "dft": "stft_magnitude_dft"}
+            "bluestein_cluster": "stft_magnitude_bluestein_cluster", "dft": "stft_magnitude_dft"}
 
 
 def pack_passes(passes: Tuple[int, ...]) -> int:
@@ -261,41 +322,69 @@ def _check(x: torch.Tensor, n_fft: int, hop: int) -> str:
     return kind
 
 
+def _outputs(x: torch.Tensor, n_fft: int, hop: int, spectrum: bool):
+    b, t = x.shape
+    # the frames `frame_signal` cuts from the padded signal (1 + T//hop for
+    # an even n_fft, one fewer where an odd one's last frame would run past)
+    n_frames = S.num_frames(t + 2 * (n_fft // 2), n_fft, hop, center=False)
+    out = torch.empty(b, n_frames, n_fft // 2 + 1, dtype=torch.float32, device=x.device)
+    re, im = (torch.empty_like(out), torch.empty_like(out)) if spectrum else (None, None)
+    return out, re, im
+
+
 def launch(x: torch.Tensor, n_fft: int, hop: int, spectrum: bool = False):
     """The kernel of `route(n_fft)` on a CUDA tensor: the magnitudes, and with
     `spectrum` also the (re, im) they came from, each (B, F, n_fft//2 + 1)."""
     from nsc_tpu_torch.kernels import _build
 
     kind = _check(x, n_fft, hop)
+    if kind in ("bluestein", "bluestein_cluster"):
+        return launch_chirp(x, n_fft, hop, chirp_plan(n_fft), spectrum)
     b, t = x.shape
-    # the frames `frame_signal` cuts from the padded signal (1 + T//hop for
-    # an even n_fft, one fewer where an odd one's last frame would run past)
-    n_frames = S.num_frames(t + 2 * (n_fft // 2), n_fft, hop, center=False)
-    k = n_fft // 2 + 1
-    out = torch.empty(b, n_frames, k, dtype=torch.float32, device=x.device)
-    re, im = (torch.empty_like(out), torch.empty_like(out)) if spectrum else (None, None)
+    out, re, im = _outputs(x, n_fft, hop, spectrum)
     ptrs = (re.data_ptr(), im.data_ptr()) if spectrum else (None, None)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     lib = _build.library()
-    if kind == "bluestein":
-        key = (n_fft, x.device)
-        if key not in _BLUESTEIN:
-            _BLUESTEIN[key] = (S.hann_window(n_fft, x.device, torch.float64).contiguous(),
-                               *(t_.contiguous() for t_ in bluestein_tables(n_fft, x.device)))
-        _, m, passes = bluestein_plan(n_fft)
-        err = lib.nsc_stft_magnitude_bluestein(
-            x.data_ptr(), *(t_.data_ptr() for t_ in _BLUESTEIN[key]), out.data_ptr(), *ptrs, b,
-            t, n_fft, hop, n_frames, m, pack_passes(passes), stream)
+    win, tw = _constants(n_fft, x.device)
+    rest = (out.data_ptr(), *ptrs, b, t, n_fft, hop, out.shape[1])
+    if kind == "fft":
+        err = lib.nsc_stft_magnitude_fft(
+            x.data_ptr(), win.data_ptr(), tw.data_ptr(), fft_order(n_fft, x.device).data_ptr(),
+            *rest, pack_passes(fft_passes(n_fft)), stream)
     else:
-        win, tw = _constants(n_fft, x.device)
-        rest = (out.data_ptr(), *ptrs, b, t, n_fft, hop, n_frames)
-        if kind == "fft":
-            err = lib.nsc_stft_magnitude_fft(
-                x.data_ptr(), win.data_ptr(), tw.data_ptr(), fft_order(n_fft, x.device).data_ptr(),
-                *rest, pack_passes(fft_passes(n_fft)), stream)
-        else:
-            err = lib.nsc_stft_magnitude_dft(x.data_ptr(), win.data_ptr(), tw.data_ptr(), *rest,
-                                             stream)
+        err = lib.nsc_stft_magnitude_dft(x.data_ptr(), win.data_ptr(), tw.data_ptr(), *rest,
+                                         stream)
+    _build.check(err, f"nsc_stft_magnitude_{kind}")
+    kernels.LAUNCHES[COUNTERS[kind]] += 1
+    return (out, re, im) if spectrum else out
+
+
+def launch_chirp(x: torch.Tensor, n_fft: int, hop: int, plan, spectrum: bool = False):
+    """A chirp-z kernel on a CUDA tensor at `plan`, (L, M, C, pass list):
+    the one-block kernel for C = 1, else the cluster kernel of C blocks.
+    `launch` gives it the route's plan (`chirp_plan`); another plan of the
+    same n_fft computes the same magnitudes up to float64 rounding."""
+    from nsc_tpu_torch.kernels import _build
+
+    _check(x, n_fft, hop)
+    b, t = x.shape
+    _, m, c, passes = plan
+    key = (n_fft, m, tuple(passes), x.device)
+    if key not in _BLUESTEIN:
+        _BLUESTEIN[key] = (S.hann_window(n_fft, x.device, torch.float64).contiguous(),
+                           *(t_.contiguous() for t_ in bluestein_tables(n_fft, x.device, plan)))
+    out, re, im = _outputs(x, n_fft, hop, spectrum)
+    ptrs = (re.data_ptr(), im.data_ptr()) if spectrum else (None, None)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    args = (x.data_ptr(), *(t_.data_ptr() for t_ in _BLUESTEIN[key]), out.data_ptr(), *ptrs, b,
+            t, n_fft, hop, out.shape[1], m)
+    lib = _build.library()
+    if c == 1:
+        kind = "bluestein"
+        err = lib.nsc_stft_magnitude_bluestein(*args, pack_passes(passes), stream)
+    else:
+        kind = "bluestein_cluster"
+        err = lib.nsc_stft_magnitude_bluestein_cluster(*args, c, pack_passes(passes), stream)
     _build.check(err, f"nsc_stft_magnitude_{kind}")
     kernels.LAUNCHES[COUNTERS[kind]] += 1
     return (out, re, im) if spectrum else out

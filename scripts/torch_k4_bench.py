@@ -14,8 +14,10 @@ Inputs, from fixed seeds: the training step's launch shapes (the shipped
 bank n_fft 2048-128 and the mel STFT's 1024, hop n_fft/4) on 64 x 1 s of
 N(0, 0.3^2) noise (the target) and on it plus 0.05 N(0, 1) (the
 reconstruction, with the spectrum kept, as the loss launches it), every
-power of two 16-4096 at B = 2 on a T that no hop divides, and the long and
-odd windows (8192, 12000, 441, 2018, hop n_fft/4) on the target. Only
+power of two 16-4096 at B = 2 on a T that no hop divides, the long and
+odd windows (8192, 12000, 441, 2018, hop n_fft/4) on the target, and the
+chirp-z cluster route's shapes (8191, 11025, 30000, 31999, hop n_fft/4;
+the DFT remainder's in trees before that route) on the target. Only
 shapes on a tree's FFT route keep a digest (so two trees whose routes
 differ at a shape are not compared there); every shape is timed, with the
 route the tree took.
@@ -58,6 +60,7 @@ def run(tree: str, save: str | None) -> dict:
         x = torch.randn(2, 3 * n + 101, device=dev, generator=g) * 0.3
         cases.append((f"pow2_{n}", x, n, n // 4, True))
     cases += [(f"long_{n}", target, n, n // 4, False) for n in (8192, 12000, 441, 2018)]
+    cases += [(f"cluster_{n}", target, n, n // 4, False) for n in (8191, 11025, 30000, 31999)]
     with torch.no_grad():
         for name, x, n_fft, hop, spectrum in cases:
             route = KS.route(n_fft)

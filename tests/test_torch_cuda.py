@@ -495,6 +495,7 @@ def test_stft_fft_route_matches_plain_at_every_power_of_two(dev, n_fft):
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["stft_magnitude"] == 1
     assert kernels.LAUNCHES["stft_magnitude_bluestein"] == kernels.LAUNCHES["stft_magnitude_dft"] == 0
+    assert kernels.LAUNCHES["stft_magnitude_bluestein_cluster"] == 0
     ref = KS.stft_magnitude_plain(x, n_fft, hop)
     assert got.shape == ref.shape == (1, 1 + t // hop, n_fft // 2 + 1)
     assert (got - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
@@ -577,11 +578,100 @@ def test_stft_bluestein_route_matches_plain_and_float64(dev, n_fft, hop, t):
     assert _within_ulps_of_float64(got, x, n_fft, hop)
 
 
-# the remainder: odd n_fft above the chirp-z plan's limit (8191, 7205), an
-# even one whose half is not smooth above it (14410 = 2 x 5 x 11 x 131),
-# and a smooth even one above the FFT's one-buffer limit (30000)
+# the chirp-z cluster route: odd n_fft above the one-block plan's limit
+# (7205, 8191: C 2; 31999: C 8), an even one whose half is not smooth above
+# it (14410 = 2 x 5 x 11 x 131: C 2), a smooth even one above the FFT's
+# one-buffer limit (30000: C 4); B = 2, T that no hop divides or that one does
 @pytest.mark.parametrize("n_fft,hop,t", [(8191, 2048, 16000), (7205, 1801, 16001),
-                                         (14410, 3602, 16001), (30000, 7500, 40000)])
+                                         (14410, 3602, 16001), (30000, 7500, 40000),
+                                         (31999, 8000, 40001)])
+def test_stft_bluestein_cluster_route_matches_plain_and_float64(dev, n_fft, hop, t):
+    """Launches `stft_magnitude_bluestein_cluster`; within 1e-4 of the peak
+    of the plain version, and every magnitude within 2 float32 ulps of
+    float64."""
+    g = torch.Generator(device=dev).manual_seed(t + n_fft)
+    x = torch.randn(2, t, device=dev, generator=g) * 0.3
+    got = _launch_counted(x, n_fft, hop, "stft_magnitude_bluestein_cluster")
+    ref = KS.stft_magnitude_plain(x, n_fft, hop)
+    assert got.shape == ref.shape
+    assert (got - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
+    assert _within_ulps_of_float64(got, x, n_fft, hop)
+
+
+# the cluster route's edges: the largest odd n_fft (57599) and even one
+# (115200 = 2^9 3^2 5^2: M 115,200 on 8 blocks of 225 KB), against float64
+# only (the plain version's bases there take 13-53 GB)
+@pytest.mark.parametrize("n_fft,hop,t", [(57599, 14400, 64000), (115200, 28800, 120001)])
+def test_stft_bluestein_cluster_route_at_its_edges(dev, n_fft, hop, t):
+    g = torch.Generator(device=dev).manual_seed(t)
+    x = torch.randn(1, t, device=dev, generator=g) * 0.3
+    got = _launch_counted(x, n_fft, hop, "stft_magnitude_bluestein_cluster")
+    assert KS.chirp_plan(n_fft)[1:3] == (115200, 8)
+    assert _within_ulps_of_float64(got, x, n_fft, hop)
+
+
+@pytest.mark.parametrize("n_fft,clusters", [(441, 2), (441, 4), (441, 8), (2018, 2), (2018, 4),
+                                            (2018, 8), (17, 8)])
+def test_stft_bluestein_cluster_kernel_is_the_one_block_kernel(dev, n_fft, clusters):
+    """Given the same M and pass list (`bluestein_cluster_plan(n_fft, C)`),
+    the cluster kernel's magnitudes and spectrum are the one-block chirp-z
+    kernel's bit for bit."""
+    g = torch.Generator(device=dev).manual_seed(n_fft + clusters)
+    x = torch.randn(3, 4 * n_fft + 37, device=dev, generator=g) * 0.3
+    plan = KS.bluestein_cluster_plan(n_fft, clusters)
+    one = KS.launch_chirp(x, n_fft, n_fft // 4, (plan[0], plan[1], 1, plan[3]), spectrum=True)
+    got = KS.launch_chirp(x, n_fft, n_fft // 4, plan, spectrum=True)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(one, got))
+
+
+def test_stft_bluestein_cluster_plan_and_launcher(dev):
+    """The cluster kernel's own plan (`nsc_stft_bluestein_cluster_plan`):
+    512 threads a block, 16 M / C bytes, and at least one cluster on the
+    card at every C up to the largest M; a C not 2, 4 or 8 or an M it does
+    not divide refused. Its launcher refuses (cudaErrorInvalidValue, 1) an
+    M below 2L - 1, a pass list that is not a transform of M or that does
+    not end with C's passes, and a C it was not given the plan of; a launch
+    after each runs and equals the wrapper's."""
+    def plan(m, c):
+        out = (ctypes.c_longlong * 3)()
+        rc = _build.library().nsc_stft_bluestein_cluster_plan(m, c, out)
+        return rc, out[0], out[1], out[2]
+
+    for m, c in ((16384, 2), (22400, 2), (30240, 4), (64000, 8), (115200, 8)):
+        rc, threads, nbytes, active = plan(m, c)
+        assert (rc, threads, nbytes) == (0, 512, 16 * m // c) and active >= 1, (m, c)
+    assert plan(16384, 3)[0] != 0 and plan(16386, 4)[0] != 0
+
+    from nsc_tpu_torch.ops import stft as S
+
+    n_fft, hop, t = 8191, 2048, 16000
+    x = torch.randn(2, t, device=dev)
+    _, m, c, passes = KS.chirp_plan(n_fft)
+    tables = [t_.contiguous() for t_ in KS.bluestein_tables(n_fft, dev)]
+    win = S.hann_window(n_fft, dev, torch.float64).contiguous()
+    frames = S.num_frames(t + 2 * (n_fft // 2), n_fft, hop, center=False)
+    out = torch.zeros(2, frames, n_fft // 2 + 1, device=dev)
+
+    def launch(m_, c_, radices):
+        rc = _build.library().nsc_stft_magnitude_bluestein_cluster(
+            x.data_ptr(), win.data_ptr(), *(t_.data_ptr() for t_ in tables), out.data_ptr(),
+            None, None, 2, t, n_fft, hop, frames, m_, c_, KS.pack_passes(radices),
+            torch.cuda.current_stream(dev).cuda_stream)
+        torch.cuda.synchronize()
+        return rc
+
+    assert (m, c, passes[-1]) == (16384, 2, 2)
+    assert launch(8192, 2, (4,) * 6 + (2,)) == 1  # 8192 < 2 x 8191 - 1
+    for c_, radices in ((2, (4,) * 7), (2, (2,) + (4,) * 6), (4, passes), (3, passes),
+                        (2, passes[:-1])):
+        assert launch(m, c_, radices) == 1, (c_, radices)
+    assert launch(m, c, passes) == 0 and torch.equal(out, KS.launch(x, n_fft, hop))
+
+
+# the remainder: an odd n_fft beyond an 8-block cluster (60001), B = 2 rows
+# of 4 s
+@pytest.mark.parametrize("n_fft,hop,t", [(60001, 15000, 64000)])
 def test_stft_dft_route_matches_plain(dev, n_fft, hop, t):
     """Launches `stft_magnitude_dft`; within 1e-4 of the peak of the plain
     version, and within 2^-23 of each frame's peak of float64 (one rounding
@@ -594,6 +684,22 @@ def test_stft_dft_route_matches_plain(dev, n_fft, hop, t):
     assert got.shape == ref.shape
     assert (got - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
     m64, _ = _rfft64(x, n_fft, hop)
+    assert ((got.double() - m64).abs() / m64.amax(-1, keepdim=True)).max().item() <= 2.0 ** -23
+    from nsc_tpu_torch.ops import stft as S
+
+    S._dft_basis_np.cache_clear()  # the host's 14.4 GB of float32 bases
+
+
+# the remainder's even branch: an even n_fft beyond an 8-block cluster and
+# off the FFT route (115202, half 57601 prime), one row, against float64
+# only (the plain version's bases there take 53 GB)
+@pytest.mark.parametrize("n_fft,hop,t", [(115202, 28800, 120001)])
+def test_stft_dft_route_even_against_float64(dev, n_fft, hop, t):
+    g = torch.Generator(device=dev).manual_seed(t)
+    x = torch.randn(1, t, device=dev, generator=g) * 0.3
+    got = _launch_counted(x, n_fft, hop, "stft_magnitude_dft")
+    m64, _ = _rfft64(x, n_fft, hop)
+    assert got.shape == m64.shape
     assert ((got.double() - m64).abs() / m64.amax(-1, keepdim=True)).max().item() <= 2.0 ** -23
 
 
@@ -788,6 +894,7 @@ def test_full_width_train_step_launches_the_kernels(dev):
     assert kernels.LAUNCHES == {"residual_stack": 0, "rvq_quantize": 1, "rvq_split_planes": 1,
                                 "rvq_dequantize": 0, "stft_magnitude": 12,
                                 "stft_magnitude_bluestein": 0,
+                                "stft_magnitude_bluestein_cluster": 0,
                                 "stft_magnitude_dft": 0, "residual_stack_cl": 0,
                                 "fused_stage": 0, "int_mm": 0}
     assert all(torch.isfinite(v).item() for v in metrics.values())

@@ -164,13 +164,13 @@ def test_kernel_shared_memory_budget():
     no n_fft >= 2 and hop >= 1 for shared memory, small or large, and
     routes each by n_fft alone. The FFT route's shapes are bounded by its
     one-frame plan, one buffer of n_fft/2 complex float64 points, 8 n_fft
-    bytes (FFT_MAX), and the chirp-z route's by its, 16 M bytes
-    (BLUESTEIN_MAX_M)."""
+    bytes (FFT_MAX), the chirp-z route's by its, 16 M bytes
+    (BLUESTEIN_MAX_M), and the cluster route's by 8 blocks of that."""
     x = torch.zeros(2, 64000)
     for n_fft, hop in ((2, 1), (3, 64000), (441, 110), (2048, 512), (6000, 1500), (8192, 2048),
                        (12000, 3000), (20001, 1), (60000, 7), (127999, 1)):
         assert KS._check(x, n_fft, hop) == KS.route(n_fft)
     assert 8 * KS.FFT_MAX <= KS.MAX_SMEM < 8 * (KS.FFT_MAX + 1)
     assert 16 * KS.BLUESTEIN_MAX_M <= KS.MAX_SMEM < 16 * (KS.BLUESTEIN_MAX_M + 1)
-    assert [KS.route(n) for n in (2, 441, 12000, 20001, 60000)] == [
-        "bluestein", "bluestein", "fft", "dft", "dft"]
+    assert [KS.route(n) for n in (2, 441, 12000, 20001, 60000, 60001)] == [
+        "bluestein", "bluestein", "fft", "bluestein_cluster", "bluestein_cluster", "dft"]

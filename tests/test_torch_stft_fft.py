@@ -7,10 +7,15 @@ chirp's transform, DIT passes), each against the plain matmul-DFT version
 and the JAX package's Pallas kernel in interpret mode and against float64
 `numpy.fft.rfft`; the one-buffer plan against the two-buffer Stockham plan
 the FFT kernel ran before (`stft_magnitude_stockham_plain`), bit for bit;
-the DFT remainder's arithmetic (`stft_magnitude_dft_plain`) against
-float64; the twiddle table against the DFT basis; the routing rule and its
-boundaries; and the spectrum backward against autograd of the plain
-version.
+the chirp-z cluster route's plan (`stft_magnitude_bluestein_cluster_plain`:
+the M points in C contiguous shares, the passes within a share on each
+share, the passes across the shares on the C points of each local offset)
+against the one-buffer chirp-z plan at the same M and pass list, bit for
+bit, and against float64 `numpy.fft.rfft`, and its (M, C, pass list)
+against an independent search; the DFT remainder's arithmetic
+(`stft_magnitude_dft_plain`) against float64; the twiddle table against
+the DFT basis; the routing rule and its boundaries; and the spectrum
+backward against autograd of the plain version.
 
 Tolerances:
   * the FFT and chirp-z plans (float64, rounded once) vs the plain version
@@ -20,8 +25,10 @@ Tolerances:
   * the FFT and chirp-z plans vs float64 rfft magnitudes (the same float64
     window): 2 float32 ulps elementwise, the plan's float64 passes rounded
     once (half an ulp) and their own float64 rounding far below it.
-  * the one-buffer plan vs the Stockham plan: equal, bit for bit (the same
-    butterflies and twiddles in the same order per point, in other slots).
+  * the one-buffer plan vs the Stockham plan, and the cluster plan vs the
+    one-buffer chirp-z plan at its M and pass list: equal, bit for bit (the
+    same butterflies and twiddles in the same order per point, in other
+    slots or blocks).
   * the DFT remainder's float64 sums vs float64 rfft: DFT_F64_TOL = 2^-23
     of each frame's peak magnitude. One rounding to float32 moves a
     magnitude v by at most 2^-24 v, so a float64 sum reads at most 2^-24
@@ -59,9 +66,16 @@ MIXED = [120, 320, 400, 480, 882, 960, 1200, 1568, 6000, 8192, 12000]
 # n_fft the chirp-z route takes: odd, below the FFT's 16, a half with a
 # prime factor above 7 (1009 is prime)
 BLUESTEIN = [2, 3, 4, 8, 10, 17, 38, 441, 2018]
-# n_fft the remainder takes: odd or a non-smooth half beyond the chirp-z
-# plan's limit, a smooth even n_fft above the FFT's one-buffer limit
-REMAINDER = [7205, 8191, 14410, 29056, 30000]
+# n_fft the chirp-z cluster route takes: odd or a non-smooth half beyond
+# the one-block chirp-z plan's limit, a smooth even n_fft above the FFT's
+# one-buffer limit
+CLUSTER = [7205, 8191, 14410, 29056, 30000]
+# the cluster route's shapes on the card (chip_smoke.py's K4_CLUSTER_SHAPES):
+# C 2 (8191 odd, 11025 = 3^2 5^2 7^2 odd), 4 (30000 = 2 x 3 x 5^4 x 2^3
+# even, above the FFT's limit), 8 (31999 odd)
+CLUSTER_SHAPES = [(8191, 2048), (11025, 2756), (30000, 7500), (31999, 8000)]
+# n_fft no 8-block cluster holds: the remainder
+REMAINDER = [57601, 60001, 115202, 127999, 131072]
 DFT_F64_TOL = 2.0 ** -23
 
 
@@ -240,13 +254,16 @@ def stft_magnitude_fft_plain(x, n_fft, hop, spectrum=False):
     return _real_spectrum(zr, zi, c, s, spectrum)
 
 
-def bluestein_tables(n_fft):
+def bluestein_tables(n_fft, m=None, passes=None):
     """The chirp-z kernel's tables restated (numpy, float64): the chirp
     table of 2L entries, the M-point twiddle table, and the transform over
     M of the conjugate chirp (conj c_j at j and M - j for j < L), times
-    1/M, stored where the DIF passes leave each point."""
+    1/M, stored where the DIF passes (by default those of
+    `transform_passes(M)`, M by default the smallest 7-smooth >= 2L - 1)
+    leave each point."""
     length = n_fft if n_fft % 2 else n_fft // 2
-    m = smallest_smooth(2 * length - 1)
+    m = m or smallest_smooth(2 * length - 1)
+    passes = passes or transform_passes(m)
     ang = -np.pi * np.arange(2 * length) / length
     chirp = np.stack([np.cos(ang), np.sin(ang)], axis=-1)
     j = np.arange(length, dtype=np.int64)
@@ -256,30 +273,28 @@ def bluestein_tables(n_fft):
     b[(m - j[1:]) % m] = cj[1:, 0] - 1j * cj[1:, 1]
     fb = np.fft.fft(b) / m
     ordered = np.empty_like(fb)
-    ordered[digit_reversed(transform_passes(m)).numpy()] = fb
+    ordered[digit_reversed(passes).numpy()] = fb
     ang = -2.0 * np.pi * np.arange(m) / m
     return chirp, np.stack([np.cos(ang), np.sin(ang)], axis=-1), np.stack(
         [ordered.real, ordered.imag], axis=-1)
 
 
-def stft_magnitude_bluestein_plain(x, n_fft, hop, spectrum=False):
-    """The chirp-z kernel's plan (csrc/stft.cu) restated in PyTorch, in
-    float64 with the magnitudes rounded to float32: two frames as one
-    complex sequence z = a + i a' (odd n_fft, L = n_fft; a zero frame after
-    an odd count) or the packed frame (even, L = n_fft/2) times the chirp
-    c_j = tw2L[j^2 mod 2L] (the index reduced in int64), zero-padded to M;
-    the DIF passes; times the conjugate chirp's transform, conjugated; the
-    DIT passes; conjugated back and times c_k: Z; for an odd n_fft the two
-    frames' spectra (Z[k] +- conj Z[n-k]) / (2 or 2i), for an even one the
-    real FFT's post-twiddle (W^k = tw2L[k]): (B, T) float32 -> (B, F,
-    n_fft//2 + 1)."""
-    if KS.route(n_fft) != "bluestein":
-        raise ValueError(f"the chirp-z route does not take n_fft {n_fft}")
+def with_p(radices):
+    """(radix, p) of each pass of a pass list of radices."""
+    out, p = [], 1
+    for r in radices:
+        out.append((r, p))
+        p *= r
+    return out
+
+
+def _chirped(x, n_fft, hop, chirp):
+    """The chirp-z kernels' input: two frames as one complex sequence z = a
+    + i a' (odd n_fft, L = n_fft; a zero frame after an odd count) or the
+    packed frame (even, L = n_fft/2), times the chirp c_j = tw2L[j^2 mod
+    2L] (the index reduced in int64); and the frame count."""
     odd = n_fft % 2 == 1
     length = n_fft if odd else n_fft // 2
-    chirp, twm, fb = (torch.from_numpy(t) for t in bluestein_tables(n_fft))
-    m = twm.shape[0]
-    passes = transform_passes(m)
     frames = _windowed_frames(x, n_fft, hop)
     n_frames = frames.shape[-2]
     if odd:
@@ -289,13 +304,17 @@ def stft_magnitude_bluestein_plain(x, n_fft, hop, spectrum=False):
         ar, ai = frames[..., 0::2], frames[..., 1::2]
     j = torch.arange(length, dtype=torch.int64)
     cj = chirp[(j * j) % (2 * length)]
-    ar, ai = _cmul(ar, ai, cj[:, 0], cj[:, 1])
-    zr = torch.zeros(*ar.shape[:-1], m, dtype=torch.float64)
-    zi = torch.zeros_like(zr)
-    zr[..., :length], zi[..., :length] = ar, ai
-    zr, zi = _passes_in_place(zr, zi, passes, twm[:, 0], twm[:, 1], m, dif=True)
-    zr, zi = _cmul(zr, zi, fb[:, 0], fb[:, 1])
-    zr, zi = _passes_in_place(zr, -zi, passes, twm[:, 0], twm[:, 1], m, dif=False)
+    return _cmul(ar, ai, cj[:, 0], cj[:, 1]), n_frames
+
+
+def _chirp_z_end(zr, zi, n_fft, n_frames, chirp, spectrum):
+    """Z[k] = c_k conj(G[k]) for k < L from the DIT passes' output G, then
+    for an odd n_fft the two frames' spectra (Z[k] +- conj Z[n-k]) / (2 or
+    2i), for an even one the real FFT's post-twiddle (W^k = tw2L[k])."""
+    odd = n_fft % 2 == 1
+    length = n_fft if odd else n_fft // 2
+    j = torch.arange(length, dtype=torch.int64)
+    cj = chirp[(j * j) % (2 * length)]
     zr, zi = _cmul(zr[..., :length], -zi[..., :length], cj[:, 0], cj[:, 1])
     if odd:
         k = torch.arange(n_fft // 2 + 1)
@@ -307,6 +326,109 @@ def stft_magnitude_bluestein_plain(x, n_fft, hop, spectrum=False):
         xi = torch.stack([first[1], second[1]], dim=-2).flatten(-3, -2)[..., :n_frames, :]
         return _rounded(xr, xi, spectrum)
     return _real_spectrum(zr, zi, chirp[:, 0], chirp[:, 1], spectrum)
+
+
+def stft_magnitude_bluestein_plain(x, n_fft, hop, spectrum=False, plan=None):
+    """The chirp-z kernel's plan (csrc/stft.cu) restated in PyTorch, in
+    float64 with the magnitudes rounded to float32: two frames as one
+    complex sequence z = a + i a' (odd n_fft, L = n_fft; a zero frame after
+    an odd count) or the packed frame (even, L = n_fft/2) times the chirp
+    c_j = tw2L[j^2 mod 2L] (the index reduced in int64), zero-padded to M;
+    the DIF passes; times the conjugate chirp's transform, conjugated; the
+    DIT passes; conjugated back and times c_k: Z; for an odd n_fft the two
+    frames' spectra (Z[k] +- conj Z[n-k]) / (2 or 2i), for an even one the
+    real FFT's post-twiddle (W^k = tw2L[k]): (B, T) float32 -> (B, F,
+    n_fft//2 + 1). `plan`, (M, pass list of M), runs it at another M and
+    pass list (the cluster route's, in one buffer)."""
+    if plan is None and KS.route(n_fft) != "bluestein":
+        raise ValueError(f"the chirp-z route does not take n_fft {n_fft}")
+    length = n_fft if n_fft % 2 else n_fft // 2
+    m, radices = plan or (None, None)
+    chirp, twm, fb = (torch.from_numpy(t) for t in bluestein_tables(
+        n_fft, m, radices and with_p(radices)))
+    m = twm.shape[0]
+    passes = with_p(radices) if radices else transform_passes(m)
+    (ar, ai), n_frames = _chirped(x, n_fft, hop, chirp)
+    zr = torch.zeros(*ar.shape[:-1], m, dtype=torch.float64)
+    zi = torch.zeros_like(zr)
+    zr[..., :length], zi[..., :length] = ar, ai
+    zr, zi = _passes_in_place(zr, zi, passes, twm[:, 0], twm[:, 1], m, dif=True)
+    zr, zi = _cmul(zr, zi, fb[:, 0], fb[:, 1])
+    zr, zi = _passes_in_place(zr, -zi, passes, twm[:, 0], twm[:, 1], m, dif=False)
+    return _chirp_z_end(zr, zi, n_fft, n_frames, chirp, spectrum)
+
+
+def _cross_passes(ur, ui, radices, k, share, c, s, m, dif):
+    """The passes across a cluster's shares, on the C points k + j S of
+    each local offset k (ur[j], ui[j]: vectors over k, j < C, point j in
+    share j): a pass of radix R at p = S p' (p' the product of the cross
+    radices before it) is, on the j axis of length C, a pass at p' whose
+    butterfly (j0 = i mod p') takes the twiddle of global offset k + j0 S,
+    step M / (R p). DIT (first to last) twiddles before the R-point DFT, DIF
+    (last to first) after it, as `_passes_in_place`."""
+    n = len(ur)
+    ur, ui = list(ur), list(ui)
+    for radix, pj in (reversed(with_p(radices)) if dif else with_p(radices)):
+        step = m // (radix * pj * share)
+        for i in range(n // radix):
+            j0 = i % pj
+            at = [(i - j0) * radix + j0 + q * pj for q in range(radix)]
+            kg = k + j0 * share
+            vr, vi = [ur[a] for a in at], [ui[a] for a in at]
+            if not dif:
+                for q in range(1, radix):
+                    j = q * kg * step
+                    vr[q], vi[q] = _cmul(vr[q], vi[q], c[j], s[j])
+            yr, yi = _butterfly(radix, vr, vi, c, s, m)
+            if dif:
+                for q in range(1, radix):
+                    j = q * kg * step
+                    yr[q], yi[q] = _cmul(yr[q], yi[q], c[j], s[j])
+            for q, a in enumerate(at):
+                ur[a], ui[a] = yr[q], yi[q]
+    return ur, ui
+
+
+def stft_magnitude_bluestein_cluster_plain(x, n_fft, hop, spectrum=False, plan=None):
+    """The chirp-z cluster kernel's plan (csrc/stft.cu) restated in PyTorch,
+    in float64 with the magnitudes rounded to float32: the chirped sequence
+    zero-padded to M in C contiguous shares of S = M/C points (share j the
+    block of rank j); the DIF passes across the shares (the pass list's
+    last, whose radices multiply to C), then the passes within a share on
+    each share alone (the twiddles of the M-point table, each share's
+    butterflies those of its global positions); times the conjugate chirp's
+    transform (each share its slice), conjugated; the DIT passes within a
+    share, then across; the end as the one-block kernel's. `plan` is an
+    (L, M, C, pass list) of `KS.bluestein_cluster_plan`'s form, by default
+    the route's."""
+    _, m, clusters, radices = plan or KS.bluestein_cluster_plan(n_fft)
+    share = m // clusters
+    cross = len(transform_passes(clusters))
+    local = with_p(radices[:-cross])
+    assert int(np.prod(radices[:-cross])) == share and tuple(radices[-cross:]) == tuple(
+        r for r, _ in transform_passes(clusters))
+    length = n_fft if n_fft % 2 else n_fft // 2
+    chirp, twm, fb = (torch.from_numpy(t) for t in bluestein_tables(n_fft, m, with_p(radices)))
+    c, s = twm[:, 0], twm[:, 1]
+    (ar, ai), n_frames = _chirped(x, n_fft, hop, chirp)
+    zr = torch.zeros(*ar.shape[:-1], m, dtype=torch.float64)
+    zi = torch.zeros_like(zr)
+    zr[..., :length], zi[..., :length] = ar, ai
+    zr, zi = zr.unflatten(-1, (clusters, share)), zi.unflatten(-1, (clusters, share))
+    k = torch.arange(share)
+
+    def across(zr, zi, dif):
+        ur, ui = _cross_passes(zr.unbind(-2), zi.unbind(-2), radices[-cross:], k, share, c, s,
+                               m, dif)
+        return torch.stack(ur, dim=-2), torch.stack(ui, dim=-2)
+
+    zr, zi = across(zr, zi, dif=True)
+    zr, zi = _passes_in_place(zr, zi, local, c, s, m, dif=True)
+    fbr, fbi = fb[:, 0].reshape(clusters, share), fb[:, 1].reshape(clusters, share)
+    zr, zi = _cmul(zr, zi, fbr, fbi)
+    zr, zi = _passes_in_place(zr, -zi, local, c, s, m, dif=False)
+    zr, zi = across(zr, zi, dif=False)
+    return _chirp_z_end(zr.flatten(-2), zi.flatten(-2), n_fft, n_frames, chirp, spectrum)
 
 
 def stft_magnitude_stockham_plain(x, n_fft, hop):
@@ -424,7 +546,11 @@ def test_routing_rule():
     # chirp-z limit, as 7203 (odd) and 14404 = 2 x 2 x 3601 at its edge
     for n in BLUESTEIN + [11522, 7203, 14404]:
         assert KS.route(n) == "bluestein", n
-    for n in REMAINDER + [KS.FFT_MAX + 2, 32768, 60000, 127999]:
+    # 29058 = 2 x 3 x 29 x 167, 32768 and 60000 = 2 x 2^4 3 5^4: even, beyond
+    # the FFT's one-buffer limit; 20001 odd
+    for n in CLUSTER + [KS.FFT_MAX + 2, 32768, 60000, 20001] + [n for n, _ in CLUSTER_SHAPES]:
+        assert KS.route(n) == "bluestein_cluster", n
+    for n in REMAINDER:
         assert KS.route(n) == "dft", n
     assert KS.FFT_MAX == 29056  # 8 bytes a point at one frame
     for n in (1, 0, -4):
@@ -584,8 +710,18 @@ def test_route_boundaries():
     assert max(n for n in range(28000, KS.FFT_MAX + 1, 2) if KS.fft_passes(n)) == 28812
     assert KS.smooth_at_least(14407) > KS.BLUESTEIN_MAX_M >= KS.smooth_at_least(14406) == 14406
     assert KS.route(7203) == KS.route(14404) == "bluestein"
-    assert KS.route(7205) == KS.route(14410) == "dft"
-    assert KS.route(28812) == "fft" and KS.route(28814) == "dft"
+    assert KS.route(7205) == KS.route(14408) == "bluestein_cluster"
+    assert KS.route(28812) == "fft" and KS.route(28814) == "bluestein_cluster"
+    # the cluster route's edges: M 115,200 = 2^9 3^2 5^2 (C 8, shares of
+    # 14,400 points) the largest 7-smooth multiple of 64 within 8 blocks;
+    # no 7-smooth multiple of 64 lies in (115,200, 116,224]
+    assert 16 * (8 * KS.BLUESTEIN_MAX_M) <= 8 * KS.MAX_SMEM
+    assert KS.bluestein_cluster_plan(57599)[1:3] == KS.bluestein_cluster_plan(115200)[1:3] == (
+        115200, 8)
+    assert not [m for m in range(115200 + 64, 8 * KS.BLUESTEIN_MAX_M + 1, 64)
+                if KS.transform_passes(m)]
+    assert KS.route(57599) == KS.route(115200) == "bluestein_cluster"
+    assert KS.route(57601) == KS.route(115202) == "dft"
     assert KS.digit_reversed(KS.transform_passes(24)).tolist() == digit_reversed(
         transform_passes(24)).tolist()
     for n in (1, 5, 64, 882, 2025, 6000):
@@ -594,24 +730,115 @@ def test_route_boundaries():
         assert pos.tolist() == digit_reversed(transform_passes(n)).tolist(), n
 
 
-def test_slice_losses_through_the_restated_kernels_match_jax(monkeypatch):
-    """The slice as a whole: both spectral losses on a bank whose every
-    resolution takes a route of this kernel's redesign (12000 on the
-    one-buffer FFT, 2018 and 441 on the chirp-z transform; the mel loss at
-    441), with the port's autograd function fed by the restated plans in
-    place of the launches (the forward's spectrum kept, the backward
-    `stft_magnitude_backward` on it, as on the card), against the JAX
-    package's losses (XLA matmul-DFT) on a (1, 12800) pair.
+def cluster_plan_search(n_fft):
+    """The cluster plan by its rules, searched independently: for C = 2, 4,
+    8 in turn, M the first multiple of 8 C from 2L - 1 up with no prime
+    factor above 7; the first C whose share of M/C points (16 bytes each)
+    fits 232,448 bytes; the pass list that of M/C (radix 4 first, then 2,
+    3, 5, 7), then 2 (C 2), 4 (C 4) or 4, 2 (C 8)."""
+    length = n_fft if n_fft % 2 else n_fft // 2
+    for c, tail in ((2, (2,)), (4, (4,)), (8, (4, 2))):
+        m = smallest_smooth(2 * length - 1)
+        while m % (8 * c):
+            m = smallest_smooth(m + 1)
+        if 16 * (m // c) <= 232448:
+            return length, m, c, tuple(r for r, _ in transform_passes(m // c)) + tail
+    return None
 
-    Values: rtol 1e-4. The mel gradient: rtol 1e-4, atol 1e-6, as
-    tests/test_torch_stft.py holds the speech windows'. The multi-resolution
-    gradient is held, as chip_smoke.py's C3 gate holds the kernels', to the
-    float64 gradient (the port's plain path on float64 input): its relative
-    L2 distance at most 1e-5 (the float32 rounding of the backward's
-    matmuls), and no farther than the JAX package's float32 gradient, whose
-    log-magnitude term amplifies the float32 DFT's rounding at the 12000
-    frame's small bins (it reads 5.2e-2 on this pair)."""
-    plans = {"fft": stft_magnitude_fft_plain, "bluestein": stft_magnitude_bluestein_plain}
+
+def test_cluster_plan_is_the_searched_plan():
+    """`KS.bluestein_cluster_plan` is the searched plan at every n_fft the
+    one-block routes do not take (every 97th n_fft from 7,205 to 131,072,
+    and the edges); each share a multiple of 8 points within a block's
+    shared memory, the pass list a transform of M. With C asked for, the
+    same search at that C alone (the card's check at one-block shapes)."""
+    for n in list(range(7205, 131073, 97)) + [57599, 57601, 115200, 115202]:
+        if KS.fft_passes(n) or KS.bluestein_plan(n):
+            assert KS.bluestein_cluster_plan(n) is None, n
+            continue
+        want = cluster_plan_search(n)
+        assert KS.bluestein_cluster_plan(n) == want, n
+        assert (KS.route(n) == "bluestein_cluster") == (want is not None), n
+        if want:
+            _, m, c, radices = want
+            assert int(np.prod(radices)) == m and (m // c) % 8 == 0
+            assert 16 * (m // c) <= KS.MAX_SMEM
+    assert KS.bluestein_cluster_plan(441, 2) == (441, 896, 2, (4, 4, 4, 7, 2))
+    assert KS.bluestein_cluster_plan(441, 8) == (441, 896, 8, (4, 4, 7, 4, 2))
+    assert KS.bluestein_cluster_plan(2018, 4) == (1009, 2048, 4, (4, 4, 4, 4, 2, 4))
+    assert KS.chirp_plan(441) == (441, 882, 1, (2, 3, 3, 7, 7))
+    with pytest.raises(ValueError):
+        KS.bluestein_cluster_plan(441, 3)
+
+
+@pytest.mark.parametrize("n_fft,hop", CLUSTER_SHAPES)
+def test_cluster_plan_is_the_one_buffer_plan(n_fft, hop):
+    """The cluster plan (shares, passes within and across them) computes the
+    one-buffer chirp-z plan's float64 values at the same M and pass list
+    bit for bit, the spectrum too: the same butterflies and twiddles in the
+    same order per point, in other blocks."""
+    x = torch.from_numpy(_x(1, 2 * n_fft + 37, seed=n_fft + 3))
+    plan = KS.bluestein_cluster_plan(n_fft)
+    got = stft_magnitude_bluestein_cluster_plain(x, n_fft, hop, spectrum=True, plan=plan)
+    want = stft_magnitude_bluestein_plain(x, n_fft, hop, spectrum=True, plan=(plan[1], plan[3]))
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("n_fft,clusters", [(441, 2), (441, 4), (441, 8), (2018, 2), (2018, 4),
+                                            (2018, 8), (17, 8)])
+def test_cluster_plan_at_one_block_shapes(n_fft, clusters):
+    """At a shape the one-block kernel runs, the cluster plan of C blocks
+    asked for (`clusters`) is the one-buffer plan at its M and pass list,
+    bit for bit (what chip_smoke.py holds the two kernels to on the card),
+    and within 2 float32 ulps of float64."""
+    x = torch.from_numpy(_x(2, 3 * n_fft + 37, seed=n_fft + clusters))
+    hop = max(1, n_fft // 4)
+    plan = KS.bluestein_cluster_plan(n_fft, clusters)
+    got = stft_magnitude_bluestein_cluster_plain(x, n_fft, hop, plan=plan)
+    assert torch.equal(got, stft_magnitude_bluestein_plain(x, n_fft, hop, plan=(plan[1], plan[3])))
+    ref = rfft_magnitude_f64(x.numpy(), n_fft, hop)
+    ulp = np.spacing(ref.astype(np.float32)).astype(np.float64)
+    assert (np.abs(got.numpy() - ref) / ulp).max() <= 2.0
+
+
+@pytest.mark.parametrize("n_fft,hop", CLUSTER_SHAPES)
+def test_cluster_plan_against_float64_rfft(n_fft, hop):
+    """The cluster plan gives the float64 spectrum's magnitudes, rounded
+    once: within 2 float32 ulps each, at C 2, 4 and 8, odd and even n_fft.
+    (The plain version's bases at these n_fft take gigabytes on the host:
+    the card holds the kernel to it, chip_smoke.py's K4_CLUSTER_SHAPES.)"""
+    x = _x(2, 2 * n_fft + 37, seed=n_fft)
+    got = stft_magnitude_bluestein_cluster_plain(torch.from_numpy(x), n_fft, hop).numpy()
+    ref = rfft_magnitude_f64(x, n_fft, hop)
+    assert got.shape == ref.shape
+    ulp = np.spacing(ref.astype(np.float32)).astype(np.float64)
+    assert (np.abs(got - ref) / ulp).max() <= 2.0
+
+
+@pytest.mark.parametrize("n_fft", [7205, 8191, 11025, 30000, 31999])
+def test_cluster_tables_are_the_restated_tables(n_fft):
+    """The wrapper's float64 tables at the cluster plan (`KS.bluestein_tables`
+    of the route's plan) are the restated ones at its M and pass list."""
+    length, m, _, radices = KS.chirp_plan(n_fft)
+    want = bluestein_tables(n_fft, m, with_p(radices))
+    got = [t.numpy() for t in KS.bluestein_tables(n_fft)]
+    assert [g.shape for g in got] == [(2 * length, 2), (m, 2), (m, 2)]
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, w, rtol=0, atol=1e-15)
+
+
+def _slice_losses_against_jax(monkeypatch, fft_sizes, mel_n_fft):
+    """Both spectral losses on the bank `fft_sizes` (hop n/4) and the mel
+    loss at `mel_n_fft`, with the port's autograd function fed by the
+    restated plans in place of the launches (the forward's spectrum kept,
+    the backward `stft_magnitude_backward` on it, as on the card), against
+    the JAX package's losses (XLA matmul-DFT) on a (1, 12800) pair. Values:
+    rtol 1e-4; the mel gradient rtol 1e-4, atol 1e-6; the multi-resolution
+    gradient's relative L2 distance to the float64 one (the port's plain
+    path on float64 input) at most 1e-5 and no farther than the JAX
+    package's float32 gradient. Returns the route of each n_fft."""
+    plans = {"fft": stft_magnitude_fft_plain, "bluestein": stft_magnitude_bluestein_plain,
+             "bluestein_cluster": stft_magnitude_bluestein_cluster_plain}
     routes = {}
 
     def launch(x, n_fft, hop, spectrum=False):
@@ -626,8 +853,8 @@ def test_slice_losses_through_the_restated_kernels_match_jax(monkeypatch):
     rng = np.random.RandomState(17)
     target = (rng.randn(1, 12800) * 0.3).astype(np.float32)
     pred = (target + rng.randn(1, 12800) * 0.05).astype(np.float32)
-    bank = SP.MultiResSTFTConfig(fft_sizes=(12000, 2018, 441))
-    mel_kw = dict(sample_rate=16000, n_fft=441, hop=110, n_mels=80)
+    bank = SP.MultiResSTFTConfig(fft_sizes=fft_sizes)
+    mel_kw = dict(sample_rate=16000, n_fft=mel_n_fft, hop=mel_n_fft // 4, n_mels=80)
 
     def port(fn, st, dtype=torch.float32):
         p = torch.from_numpy(pred).to(dtype).requires_grad_(True)
@@ -652,7 +879,29 @@ def test_slice_losses_through_the_restated_kernels_match_jax(monkeypatch):
     value, grad = port(lambda p, t, st: SP.mel_loss(p, t, **mel_kw, stft=st), restated)
     np.testing.assert_allclose(value, float(rv), rtol=1e-4)
     np.testing.assert_allclose(grad, np.asarray(rg), rtol=1e-4, atol=1e-6)
+    return routes
+
+
+def test_slice_losses_through_the_restated_kernels_match_jax(monkeypatch):
+    """The slice as a whole: both spectral losses on a bank whose every
+    resolution takes a route of this kernel's redesign (12000 on the
+    one-buffer FFT, 2018 and 441 on the chirp-z transform; the mel loss at
+    441), through the restated plans, against the JAX package's losses
+    (`_slice_losses_against_jax`; the JAX package's float32 gradient reads
+    5.2e-2 from the float64 one on this pair, its log-magnitude term
+    amplifying the float32 DFT's rounding at the 12000 frame's small
+    bins)."""
+    routes = _slice_losses_against_jax(monkeypatch, (12000, 2018, 441), 441)
     assert routes == {12000: "fft", 2018: "bluestein", 441: "bluestein"}
+
+
+def test_cluster_bank_losses_through_the_restated_kernels_match_jax(monkeypatch):
+    """The cluster route in the slice: both spectral losses on the bank of
+    chip_smoke.py's k4_cluster phase (11025 and 8191 on the chirp-z cluster
+    route, 1024 on the FFT; the mel loss at 1024), through the restated
+    plans, against the JAX package's losses (`_slice_losses_against_jax`)."""
+    routes = _slice_losses_against_jax(monkeypatch, (11025, 8191, 1024), 1024)
+    assert routes == {11025: "bluestein_cluster", 8191: "bluestein_cluster", 1024: "fft"}
 
 
 @pytest.mark.parametrize("n_fft,hop", [(2, 1), (3, 1), (17, 5), (441, 110), (2018, 504),

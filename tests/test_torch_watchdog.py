@@ -129,9 +129,36 @@ def test_a_killed_trainer_is_restarted(fake, tmp_path):
     assert any(f"process gone (rc={-signal.SIGKILL}) -> restart" in e for e in res.events)
 
 
-def test_stale_metrics_mean_kill_and_relaunch(fake):
+def _after_the_launch_row(tmp_path):
+    """A sleep for supervise() that first waits (up to 60 s) until the
+    trainer of the PID file has logged its launch and written its row: the
+    fake trainer's start-up (an interpreter, under a loaded machine) can
+    outlast a short grace, and a trainer killed as stale before it wrote
+    its row plays its plan entry again."""
+    run, pid_file = tmp_path / "run", tmp_path / "train.pid"
+
+    def rows(name):
+        with open(run / name) as f:
+            return [json.loads(line) for line in f]
+
+    def sleep(s):
+        deadline = time.time() + 60
+        while time.time() < deadline:
+            try:
+                pid, launched = int(pid_file.read_text()), rows("launches.jsonl")
+                if launched[-1]["pid"] == pid and len(rows("metrics.jsonl")) >= len(launched):
+                    break
+            except (OSError, ValueError, IndexError):  # not there yet, or a line being written
+                pass
+            time.sleep(0.01)
+        time.sleep(s)
+
+    return sleep
+
+
+def test_stale_metrics_mean_kill_and_relaunch(fake, tmp_path):
     res, launches, _ = fake([{"rows": [1], "hang": True}, {"rows": [2], "rc": 0}],
-                            grace_s=0.2, stale_s=0.3)
+                            grace_s=0.2, stale_s=1.0, sleep=_after_the_launch_row(tmp_path))
     assert (res.status, res.restarts, len(launches)) == ("complete", 1, 2)
     assert any("-> restart" in e and "stale" in e for e in res.events)
     assert not _alive(launches[0]["pid"])
