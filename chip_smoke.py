@@ -45,15 +45,18 @@ every plain version compared here run their float32 work under
               the k4_chirp bank's four, the chirp-z cluster route at
               K4_CLUSTER_SHAPES (8191, 11025, 30000, 31999: clusters of 2,
               2, 4 and 8 blocks) and, with the FFT route, at the
-              k4_cluster bank's four, the DFT remainder at K4_DFT_SHAPES
-              (60001, beyond an 8-block cluster, on K4_DFT_ROWS x 4 s),
+              k4_cluster bank's four, the two-level chirp-z route (four
+              kernels through global memory, beyond an 8-block cluster) at
+              K4_GLOBAL_SHAPES (60001, 115202, 131072 and 262145 on 2-4
+              rows of 4-20 s; against the plain version at 60001 only),
               each with its launch counted on its route's counter and
-              against float64 magnitudes (FFT and both chirp-z routes: 2
-              float32 ulps; remainder: 2^-23 of the frame's peak, the
-              plain float32 sums' reading beside it as a control); the
+              against float64 magnitudes (2 float32 ulps; the plain
+              float32 sums' reading beside it as a control), and its
+              spectral loss (forward) against the float64 one; the
               cluster kernel bit for bit against the one-block chirp-z
               kernel given the same M and pass list (K4_CLUSTER_EQUAL:
-              441 and 2018 at C 2, 4 and 8); the spectral losses through
+              441 and 2018 at C 2, 4 and 8), and the two-level route
+              against both (K4_GLOBAL_EQUAL); the spectral losses through
               the kernel against the plain path (values; the mel
               gradient), and the multi-resolution gradient of the kernel,
               the float32 matmul-DFT path and the float32 rfft path
@@ -124,7 +127,7 @@ every plain version compared here run their float32 work under
               k4_any: base_fast at full width with the loss STFTs at n_fft
               8192/2400/960/480/120 and the mel STFT at 400 (all on K4's
               FFT route), 2 steps, each beside the same step with the plain
-              STFT (losses within LOSS_RTOL), K4 x12, no chirp-z or DFT, K2
+              STFT (losses within LOSS_RTOL), K4 x12, no chirp-z route, K2
               + split x1 per step; step time and peak memory.
               k4_chirp: the same with the loss STFTs at 12000/2018/441 and
               the mel STFT at 441: K4's FFT route x2 (12000, one-buffer
@@ -210,8 +213,7 @@ every plain version compared here run their float32 work under
               version's, its bound and a PyTorch yardstick where one call
               computes the same function (K4 at every shape it checks, the
               kernel and `torch.stft` + `abs` in turns, and at the k4_any,
-              k4_chirp and k4_cluster banks'; at the cluster shapes the
-              DFT remainder's time beside the cluster kernel's); K4's
+              k4_chirp and k4_cluster banks'); K4's
               backward beside its forward
               and beside the plain recompute it replaced; K3 beside the
               row-warp design and beside its L2 gather floor (the bytes it gathers
@@ -295,22 +297,16 @@ LOSS_GRAD_TOL = {"mel": 1e-4}
 K4_GRAD_SEEDS = (2, 3, 4, 5, 6)
 K4_F64_RATIO = 1.25
 K4_F64_L2_TOL = 1.0315e-2
-# K4's three routes beyond the shipped bank, on the 64 x 1 s target. The
-# FFT route (n_fft even, its half 7-smooth, up to 29,056) at the 25 and 20
-# ms windows of 16 kHz, 20 ms at 24, 44.1 and 48 kHz, 8192 and 12000; the
+# K4's routes beyond the shipped bank, on the 64 x 1 s target. The FFT
+# route (n_fft even, its half 7-smooth, up to 29,056) at the 25 and 20 ms
+# windows of 16 kHz, 20 ms at 24, 44.1 and 48 kHz, 8192 and 12000; the
 # chirp-z route at an odd n_fft (441 = 3^2 7^2), a half with a prime factor
-# above 7 (2018 = 2 x 1009) and the smallest n_fft; the DFT remainder at an
-# odd n_fft above the chirp-z plan's limit (8191). Each against its plain
+# above 7 (2018 = 2 x 1009) and the smallest n_fft. Each against its plain
 # version (K4_TOL) and against float64 magnitudes (float64 rfft of the
-# float64-windowed frames): all three compute in float64 and round once,
-# so every FFT and chirp-z magnitude within K4_F64_ULPS float32 ulps, and
-# every remainder magnitude within K4_DFT_F64_TOL of its frame's float64
-# peak: one rounding moves a magnitude v by at most 2^-24 v, so a float64
-# sum reads at most 2^-24 of the peak, and the limit is twice that. The
-# control, printed beside each reading: the plain version's float32 sums
-# against the same float64 magnitudes (on the CPU they read 6.1e-7 at 441
-# and 5.1e-7 at 2018, so the limit lies between a float64 and a float32
-# sum).
+# float64-windowed frames): every route computes in float64 and rounds
+# once, so every magnitude within K4_F64_ULPS float32 ulps. The control,
+# printed beside each reading: the plain version's float32 sums against
+# the same float64 magnitudes.
 K4_MIXED_SHAPES = ((400, 100), (320, 80), (480, 120), (882, 220), (960, 240), (8192, 2048),
                    (12000, 3000))
 K4_BLUESTEIN_SHAPES = ((441, 110), (2018, 504), (2, 1))
@@ -318,20 +314,28 @@ K4_BLUESTEIN_SHAPES = ((441, 110), (2018, 504), (2, 1))
 # cluster's distributed shared memory: odd n_fft 7,205-57,599, even ones
 # 14,408-115,200 off the FFT route) at odd n_fft above the one-block plan's
 # limit (8191: C 2; 11025, 250 ms at 44.1 kHz: C 2; 31999: C 8) and a smooth
-# even one above the FFT's (30000: C 4); each also timed beside the DFT
-# remainder's kernel at the same shape (called through its C entry point,
-# uncounted). The cluster kernel bit for bit against the one-block kernel
-# given the same M and pass list: (n_fft, C) at shapes both run.
+# even one above the FFT's (30000: C 4). The cluster kernel bit for bit
+# against the one-block kernel given the same M and pass list: (n_fft, C)
+# at shapes both run.
 K4_CLUSTER_SHAPES = ((8191, 2048), (11025, 2756), (30000, 7500), (31999, 8000))
 K4_CLUSTER_EQUAL = tuple((n, c) for n in (441, 2018) for c in (2, 4, 8))
-# The remainder beyond an 8-block cluster: 60001 (odd, L 60001) on
-# K4_DFT_ROWS rows of 4 s (its plain version's two float32 bases are 14.4
-# GB on the card; their float64 construction on the host is dropped after
-# the shape's checks)
-K4_DFT_SHAPES = ((60001, 15000),)
-K4_DFT_ROWS, K4_DFT_SAMPLES = 4, 64000
+# The two-level chirp-z route (four kernels through global memory: odd
+# n_fft from 57,601, even ones from 115,202) at (n_fft, hop, rows,
+# samples): 60001 on 4 x 4 s (odd, M 120,960, C 30; its plain version's two
+# float32 bases are 14.4 GB on the card, their float64 construction on the
+# host dropped after the shape's checks), 115202 on 4 x 4 s (even, half
+# 57601 prime: M 115,248, C 42), 131072 = 2^17 on 4 x 8 s (M 131,072, C 32)
+# and 262145 on 2 x 20 s (odd, M 524,880, C 135); against the plain version
+# at 60001 only, against float64 at all four. Bit for bit against the
+# one-block kernel (441 and 2018 at C 2, 4, 8 and 16) and against the
+# cluster kernel at the cluster route's plans (8191: C 2, 30000: C 4,
+# 31999: C 8) given the same M and pass list.
+K4_GLOBAL_SHAPES = ((60001, 15000, 4, 64000), (115202, 28800, 4, 64000),
+                    (131072, 32768, 4, 128000), (262145, 65536, 2, 320000))
+K4_GLOBAL_PLAIN = (60001,)
+K4_GLOBAL_EQUAL = tuple((n, c, "one-block") for n in (441, 2018) for c in (2, 4, 8, 16)) + (
+    (8191, 2, "cluster"), (30000, 4, "cluster"), (31999, 8, "cluster"))
 K4_F64_ULPS = 2.0
-K4_DFT_F64_TOL = 2.0 ** -23
 # The k4_any phase: base_fast trained at full width (TrainConfig defaults
 # but the loss STFTs) with a bank whose n_fft are not powers of two, and
 # 8192, all on the FFT route; K4_ANY_STEPS steps, each beside the same step
@@ -356,7 +360,8 @@ K4_CLUSTER_BANK_SHAPES = tuple((n, n // 4) for n in K4_CLUSTER_BANK + (K4_CLUSTE
 # the route each checked K4 shape must take
 K4_ROUTE = {**{n: "bluestein" for n, _ in K4_BLUESTEIN_SHAPES},
             **{n: "bluestein_cluster" for n, _ in K4_CLUSTER_SHAPES},
-            **{n: "dft" for n, _ in K4_DFT_SHAPES}, 2018: "bluestein", 441: "bluestein"}
+            **{n: "bluestein_global" for n, *_ in K4_GLOBAL_SHAPES}, 2018: "bluestein",
+            441: "bluestein"}
 # K2's streamed plan (padded widths over 128): (n_q, K, D) at M frames
 K2_WIDE = ((8, 1024, 256), (4, 1024, 384))
 K2_WIDE_M = 32000
@@ -514,7 +519,8 @@ def kernel_label(symbol: str) -> str:
     """A readable name for a kernel symbol (mangled, or ptxas's line): the
     stage kernels as name<dtype,activation[,tc]>."""
     m = re.search(r"(residual_stack_cl|residual_stack|fused_stage|rvq_quantize"
-                  r"|rvq_dequantize_rowwarp|rvq_dequantize|rvq_split_planes|stft_magnitude_dft"
+                  r"|rvq_dequantize_rowwarp|rvq_dequantize|rvq_split_planes"
+                  r"|stft_magnitude_bluestein_global_(?:cross_dif|share|cross_dit|end)"
                   r"|stft_magnitude_bluestein_cluster|stft_magnitude_bluestein|stft_magnitude)"
                   r"(_tc)?_kernel", symbol)
     if m is None:
@@ -587,16 +593,22 @@ def torch_stft_abs(x, n_fft, hop, win):
                       return_complex=True).abs()
 
 
-def k4_float64(x, n_fft, hop):
-    """Float64 magnitudes of float64 `torch.fft.rfft` of x's frames times the
-    float64 window (the yardstick of K4's float64 contract; the port never
-    calls it)."""
+def k4_spectrum64(x, n_fft, hop):
+    """Float64 `torch.fft.rfft` of x's frames times the float64 window (the
+    yardstick of K4's float64 contract; the port never calls it)."""
     import torch
 
     from nsc_tpu_torch.ops import stft as S
 
     frames = S.frame_signal(x.double(), n_fft, hop) * S.hann_window(n_fft, x.device, torch.float64)
-    z = torch.fft.rfft(frames, dim=-1)
+    return torch.fft.rfft(frames, dim=-1)
+
+
+def k4_float64(x, n_fft, hop):
+    """The magnitudes of `k4_spectrum64`, with the same 1e-8 under the root."""
+    import torch
+
+    z = k4_spectrum64(x, n_fft, hop)
     return torch.sqrt(z.real ** 2 + z.imag ** 2 + 1e-8)
 
 
@@ -622,7 +634,8 @@ def plain_stft():
 def k4_timing(pred, target, n_fft, hop, events_ms, plain_reps=3) -> dict:
     """One K4 launch shape on 64 x 1 s: the kernel on the target (`ms`) and
     on the reconstruction keeping the spectrum (`ms_spectrum`, as the loss
-    launches it), its plain version (mean of `plain_reps` calls after one),
+    launches it), its plain version (mean of `plain_reps` calls after one;
+    None for 0),
     `torch.stft` + `abs`, in turns (kernel, library, library, kernel), and
     the bound."""
     import torch
@@ -635,8 +648,11 @@ def k4_timing(pred, target, n_fft, hop, events_ms, plain_reps=3) -> dict:
     kernel = lambda: KS.stft_magnitude(target, n_fft, hop)  # noqa: E731
     library = lambda: torch_stft_abs(target, n_fft, hop, win)  # noqa: E731
     turns = [events_ms(fn, reps=10) for fn in (kernel, library, library, kernel)]
-    with float32_numerics():
-        plain_ms = events_ms(lambda: KS.stft_magnitude_plain(target, n_fft, hop), reps=plain_reps)
+    plain_ms = None
+    if plain_reps:
+        with float32_numerics():
+            plain_ms = events_ms(lambda: KS.stft_magnitude_plain(target, n_fft, hop),
+                                 reps=plain_reps)
     b, t = target.shape
     _, _, bytes_ms, ops_ms, _, f64_ops_ms = k4_bound(b, t, n_fft, hop)
     row = {"route": KS.route(n_fft), "n_fft": n_fft, "hop": hop, "B": b, "T": t,
@@ -649,14 +665,14 @@ def k4_timing(pred, target, n_fft, hop, events_ms, plain_reps=3) -> dict:
     return row
 
 
-def k4_check(x, n_fft, hop, what: str):
+def k4_check(x, n_fft, hop, what: str, plain: bool = True):
     """K4 at one launch shape on x, with the counters around it: its route
     (K4_ROUTE), one launch on its counter and none on another, the plain
     version's shape, finite values, within K4_TOL x max|plain| of the plain
-    version, and against float64 magnitudes (FFT and chirp-z routes:
-    K4_F64_ULPS float32 ulps; the remainder: K4_DFT_F64_TOL of the frame's
-    peak), the plain version's float32 sums' reading beside it as a
-    control. Returns (route, max abs error, float64 reading, control)."""
+    version (with `plain`; else the float64 magnitudes' shape, the error
+    None), and within K4_F64_ULPS float32 ulps of float64 magnitudes, the
+    plain version's float32 sums' reading beside it as a control. Returns
+    (route, max abs error, float64 reading, control)."""
     import torch
 
     from nsc_tpu_torch import kernels
@@ -670,27 +686,28 @@ def k4_check(x, n_fft, hop, what: str):
     got = KS.stft_magnitude(x, n_fft, hop)
     torch.cuda.synchronize()
     launched = {k: kernels.LAUNCHES[k] for k in KS.COUNTERS.values()}
-    with float32_numerics():
-        ref = KS.stft_magnitude_plain(x, n_fft, hop)
-    err = (got - ref).abs().max().item()
-    scale = ref.abs().max().item()
     m64 = k4_float64(x, n_fft, hop)
-    unit = f32_ulp(m64) if kind != "dft" else m64.amax(-1, keepdim=True)
+    unit = f32_ulp(m64)
     f64 = ((got.double() - m64).abs() / unit).max().item()
-    control = ((ref.double() - m64).abs() / unit).max().item()
-    measure = "float64_max_ulps" if kind != "dft" else "float64_max_err_over_frame_peak"
+    err = scale = control = None
+    if plain:
+        with float32_numerics():
+            ref = KS.stft_magnitude_plain(x, n_fft, hop)
+        err = (got - ref).abs().max().item()
+        scale = ref.abs().max().item()
+        control = ((ref.double() - m64).abs() / unit).max().item()
+        del ref
     emit({"phase": "kernel_check", "kernel": name, "route": kind,
           "input": what, "B": x.shape[0], "T": x.shape[1], "n_fft": n_fft, "hop": hop,
           "shape": list(got.shape), "launches": launched, "max_abs_err": err,
-          "max_abs_ref": scale, "max_rel_err": err / scale, measure: f64,
-          "plain_float32_control": control})
+          "max_abs_ref": scale, "max_rel_err": err / scale if plain else None,
+          "float64_max_ulps": f64, "plain_float32_control": control})
     check(launched == {k: int(k == name) for k in KS.COUNTERS.values()},
           f"K4 n_fft={n_fft}: launches {launched}")
-    check(tuple(got.shape) == tuple(ref.shape), f"K4 n_fft={n_fft}: shape")
+    check(tuple(got.shape) == tuple(m64.shape), f"K4 n_fft={n_fft}: shape")
     check(torch.isfinite(got).all().item(), f"K4 n_fft={n_fft}: non-finite output")
-    check(err <= K4_TOL * scale, f"K4 n_fft={n_fft} {what}: max abs err {err}")
-    check(f64 <= (K4_F64_ULPS if kind != "dft" else K4_DFT_F64_TOL),
-          f"K4 n_fft={n_fft} {what}: {f64} from float64")
+    check(not plain or err <= K4_TOL * scale, f"K4 n_fft={n_fft} {what}: max abs err {err}")
+    check(f64 <= K4_F64_ULPS, f"K4 n_fft={n_fft} {what}: {f64} ulps from float64")
     return kind, err, f64, control
 
 
@@ -701,9 +718,9 @@ def k4_check(x, n_fft, hop, what: str):
 # 30000 on the other, ~55 GB at the peak) while the CLI phase runs, which
 # takes no timing (its subprocesses' wall seconds are printed, not used);
 # the phase after it waits for them, so no timed phase runs beside them.
-PLAIN_BASIS_PREFETCH = (tuple(n for n, _ in K4_DFT_SHAPES), (31999, 30000))
-# the cluster shapes checked and timed with the remainder, before the other
-# K4 checks, while their prefetched bases are cached
+PLAIN_BASIS_PREFETCH = (K4_GLOBAL_PLAIN, (31999, 30000))
+# the cluster shapes checked and timed with the two-level route's, before
+# the other K4 checks, while their prefetched bases are cached
 K4_CLUSTER_LARGE = tuple((n, h) for n, h in K4_CLUSTER_SHAPES
                          if n in sum(PLAIN_BASIS_PREFETCH, ()))
 
@@ -744,77 +761,96 @@ def plain_basis_prefetch():
     return join
 
 
-def k4_remainder_smoke(dev, card, events_ms) -> dict:
-    """The DFT remainder, which no 8-block cluster's n_fft reaches: at
-    K4_DFT_SHAPES on K4_DFT_ROWS x 4 s of N(0, 0.3^2) noise, checked
-    (`k4_check`) and timed (`k4_timing`, its plain version once after one:
-    each plain call copies its 14.4 GB of bases to the card); then the
-    plain version's cached bases are dropped (the other K4 checks build
-    theirs after it). Returns the kernels-line entry of
-    stft_magnitude_dft."""
+def k4_global_smoke(dev, card, events_ms):
+    """The two-level chirp-z route, which no shipped bank reaches, at
+    K4_GLOBAL_SHAPES on N(0, 0.3^2) noise: checked (`k4_check`, against the
+    plain version at K4_GLOBAL_PLAIN only; the spectrum it keeps for the
+    backward within K4_F64_ULPS of float64's re and im, in float32 ulps of
+    the bin's magnitude) and timed (`k4_timing`, its
+    plain version once after one where checked against it: each plain call
+    copies its 14.4 GB of bases to the card); then its spectral loss as a
+    user evaluates it (the multi-resolution loss at the shape's n_fft, hop
+    n_fft/4, of the noise plus 0.05 N(0, 1) against the noise, forward),
+    with the counters reset just before and read just after: two launches
+    on its counter and none on another, the value within LOSS_RTOL of the
+    loss on float64 magnitudes rounded to float32. The plain version's
+    cached bases are dropped after. Returns the kernels-line entry of
+    stft_magnitude_bluestein_global and the loss's launch counts."""
     import torch
 
+    from nsc_tpu_torch import kernels
     from nsc_tpu_torch.kernels import stft as KS
+    from nsc_tpu_torch.losses import spectral as SP
     from nsc_tpu_torch.ops import stft as S
 
     gen = torch.Generator(device=dev).manual_seed(4)
-    x = torch.randn(K4_DFT_ROWS, K4_DFT_SAMPLES, device=dev, generator=gen) * 0.3
-    err, f64, control, rows = 0.0, 0.0, {}, []
+    err, f64, control, rows, losses, spectrum_ulps = 0.0, 0.0, {}, [], [], 0.0
+    launches = dict.fromkeys(kernels.LAUNCHES, 0)
+    name = KS.COUNTERS["bluestein_global"]
     with torch.no_grad():
-        for n_fft, hop in K4_DFT_SHAPES:
-            _, e, f, c = k4_check(x, n_fft, hop, "target")
-            err, f64, control[f"{n_fft}/{hop}"] = max(err, e), max(f64, f), c
-            row = k4_timing(x, x, n_fft, hop, events_ms, plain_reps=1)
-            emit({"phase": "timing", "kernel": KS.COUNTERS[row["route"]], **row, "card": card})
+        for n_fft, hop, b, t in K4_GLOBAL_SHAPES:
+            x = torch.randn(b, t, device=dev, generator=gen) * 0.3
+            plain = n_fft in K4_GLOBAL_PLAIN
+            _, e, f, c = k4_check(x, n_fft, hop, "target", plain=plain)
+            err, f64, control[f"{n_fft}/{hop}"] = max(err, e or 0.0), max(f64, f), c
+            # the spectrum the backward reads: re and im, each rounded once,
+            # within K4_F64_ULPS of float64 in ulps of the bin's magnitude
+            _, re_, im_ = KS.launch(x, n_fft, hop, spectrum=True)
+            z = k4_spectrum64(x, n_fft, hop)
+            unit = f32_ulp(z.abs())
+            spec = max(((re_.double() - z.real).abs() / unit).max().item(),
+                       ((im_.double() - z.imag).abs() / unit).max().item())
+            spectrum_ulps = max(spectrum_ulps, spec)
+            check(spec <= K4_F64_ULPS, f"K4 two-level route's spectrum at n_fft {n_fft}: {spec} "
+                  "ulps of the magnitude from float64")
+            del re_, im_, z, unit
+            row = k4_timing(x, x, n_fft, hop, events_ms, plain_reps=1 if plain else 0)
+            _, m, clusters, _ = KS.bluestein_global_plan(n_fft)
+            frames = S.num_frames(t + 2 * (n_fft // 2), n_fft, hop, center=False)
+            transforms = b * ((frames + 1) // 2 if n_fft % 2 else frames)
+            row.update({"M": m, "C": clusters, "S": m // clusters, "tile": KS.global_tile(clusters),
+                        "transforms": transforms, "chunk": KS.global_chunk(transforms, m)})
+            emit({"phase": "timing", "kernel": name, **row, "card": card})
             rows.append(row)
+            pred = x + 0.05 * torch.randn(x.shape, device=dev, generator=gen)
+            bank = SP.MultiResSTFTConfig(fft_sizes=(n_fft,))
+            kernels.reset_launches()
+            loss = SP.multi_res_stft_loss(pred, x, bank).item()
+            torch.cuda.synchronize()
+            got = dict(kernels.LAUNCHES)
+            ref = SP.multi_res_stft_loss(pred, x, bank, stft=lambda a, n, h: k4_float64(
+                a, n, h).float()).item()
+            rel = abs(loss - ref) / abs(ref)
+            losses.append({"n_fft": n_fft, "loss": loss, "float64_loss": ref, "rel_err": rel,
+                           "launches": {k: v for k, v in got.items() if v}})
+            check(got == {k: 2 * int(k == name) for k in got},
+                  f"K4 two-level route's loss at n_fft {n_fft}: launches {got}")
+            check(math.isfinite(loss) and rel <= LOSS_RTOL,
+                  f"K4 two-level route's loss at n_fft {n_fft}: {loss} against {ref}")
+            for k, v in got.items():
+                launches[k] += v
+            del x, pred
+    emit({"phase": "kernel_check", "kernel": name, "what": "multi-resolution loss forward",
+          "limit": LOSS_RTOL, "cases": losses})
     S._dft_basis_np.cache_clear()
     torch.cuda.empty_cache()
-    dft = rows[0]
-    keys = ("n_fft", "hop", "B", "T", "ms", "plain_ms", "library_ms", "bound_ms")
-    return {"name": "stft_magnitude_dft", "route": "cuda",
-            "source": "nsc_tpu_torch/csrc/stft.cu", "replaces": "nsc_tpu/ops/pallas/stft.py:80",
-            "domain": "every n_fft no 8-block cluster holds (odd above 57,599, even above "
-                      "115,200 off the FFT route)",
-            "per": f"one launch at n_fft {dft['n_fft']}, hop {dft['hop']}, on "
-                   f"{K4_DFT_ROWS} x {K4_DFT_SAMPLES}",
-            "max_abs_err": err, "float64_max_err_over_frame_peak": f64,
-            "float64_limit": K4_DFT_F64_TOL, "plain_float32_control": control,
-            **{k: dft[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
-            "shapes": [{k: r[k] for k in keys} for r in rows]}
-
-
-def k4_remainder(x, n_fft, hop, events_ms) -> dict:
-    """The DFT remainder's kernel at a shape the cluster route now takes,
-    through its C entry point (no launch counted): its time (`remainder_ms`,
-    mean of 2 launches after one), how far its magnitudes lie from the
-    cluster kernel's (both float64, rounded once), and from float64 rfft's
-    over each frame's peak, gated at K4_DFT_F64_TOL as `k4_check` gates the
-    remainder (so its even branch stays checked: 30000); with the cluster
-    plan's C and M."""
-    import torch
-
-    from nsc_tpu_torch.kernels import _build
-    from nsc_tpu_torch.kernels import stft as KS
-
-    lib = _build.library()
-    win, tw = KS._constants(n_fft, x.device)
-    got = KS.stft_magnitude(x, n_fft, hop)
-    out = torch.empty_like(got)
-
-    def call():
-        _build.check(lib.nsc_stft_magnitude_dft(
-            x.data_ptr(), win.data_ptr(), tw.data_ptr(), out.data_ptr(), None, None, x.shape[0],
-            x.shape[1], n_fft, hop, out.shape[1], torch.cuda.current_stream(x.device).cuda_stream),
-            "nsc_stft_magnitude_dft")
-
-    ms = events_ms(call, reps=2)
-    m64 = k4_float64(x, n_fft, hop)
-    f64 = ((out.double() - m64).abs() / m64.amax(-1, keepdim=True)).max().item()
-    check(f64 <= K4_DFT_F64_TOL, f"K4 remainder at n_fft {n_fft}: {f64} of the frame's peak "
-          "from float64")
-    _, m, c, _ = KS.chirp_plan(n_fft)
-    return {"remainder_ms": ms, "remainder_max_abs_diff": (out - got).abs().max().item(),
-            "remainder_float64_max_err_over_frame_peak": f64, "C": c, "M": m}
+    first = rows[0]
+    keys = ("n_fft", "hop", "B", "T", "M", "C", "S", "tile", "transforms", "chunk", "ms",
+            "plain_ms", "library_ms", "bound_ms", "bound_by")
+    entry = {"name": name, "route": "cuda", "source": "nsc_tpu_torch/csrc/stft.cu",
+             "replaces": "nsc_tpu/ops/pallas/stft.py:80",
+             "kernels": [f"stft_magnitude_bluestein_global_{k}_kernel"
+                         for k in ("cross_dif", "share", "cross_dit", "end")],
+             "domain": "every n_fft no 8-block cluster holds (odd from 57,601, even from "
+                       f"115,202), M up to {KS.GLOBAL_MAX_M}",
+             "per": f"one launch (four kernels) at n_fft {first['n_fft']}, hop {first['hop']}, "
+                    f"on {first['B']} x {first['T']}",
+             "max_abs_err": err, "float64_max_ulps": f64,
+             "spectrum_float64_max_ulps_of_magnitude": spectrum_ulps,
+             "plain_float32_control": control,
+             **{k: first[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+             "shapes": [{k: r[k] for k in keys} for r in rows]}
+    return entry, launches
 
 
 def k4_cluster_equal(dev, gen) -> None:
@@ -844,6 +880,39 @@ def k4_cluster_equal(dev, gen) -> None:
               f"K4 cluster equality at n_fft {n_fft}: launches {launched}")
     emit({"phase": "kernel_check", "kernel": "stft_magnitude_bluestein_cluster",
           "against": "stft_magnitude_bluestein at the same M and pass list", "cases": rows})
+
+
+def k4_global_equal(dev, gen) -> None:
+    """The two-level route against the one-block chirp-z kernel and against
+    the cluster kernel given the same M and pass list
+    (`KS.bluestein_global_plan(n_fft, C)`; `KS.launch_global` beside
+    `KS.launch_chirp`) at K4_GLOBAL_EQUAL, magnitudes and spectrum: equal
+    bit for bit (the same butterflies and twiddles per point)."""
+    import torch
+
+    from nsc_tpu_torch import kernels
+    from nsc_tpu_torch.kernels import stft as KS
+
+    rows = []
+    for n_fft, c, other in K4_GLOBAL_EQUAL:
+        x = torch.randn(3, 4 * n_fft + 37, device=dev, generator=gen) * 0.3
+        plan = KS.bluestein_global_plan(n_fft, c)
+        kernels.reset_launches()
+        ref = KS.launch_chirp(x, n_fft, n_fft // 4, plan if other == "cluster" else (
+            plan[0], plan[1], 1, plan[3]), spectrum=True)
+        got = KS.launch_global(x, n_fft, n_fft // 4, plan, spectrum=True)
+        torch.cuda.synchronize()
+        equal = all(torch.equal(a, b) for a, b in zip(ref, got))
+        launched = {k: kernels.LAUNCHES[k] for k in KS.COUNTERS.values() if kernels.LAUNCHES[k]}
+        rows.append({"n_fft": n_fft, "C": c, "against": other, "M": plan[1],
+                     "passes": list(plan[3]), "bit_equal": equal, "launches": launched})
+        check(equal, f"K4 two-level route at n_fft {n_fft}, C {c}: not the {other} kernel's values")
+        want = "stft_magnitude_bluestein" + ("_cluster" if other == "cluster" else "")
+        check(launched == {want: 1, "stft_magnitude_bluestein_global": 1},
+              f"K4 two-level equality at n_fft {n_fft}: launches {launched}")
+    emit({"phase": "kernel_check", "kernel": "stft_magnitude_bluestein_global",
+          "against": "stft_magnitude_bluestein and stft_magnitude_bluestein_cluster at the same "
+                     "M and pass list", "cases": rows})
 
 
 def stage_list(cfg, t_len: int) -> list:
@@ -928,12 +997,14 @@ def k1_bound(x, p, dil, products: int = 1):
 def train_smoke(dev, card, events_ms):
     """Phases 3-5 of the training path: stft_magnitude against its plain
     version and float64 on its four routes, the cluster kernel against the
-    one-block chirp-z kernel, the C3 gradient gate, the full-width training
-    steps with the launch counters, the entry point with a resume, and the
-    timings (the largest shapes' and the remainder's first, with their
-    checks). Returns the kernels-line entries of stft_magnitude (the FFT
-    route), stft_magnitude_bluestein, stft_magnitude_bluestein_cluster and
-    stft_magnitude_dft and the training path's launch counts."""
+    one-block chirp-z kernel and the two-level route against both, the C3
+    gradient gate, the full-width training steps with the launch counters,
+    the entry point with a resume, and the timings (the largest shapes' and
+    the two-level route's first, with their checks). Returns the
+    kernels-line entries of stft_magnitude (the FFT route),
+    stft_magnitude_bluestein, stft_magnitude_bluestein_cluster and
+    stft_magnitude_bluestein_global, the training path's launch counts, the
+    step's ms and the two-level route's loss's launch counts."""
     import tempfile
 
     import torch
@@ -968,7 +1039,7 @@ def train_smoke(dev, card, events_ms):
     # resolutions and the mel STFT), of the k4_any, k4_chirp and k4_cluster
     # banks, each on the reconstruction and on the target; then the other
     # FFT-route shapes and the chirp-z routes', on the target (the
-    # remainder's: `k4_remainder_smoke`); each call with the counters
+    # two-level route's: `k4_global_smoke`); each call with the counters
     # around it
     shapes = [(n, n // 4) for n in tcfg.stft_fft_sizes] + [(tcfg.mel_fft_size, tcfg.mel_fft_size // 4)]
     in_steps = set(shapes) | set(K4_ANY_SHAPES) | set(K4_CHIRP_SHAPES) | set(K4_CLUSTER_BANK_SHAPES)
@@ -980,17 +1051,16 @@ def train_smoke(dev, card, events_ms):
     t_checks = time.perf_counter()
     with torch.no_grad():
         # first the largest: the cluster route's shapes whose plain bases
-        # were prefetched, checked and timed (`k4_rows`), then the remainder's
-        # (which drops the cached bases)
+        # were prefetched, checked and timed (`k4_rows`), then the two-level
+        # route's (which drops the cached bases)
         k4_rows = {}
         for n_fft, hop in K4_CLUSTER_LARGE:
             kind, err, f64, _ = k4_check(target, n_fft, hop, "target")
             k4_err[kind] = max(k4_err[kind], err)
             k4_f64[kind] = max(k4_f64[kind], f64)
             k4_rows[n_fft, hop] = row = k4_timing(pred, target, n_fft, hop, events_ms)
-            row.update(k4_remainder(target, n_fft, hop, events_ms))
             emit({"phase": "timing", "kernel": KS.COUNTERS[row["route"]], **row, "card": card})
-        dft_entry = k4_remainder_smoke(dev, card, events_ms)
+        global_entry, global_launches = k4_global_smoke(dev, card, events_ms)
         emit({"phase": "timing", "what": "k4_large_shapes",
               "seconds": time.perf_counter() - t_checks})
         for n_fft, hop in checked:
@@ -1003,6 +1073,7 @@ def train_smoke(dev, card, events_ms):
                 k4_err[kind] = max(k4_err[kind], err)
                 k4_f64[kind] = max(k4_f64[kind], f64)
         k4_cluster_equal(dev, gen)
+        k4_global_equal(dev, gen)
     emit({"phase": "timing", "what": "k4_checks", "seconds": time.perf_counter() - t_checks})
 
     mrstft = SP.MultiResSTFTConfig(fft_sizes=tcfg.stft_fft_sizes)
@@ -1234,15 +1305,12 @@ def train_smoke(dev, card, events_ms):
                 k4[key] += 2 * v
         emit({"phase": "timing", "kernel": "stft_magnitude",
               "per": "train step (12 forward launches, 6 backwards)", **k4, "card": card})
-        # the other FFT-route shapes and the chirp-z routes' (the cluster
-        # route's beside the remainder's kernel at the same shape; the
-        # largest were timed with their checks), one launch each
+        # the other FFT-route shapes and the chirp-z routes' (the largest
+        # were timed with their checks), one launch each
         for n_fft, hop in K4_MIXED_SHAPES + K4_BLUESTEIN_SHAPES + K4_CLUSTER_SHAPES:
             if (n_fft, hop) in k4_rows:
                 continue
             k4_rows[n_fft, hop] = row = k4_timing(pred, target, n_fft, hop, events_ms)
-            if row["route"] == "bluestein_cluster":
-                row.update(k4_remainder(target, n_fft, hop, events_ms))
             emit({"phase": "timing", "kernel": KS.COUNTERS[row["route"]], **row, "card": card})
 
         at_400 = k4_rows[400, 100]
@@ -1277,13 +1345,12 @@ def train_smoke(dev, card, events_ms):
          "per": f"one launch at n_fft {clu['n_fft']}, hop {clu['hop']}",
          "max_abs_err": k4_err["bluestein_cluster"],
          "float64_max_ulps": k4_f64["bluestein_cluster"],
-         **{k: clu[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                                "remainder_ms")},
-         "shapes": [{k: r[k] for k in keys + ("C", "M", "remainder_ms")} for r in k4_rows.values()
+         **{k: clu[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+         "shapes": [{k: r[k] for k in keys} for r in k4_rows.values()
                     if r["route"] == "bluestein_cluster"]},
-        dft_entry,
+        global_entry,
     ]
-    return summaries, launches, step_s * 1e3
+    return summaries, launches, step_s * 1e3, global_launches
 
 
 def k4_bank_smoke(dev, card, events_ms, phase, bank, mel) -> dict:
@@ -3677,6 +3744,9 @@ def main() -> int:
         for c in (2, 4, 8):
             check(f"stft_magnitude_bluestein_cluster<{c}>" in spills,
                   f"ptxas: no line for stft_magnitude_bluestein_cluster<{c}>")
+        for part in ("cross_dif", "share", "cross_dit", "end"):  # and the two-level route's four
+            check(f"stft_magnitude_bluestein_global_{part}" in spills,
+                  f"ptxas: no line for stft_magnitude_bluestein_global_{part}")
     for label, n in hmma.items():
         if "<f32" in label:
             check(n == 0, f"{label}: {n} HMMA in a float32 instantiation")
@@ -4146,7 +4216,8 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     with torch.enable_grad():
-        k4_summaries, train_launches, step_ms = train_smoke(dev, card, events_ms)
+        k4_summaries, train_launches, step_ms, k4_global_launches = train_smoke(dev, card,
+                                                                                events_ms)
         t_k4_any = time.perf_counter()
         k4_any_launches = k4_bank_smoke(dev, card, events_ms, "k4_any", K4_ANY_BANK, K4_ANY_MEL)
         t_k4_chirp = time.perf_counter()
@@ -4205,7 +4276,7 @@ def main() -> int:
                "finetune_serving": finetune_serving, "dp": dp_launches,
                "sweep": sweep_launches, "k4_any": k4_any_launches,
                "k4_chirp": k4_chirp_launches, "k4_cluster": k4_cluster_launches,
-               "close": close_launches,
+               "k4_global_loss": k4_global_launches, "close": close_launches,
                "close_training": close_training, **configs_launches,
                "small_trained_sweep": small_launches}
 

@@ -7,10 +7,11 @@
 //   out[b, f, k] = sqrt(re*re + im*im + 1e-8)
 // with the periodic Hann window. The point of the TPU kernel is that the
 // frame tensor, n_fft/hop times the signal, never reaches device memory;
-// the four kernels here keep that property, and each reads the frame's
+// the four routes here keep that property, and each reads the frame's
 // samples from the unpadded signal through the reflect index (no padded
-// copy, nothing staged). The wrapper (kernels/stft.py::route) picks one by
-// n_fft alone.
+// copy, nothing staged; the two-level route keeps its transforms' points,
+// not frames, in a scratch buffer). The wrapper (kernels/stft.py::route)
+// picks one by n_fft alone.
 //
 // All four compute in float64 and round each output once to float32: each
 // magnitude is that of the true float64 spectrum of the float32 input,
@@ -105,24 +106,39 @@
 // as the one-block kernel, the shared-memory traffic of the passes (16
 // bytes a point each way), far above the byte bound (the samples read once,
 // the bins written once); a cross pass moves its points through the SM-to-
-// SM network instead, once per transform each way. What the cluster does
-// about the O(n^2) DFT it replaces: 8x a block's shared memory for one
-// transform, so an n whose chirp-z plan outgrows a block still runs on
-// two M-point FFTs. Clusters stop at 8, the portable size.
+// SM network instead, once per transform each way. What the cluster buys:
+// 8x a block's shared memory for one transform, so an n whose chirp-z plan
+// outgrows a block still runs on two M-point FFTs without leaving the
+// chip's SRAM. Clusters stop at 8, the portable size.
 //
-// stft_magnitude_dft_kernel, the remainder: every n_fft no 8-block cluster
-// holds (odd n above 57,599, even n above 115,200 that the FFT route does
-// not take: their M would be above 8 x 14,528). The O(n^2) DFT, summed in float64
-// against the float64 table read at (n k) mod n_fft. One block owns one
-// (row, tile of 32 frames, tile of 64 bins) and walks n in chunks of 32:
-// per chunk it stages the windowed samples of its frames (float64) and the
-// basis of its bins, so a block's shared memory (40 KB) does not grow with
-// n_fft or hop, and no shape is refused. The 256 threads are 32 bin lanes
-// (threadIdx.x: bins x and x + 32, conflict-free 16-byte basis reads) by 8
-// frame groups (threadIdx.y: 4 frames each, shared by the warp, so the
-// sample reads are broadcasts); each thread keeps 4 frames x 2 bins x (re,
-// im) float64 sums, and a warp whose frames all lie past F skips the sums.
-// Its operations grow as n_fft^2 per frame.
+// stft_magnitude_bluestein_global_*_kernel, the same chirp-z transform in
+// two levels through global memory, for every n_fft no 8-block cluster
+// holds (kernels/stft.py::bluestein_global_plan): odd n from 57,601 and even
+// n from 115,202. M is the smallest 7-smooth multiple of 8 >= 2L - 1, split
+// into C shares of S points, S the largest divisor of M that 8 divides and
+// that is at most kBluesteinPoints (the points one chirp-z block holds), C =
+// M / S; the pass list is that of S followed by that of C, as the cluster
+// kernel's. The points of each transform live in a scratch buffer the
+// wrapper allocates (16 M bytes a transform, share-major: point g at g), and
+// four kernels run in turn on the caller's stream, each as wide as the
+// card: _cross_dif, one block per (transform, tile of kt local offsets k),
+// makes the chirped points k + j S (j < C) straight from the signal, runs
+// the passes across the shares (radices multiplying to C) in shared memory
+// on the tile and writes the points; _share, one block per (transform,
+// share), is the cluster kernel's middle (the passes within the share, the
+// product with the conjugate chirp's transform, the DIT passes); _cross_dit
+// runs the DIT passes across the shares on the tiles and writes Z[g] = c_g
+// conj(G[g]) for g < L; _end splits Z into the bins. The same float64
+// butterflies and twiddles per point as the one-block and cluster kernels
+// at the same M and pass list, so the three agree bit for bit there; the
+// chirp index j^2 mod 2L is taken in 64 bits (j^2 passes 2^32 from j =
+// 65,536). What bounds it: four round trips of 16 bytes a point through L2
+// and HBM, above K4's byte bound (the samples read once, the bins written
+// once), and the passes' shared-memory traffic as in the other chirp-z
+// kernels. Its reach: M up to 2^20 (odd n to 524,287, even n to
+// 1,048,576), where C stays at most 1,771 (S >= 592) and a tile of 8
+// offsets of C points fits a block; the wrapper raises beyond. It replaces
+// the O(n^2) DFT that earlier served these n_fft.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -133,6 +149,7 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kMaxSmem = 232448;  // bytes of shared memory one block may use on Hopper
 constexpr double kEps = 1e-8;
 
 // the padded position P of a frame's sample, read through the reflection;
@@ -772,95 +789,213 @@ __global__ void __launch_bounds__(kClusterThreads, 1) stft_magnitude_bluestein_c
 }
 
 // ---------------------------------------------------------------------------
-// The DFT remainder, in float64.
+// The chirp-z transform in two levels through global memory.
 
-constexpr int kBinLanes = 32;                               // threadIdx.x
-constexpr int kFrameGroups = kThreads / kBinLanes;          // threadIdx.y: 8
-constexpr int kBinsPerThread = 2;                           // x and x + 32
-constexpr int kFramesPerThread = 4;
-constexpr int kTileK = kBinLanes * kBinsPerThread;          // 64 bins
-constexpr int kTileF = kFrameGroups * kFramesPerThread;     // 32 frames
-constexpr int kChunkN = 32;                                 // points n per stage
+// A tile of the kernels across the shares: kt consecutive local offsets,
+// the largest power of two from kTileMaxOffsets down whose C points each
+// stay within kBluesteinPoints, and never fewer than kTileMinOffsets (8
+// offsets: each gather and scatter row is 128 contiguous bytes). With C at
+// most kGlobalMaxC a tile of 8 fits a block (16 x 8 x 1,816 bytes).
+constexpr int kTileMaxOffsets = 64, kTileMinOffsets = 8;
+constexpr int kGlobalMaxC = kMaxSmem / (16 * kTileMinOffsets);
 
-__global__ void __launch_bounds__(kThreads) stft_magnitude_dft_kernel(
-    const float* __restrict__ x, const double* __restrict__ win,
-    const double2* __restrict__ tw, float* __restrict__ out, float* __restrict__ re_out,
-    float* __restrict__ im_out, int T, int n_fft, int hop, int F) {
-  __shared__ double2 bs[kChunkN][kTileK];   // W^((n k) mod n_fft) of the chunk's n, the tile's k
-  __shared__ double xs[kTileF][kChunkN];    // windowed samples of the tile's frames
+inline int global_tile(int C) {
+  int kt = kTileMaxOffsets;
+  while (kt > kTileMinOffsets && kt * C > kBluesteinPoints) kt /= 2;
+  return kt;
+}
 
-  const int K = n_fft / 2 + 1;
-  const int b = blockIdx.z;
-  const int f0 = blockIdx.x * kTileF;
-  const int k0 = blockIdx.y * kTileK;
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int tid = ty * kBinLanes + tx;
-  const float* row = x + static_cast<size_t>(b) * T;
-  const int pad = n_fft / 2;
-
-  // the basis entries a thread stages: bin k0 + (tid mod 64), points n0 + j
-  // for j = tid / 64 + 4 r; its table index advances by 4 k mod n_fft per r
-  constexpr int kRowsPerPass = kThreads / kTileK;  // 4
-  const int sk = tid % kTileK, sj = tid / kTileK;
-  const unsigned long long kk = static_cast<unsigned long long>(k0 + sk);
-  const unsigned long long nn = static_cast<unsigned long long>(n_fft);
-  const unsigned long long advance = (kRowsPerPass * kk) % nn;
-  const bool active = f0 + ty * kFramesPerThread < F;  // warp-uniform
-
-  double re[kFramesPerThread][kBinsPerThread] = {};
-  double im[kFramesPerThread][kBinsPerThread] = {};
-
-  for (int n0 = 0; n0 < n_fft; n0 += kChunkN) {
-    __syncthreads();  // readers of the previous chunk done
-    unsigned long long j_idx = (static_cast<unsigned long long>(n0 + sj) * kk) % nn;
-    for (int j = sj; j < kChunkN; j += kRowsPerPass) {
-      bs[j][sk] = __ldg(tw + j_idx);
-      j_idx += advance;
-      if (j_idx >= nn) j_idx -= nn;
+// One pass across the shares, of radix R at p = S q (q: the product of the
+// cross radices before it), on a tile of kt local offsets [k0, k0 + kt):
+// buf[j kt + o] holds point k0 + o + j S of the transform (j < C). On the j
+// axis a pass at q whose butterfly i (j0 = i mod q) owns the points (i - j0)
+// R + j0 + m q and takes the twiddles of global offset k0 + o + j0 S at
+// step C / (R q) of the M-point table: the very butterflies and twiddles
+// of `pass<R, kDif>` at p = S q over the whole transform, in the same
+// order per point (p > 1, so the twiddles always apply).
+template <int R, bool kDif>
+__device__ __forceinline__ void tile_pass(double2* __restrict__ buf,
+                                          const double2* __restrict__ tw, int kt, int C, int M,
+                                          int S, int k0, int q) {
+  const int step = C / (R * q);
+  for (int g = threadIdx.x; g < (C / R) * kt; g += kThreads) {
+    const int i = g / kt, o = g - i * kt, j0 = i % q;
+    const int base = (i - j0) * R + j0;
+    const int kg = k0 + o + j0 * S;
+    double2 u[R], y[R];
+#pragma unroll
+    for (int m = 0; m < R; ++m) u[m] = buf[(base + m * q) * kt + o];
+    if (!kDif) {
+#pragma unroll
+      for (int m = 1; m < R; ++m) u[m] = cmul(u[m], __ldg(tw + m * kg * step));
     }
-    for (int i = tid; i < kTileF * kChunkN; i += kThreads) {
-      const int f = i / kChunkN, j = i - f * kChunkN, n = n0 + j;
-      double v = 0.0;
-      if (n < n_fft) {
-        const long long P = static_cast<long long>(f0 + f) * hop + n;
-        v = static_cast<double>(reflected(row, P, T, pad)) * __ldg(win + n);
-      }
-      xs[f][j] = v;
+    butterfly<R>(u, y, tw, M);
+    if (kDif) {
+#pragma unroll
+      for (int t = 1; t < R; ++t) y[t] = cmul(y[t], __ldg(tw + t * kg * step));
     }
+#pragma unroll
+    for (int t = 0; t < R; ++t) buf[(base + t * q) * kt + o] = y[t];
+  }
+}
+
+template <bool kDif>
+__device__ __forceinline__ void run_tile_pass(int r, double2* buf, const double2* tw, int kt,
+                                              int C, int M, int S, int k0, int q) {
+  switch (r) {
+    case 4: tile_pass<4, kDif>(buf, tw, kt, C, M, S, k0, q); break;
+    case 2: tile_pass<2, kDif>(buf, tw, kt, C, M, S, k0, q); break;
+    case 3: tile_pass<3, kDif>(buf, tw, kt, C, M, S, k0, q); break;
+    case 5: tile_pass<5, kDif>(buf, tw, kt, C, M, S, k0, q); break;
+    default: tile_pass<7, kDif>(buf, tw, kt, C, M, S, k0, q); break;
+  }
+}
+
+// The passes across the shares on a tile, `cross` their radices (4 bits
+// each, their product C): DIF last to first, DIT first to last.
+template <bool kDif>
+__device__ __forceinline__ void tile_passes(double2* buf, const double2* tw, int kt, int C, int M,
+                                            int S, int k0, unsigned long long cross) {
+  const int count = pass_count(cross);
+  int q = kDif ? C : 1;
+  for (int j = 0; j < count; ++j) {
+    const int r = static_cast<int>((cross >> (4 * (kDif ? count - 1 - j : j))) & 15);
+    if (kDif) q /= r;
+    run_tile_pass<kDif>(r, buf, tw, kt, C, M, S, k0, q);
+    if (!kDif) q *= r;
     __syncthreads();
-    if (!active) continue;
-    const int nc = min(kChunkN, n_fft - n0);
-    for (int j = 0; j < nc; ++j) {
-      double2 w[kBinsPerThread];
-#pragma unroll
-      for (int q = 0; q < kBinsPerThread; ++q) w[q] = bs[j][q * kBinLanes + tx];
-#pragma unroll
-      for (int i = 0; i < kFramesPerThread; ++i) {
-        const double v = xs[ty * kFramesPerThread + i][j];
-#pragma unroll
-        for (int q = 0; q < kBinsPerThread; ++q) {
-          re[i][q] = fma(v, w[q].x, re[i][q]);
-          im[i][q] = fma(v, w[q].y, im[i][q]);
-        }
-      }
+  }
+}
+
+// The row and first frame of transform tg (per_row transforms a row, each
+// two frames of an odd n or one of an even n).
+__device__ __forceinline__ void transform_frames(long long tg, int per_row, bool odd, int* b,
+                                                 int* f0) {
+  *b = static_cast<int>(tg / per_row);
+  *f0 = static_cast<int>(tg - static_cast<long long>(*b) * per_row) * (odd ? 2 : 1);
+}
+
+// x (B, T) float32 unpadded; win (n) float64; chirp (2L complex) as the
+// one-block kernel's; twm (M complex); scratch (transforms of the chunk, M
+// complex); t0: the chunk's first transform (blockIdx.y adds to it); cross:
+// the radices across the shares. Block (tile, transform): the chirped
+// points k + j S of the tile's offsets, zero from L to M, the DIF passes
+// across the shares, written to the scratch.
+__global__ void __launch_bounds__(kThreads) stft_magnitude_bluestein_global_cross_dif_kernel(
+    const float* __restrict__ x, const double* __restrict__ win,
+    const double2* __restrict__ chirp, const double2* __restrict__ twm,
+    double2* __restrict__ scratch, int T, int n, int hop, int M, int C, int kt, long long t0,
+    int per_row, unsigned long long cross) {
+  extern __shared__ __align__(16) double2 smd[];  // [C][kt]
+  const bool odd = (n & 1) != 0;
+  const int L = odd ? n : n / 2;
+  const unsigned long long two_l = 2ull * static_cast<unsigned long long>(L);
+  const int pad = n / 2;
+  const int S = M / C;
+  const int k0 = blockIdx.x * kt;
+  int b, f0;
+  transform_frames(t0 + blockIdx.y, per_row, odd, &b, &f0);
+  const float* row = x + static_cast<size_t>(b) * T;
+  double2* pts = scratch + static_cast<size_t>(blockIdx.y) * M;
+
+  for (int g = threadIdx.x; g < C * kt; g += kThreads) {
+    const int j = g / kt, k = k0 + g - j * kt;
+    const int pt = j * S + k;
+    double2 v = make_double2(0.0, 0.0);
+    if (k < S && pt < L) {
+      const long long P = static_cast<long long>(f0) * hop + (odd ? pt : 2 * pt);
+      const int w = odd ? pt : 2 * pt;
+      const long long Q = odd ? P + hop : P + 1;  // the other frame's sample, or the odd one
+      const double2 z =
+          make_double2(static_cast<double>(reflected(row, P, T, pad)) * __ldg(win + w),
+                       static_cast<double>(reflected(row, Q, T, pad)) * __ldg(win + w + 1 - odd));
+      const unsigned long long gg = static_cast<unsigned long long>(pt);
+      v = cmul(z, __ldg(chirp + (gg * gg) % two_l));
+    }
+    smd[g] = v;
+  }
+  __syncthreads();
+  tile_passes<true>(smd, twm, kt, C, M, S, k0, cross);
+  for (int g = threadIdx.x; g < C * kt; g += kThreads) {
+    const int j = g / kt, k = k0 + g - j * kt;
+    if (k < S) pts[j * S + k] = smd[g];
+  }
+}
+
+// fb (M complex) as the one-block kernel's; local: the pass list of S.
+// Block (share r, transform): the share's S points, the DIF passes within
+// it, times the conjugate chirp's transform, conjugated, the DIT passes,
+// written back (the cluster kernel's middle).
+__global__ void __launch_bounds__(kThreads) stft_magnitude_bluestein_global_share_kernel(
+    const double2* __restrict__ twm, const double2* __restrict__ fb,
+    double2* __restrict__ scratch, int M, int S, unsigned long long local) {
+  extern __shared__ __align__(16) double2 smd[];  // [S]
+  const int base = blockIdx.x * S;
+  double2* pts = scratch + static_cast<size_t>(blockIdx.y) * M + base;
+  for (int j = threadIdx.x; j < S; j += kThreads) smd[slot(j, S)] = pts[j];
+  __syncthreads();
+  dif_passes<kThreads>(smd, twm, 1, S, M, local, pass_count(local));
+  for (int j = threadIdx.x; j < S; j += kThreads) {
+    double2* v = smd + slot(j, S);
+    *v = conjugate(cmul(*v, __ldg(fb + base + j)));
+  }
+  __syncthreads();
+  dit_passes<false, kThreads>(smd, twm, 1, S, M, local);
+  for (int j = threadIdx.x; j < S; j += kThreads) pts[j] = smd[slot(j, S)];
+}
+
+// Block (tile, transform): the DIT passes across the shares on the tile's
+// points, then Z[g] = c_g conj(G[g]) written back for g < L (the end reads
+// no other).
+__global__ void __launch_bounds__(kThreads) stft_magnitude_bluestein_global_cross_dit_kernel(
+    const double2* __restrict__ chirp, const double2* __restrict__ twm,
+    double2* __restrict__ scratch, int n, int M, int C, int kt, unsigned long long cross) {
+  extern __shared__ __align__(16) double2 smd[];  // [C][kt]
+  const int L = (n & 1) != 0 ? n : n / 2;
+  const unsigned long long two_l = 2ull * static_cast<unsigned long long>(L);
+  const int S = M / C;
+  const int k0 = blockIdx.x * kt;
+  double2* pts = scratch + static_cast<size_t>(blockIdx.y) * M;
+  for (int g = threadIdx.x; g < C * kt; g += kThreads) {
+    const int j = g / kt, k = k0 + g - j * kt;
+    smd[g] = k < S ? pts[j * S + k] : make_double2(0.0, 0.0);
+  }
+  __syncthreads();
+  tile_passes<false>(smd, twm, kt, C, M, S, k0, cross);
+  for (int g = threadIdx.x; g < C * kt; g += kThreads) {
+    const int j = g / kt, k = k0 + g - j * kt;
+    const int pt = j * S + k;
+    if (k < S && pt < L) {
+      const unsigned long long gg = static_cast<unsigned long long>(pt);
+      pts[pt] = cmul(conjugate(smd[g]), __ldg(chirp + (gg * gg) % two_l));
     }
   }
+}
 
-#pragma unroll
-  for (int i = 0; i < kFramesPerThread; ++i) {
-    const int f = f0 + ty * kFramesPerThread + i;
-    if (f >= F) continue;
-#pragma unroll
-    for (int q = 0; q < kBinsPerThread; ++q) {
-      const int k = k0 + q * kBinLanes + tx;
-      if (k >= K) continue;
-      const size_t o = (static_cast<size_t>(b) * F + f) * K + k;
-      out[o] = static_cast<float>(sqrt(re[i][q] * re[i][q] + im[i][q] * im[i][q] + kEps));
-      if (re_out != nullptr) {
-        re_out[o] = static_cast<float>(re[i][q]);
-        im_out[o] = static_cast<float>(im[i][q]);
-      }
-    }
+// out (B, F, n/2 + 1) float32, re and im likewise or null. Block (tile of
+// kThreads bins, transform): for an odd n the two frames' bins from Z[k]
+// and Z[n - k], for an even n the real FFT's post-twiddle from Z[k] and
+// Z[L - k] (W^k = tw2L[k]: 2L = n).
+__global__ void __launch_bounds__(kThreads) stft_magnitude_bluestein_global_end_kernel(
+    const double2* __restrict__ chirp, const double2* __restrict__ scratch,
+    float* __restrict__ out, float* __restrict__ re_out, float* __restrict__ im_out, int n,
+    int F, int M, long long t0, int per_row) {
+  const bool odd = (n & 1) != 0;
+  const int L = odd ? n : n / 2;
+  const int K = n / 2 + 1;
+  int b, f0;
+  transform_frames(t0 + blockIdx.y, per_row, odd, &b, &f0);
+  const double2* z = scratch + static_cast<size_t>(blockIdx.y) * M;
+  const int g = blockIdx.x * kThreads + threadIdx.x;
+  if (g >= (odd ? 2 * K : K)) return;
+  const int h = g / K, k = g - h * K, f = f0 + h;
+  if (f >= F) return;
+  const size_t o = (static_cast<size_t>(b) * F + f) * K + k;
+  if (odd) {
+    store_bin(split_bin(z[k], z[k == 0 ? 0 : n - k], h != 0), o, out, re_out, im_out);
+  } else {
+    store_bin(real_bin(z[k == L ? 0 : k], z[k == 0 ? 0 : L - k], __ldg(chirp + k)), o, out,
+              re_out, im_out);
   }
 }
 
@@ -1113,20 +1248,116 @@ extern "C" int nsc_stft_bluestein_cluster_plan(int M, int C, void* plan) {
   return 0;
 }
 
-// The DFT remainder, any n_fft >= 2. Arguments as nsc_stft_magnitude_fft's
-// but the pass list.
-// Returns the launch's cudaError_t.
-extern "C" int nsc_stft_magnitude_dft(const void* x, const void* win, const void* tw, void* out,
-                                      void* re, void* im, int B, int T, int n_fft, int hop, int F,
-                                      void* stream) {
-  if (B < 1 || B > 65535 || F < 1 || n_fft < 2 || hop < 1 || T <= n_fft / 2)
+// The dynamic shared memory of the two-level route's kernels, raised once
+// per (kernel, device) to the largest a launch has asked for (a larger cap
+// admits every smaller block).
+std::mutex global_attr_mutex;
+int global_attr_smem[3][kClusterDevices];  // per kernel (cross DIF, share, cross DIT) and device
+
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int which, int smem) {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> lock(global_attr_mutex);
+  int* cached = device < kClusterDevices ? &global_attr_smem[which][device] : nullptr;
+  if (cached != nullptr && smem <= *cached) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess && cached != nullptr) *cached = smem;
+  return err;
+}
+
+// The pass list of M cut where its prefix multiplies to S: the passes
+// within a share (local) and those across the shares (cross). Returns
+// false where no prefix multiplies to S.
+inline bool split_passes(unsigned long long radices, int S, unsigned long long* local,
+                         unsigned long long* cross) {
+  long long prod = 1;
+  int count = 0;
+  for (unsigned long long r = radices; prod < S && r != 0; r >>= 4, ++count) prod *= r & 15;
+  if (prod != S) return false;
+  *local = count == 0 ? 0 : radices & ((1ull << (4 * count)) - 1);
+  *cross = count == 16 ? 0 : radices >> (4 * count);
+  return true;
+}
+
+// The two-level chirp-z route. x, win, chirp, twm, fb, out, re, im, B, T,
+// n_fft, hop, F and M as nsc_stft_magnitude_bluestein's; scratch (chunk, M,
+// 2) float64, the points of `chunk` transforms (the launcher runs the
+// B x per-row transforms chunk by chunk, the four kernels each time); C the
+// shares, dividing M; radices the pass list of M, the passes of S = M / C
+// first (kernels/stft.py::bluestein_global_plan). Returns the launches'
+// cudaError_t: cudaErrorInvalidValue for an M below 2L - 1, a C below 2 or
+// above kGlobalMaxC or not dividing M, a pass list that is not a transform
+// of M or has no prefix of S, or a chunk below 1 or above 65,535; else the
+// first error of an attribute or a launch.
+extern "C" int nsc_stft_magnitude_bluestein_global(const void* x, const void* win,
+                                                   const void* chirp, const void* twm,
+                                                   const void* fb, void* scratch, void* out,
+                                                   void* re, void* im, int B, int T, int n_fft,
+                                                   int hop, int F, int M, int C, int chunk,
+                                                   unsigned long long radices, void* stream) {
+  const bool odd = n_fft % 2 != 0;
+  const long long L = odd ? n_fft : n_fft / 2;
+  unsigned long long local = 0, cross = 0;
+  if (B < 1 || B > 65535 || F < 1 || hop < 1 || n_fft < 2 || T <= n_fft / 2 || M < 2 * L - 1 ||
+      C < 2 || C > kGlobalMaxC || M % C != 0 || chunk < 1 || chunk > 65535 ||
+      transform_passes(M, radices) < 0 || !split_passes(radices, M / C, &local, &cross))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int K = n_fft / 2 + 1;
-  const dim3 grid((F + kTileF - 1) / kTileF, (K + kTileK - 1) / kTileK, B);
-  const dim3 block(kBinLanes, kFrameGroups);
-  stft_magnitude_dft_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const double*>(win),
-      static_cast<const double2*>(tw), static_cast<float*>(out), static_cast<float*>(re),
-      static_cast<float*>(im), T, n_fft, hop, F);
-  return static_cast<int>(cudaGetLastError());
+  const int S = M / C;
+  const int kt = global_tile(C);
+  const int tile_smem = 16 * kt * C, share_smem = 16 * S;
+  cudaError_t err = allow_smem(stft_magnitude_bluestein_global_cross_dif_kernel, 0, tile_smem);
+  if (err == cudaSuccess)
+    err = allow_smem(stft_magnitude_bluestein_global_share_kernel, 1, share_smem);
+  if (err == cudaSuccess)
+    err = allow_smem(stft_magnitude_bluestein_global_cross_dit_kernel, 2, tile_smem);
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // not left for the next launch's check
+    return static_cast<int>(err);
+  }
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int per_row = odd ? (F + 1) / 2 : F;  // an odd n's transform carries two frames
+  const long long total = static_cast<long long>(B) * per_row;
+  const int tiles = (S + kt - 1) / kt;
+  const int bins = odd ? 2 * (n_fft / 2 + 1) : n_fft / 2 + 1;
+  double2* pts = static_cast<double2*>(scratch);
+  const double2* ch = static_cast<const double2*>(chirp);
+  const double2* tw = static_cast<const double2*>(twm);
+  for (long long t0 = 0; t0 < total; t0 += chunk) {
+    const int nt = static_cast<int>(total - t0 < chunk ? total - t0 : chunk);
+    stft_magnitude_bluestein_global_cross_dif_kernel<<<dim3(tiles, nt), kThreads, tile_smem, st>>>(
+        static_cast<const float*>(x), static_cast<const double*>(win), ch, tw, pts, T, n_fft, hop,
+        M, C, kt, t0, per_row, cross);
+    if ((err = cudaGetLastError()) != cudaSuccess) break;
+    stft_magnitude_bluestein_global_share_kernel<<<dim3(C, nt), kThreads, share_smem, st>>>(
+        tw, static_cast<const double2*>(fb), pts, M, S, local);
+    if ((err = cudaGetLastError()) != cudaSuccess) break;
+    stft_magnitude_bluestein_global_cross_dit_kernel<<<dim3(tiles, nt), kThreads, tile_smem, st>>>(
+        ch, tw, pts, n_fft, M, C, kt, cross);
+    if ((err = cudaGetLastError()) != cudaSuccess) break;
+    stft_magnitude_bluestein_global_end_kernel<<<dim3((bins + kThreads - 1) / kThreads, nt),
+                                                 kThreads, 0, st>>>(
+        ch, pts, static_cast<float*>(out), static_cast<float*>(re), static_cast<float*>(im),
+        n_fft, F, M, t0, per_row);
+    if ((err = cudaGetLastError()) != cudaSuccess) break;
+  }
+  return static_cast<int>(err);
+}
+
+// The two-level route's plan at (M, C): plan[0] threads a block, plan[1]
+// the local offsets of a tile (kt), plan[2] shared-memory bytes of a share
+// block (16 M / C), plan[3] of a tile block (16 kt C) (4 long longs).
+// Returns 0, or cudaErrorInvalidValue (plan 0) for a C below 2 or above
+// kGlobalMaxC or an M it does not divide.
+extern "C" int nsc_stft_bluestein_global_plan(int M, int C, void* plan) {
+  long long* o = static_cast<long long*>(plan);
+  o[0] = o[1] = o[2] = o[3] = 0;
+  if (C < 2 || C > kGlobalMaxC || M < C || M % C != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  o[0] = kThreads;
+  o[1] = global_tile(C);
+  o[2] = 16LL * (M / C);
+  o[3] = 16LL * o[1] * C;
+  return 0;
 }

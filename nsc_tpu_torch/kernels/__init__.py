@@ -18,7 +18,7 @@ LAUNCHES = {
     "stft_magnitude": 0,
     "stft_magnitude_bluestein": 0,
     "stft_magnitude_bluestein_cluster": 0,
-    "stft_magnitude_dft": 0,
+    "stft_magnitude_bluestein_global": 0,
     "residual_stack_cl": 0,
     "fused_stage": 0,
     "int_mm": 0,

@@ -52,8 +52,6 @@ SIGNATURES = {
     # x, win, tw, order (the load's int32 positions), out, re, im (or null),
     # B, T, n_fft, hop, F, the pass list (4 bits a radix), stream
     "nsc_stft_magnitude_fft": [_P] * 7 + [_I] * 5 + [_U64, _P],
-    # x, win, tw, out, re, im (or null), B, T, n_fft, hop, F, stream
-    "nsc_stft_magnitude_dft": [_P] * 6 + [_I] * 5 + [_P],
     # n_fft, hop, plan (2 long long: frames per block, bytes)
     "nsc_stft_fft_plan": [_I] * 2 + [_P],
     # x, win, chirp, twm, fb, out, re, im (or null), B, T, n_fft, hop, F, M,
@@ -67,6 +65,13 @@ SIGNATURES = {
     # M, C, plan (3 long long: threads a block, bytes a block, clusters the
     # card holds at once)
     "nsc_stft_bluestein_cluster_plan": [_I] * 2 + [_P],
+    # x, win, chirp, twm, fb, scratch, out, re, im (or null), B, T, n_fft,
+    # hop, F, M, C (the shares), chunk (the transforms the scratch holds),
+    # the pass list of M, stream
+    "nsc_stft_magnitude_bluestein_global": [_P] * 9 + [_I] * 8 + [_U64, _P],
+    # M, C, plan (4 long long: threads a block, offsets a tile, bytes a
+    # share block, bytes a tile block)
+    "nsc_stft_bluestein_global_plan": [_I] * 2 + [_P],
     # x, out, w1, b1, a1, w2, b2, a2, w1p, w2p (bf16 planes or null),
     # dilations, B, C, T, U, is_bf16, fast, stream; x and out (B, T, C),
     # float32 weights

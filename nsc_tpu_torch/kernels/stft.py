@@ -11,7 +11,7 @@ T, as `frame_signal` cuts them). The plain version is the matmul-DFT path of
 `ops.stft.stft_magnitude`, which frames the signal in memory; the kernels
 compute the same magnitudes without the frame tensor.
 
-Four kernels, chosen by n_fft alone (`route`), never by a failed launch.
+Four routes, chosen by n_fft alone (`route`), never by a failed launch.
 All compute in float64 (the float64 window and float64 tables `twiddles`)
 and round each output once to float32: the spectral losses' log-magnitude
 L1 turns any float32 rounding of the magnitudes into sign flips of its
@@ -55,12 +55,20 @@ in one buffer of complex float64 points: `csrc/stft.cu`).
     size: odd n_fft from 7,205 to 57,599 and even ones from 14,408 to
     115,200 that the FFT route does not take (M up to 115,200, C 8, shares
     of 14,400 points).
-  * "dft" (counted as "stft_magnitude_dft"): the remainder, every n_fft no
-    8-block cluster holds (odd n_fft above 57,599, even ones above 115,200
-    that the FFT route does not take). The O(n_fft^2) DFT against the
-    twiddle table read at (n k) mod n_fft, staged in chunks of n in static
-    shared memory, so a block's bytes are the same for every n_fft and hop
-    and no shape is refused.
+  * "bluestein_global" (counted as "stft_magnitude_bluestein_global"): every
+    n_fft no 8-block cluster holds (odd n_fft from 57,601, even ones from
+    115,202), the same chirp-z transform in two levels through global
+    memory (`bluestein_global_plan`): M the smallest 7-smooth multiple of 8
+    >= 2L - 1, cut into C shares of S points (S the largest divisor of M
+    that 8 divides and that is at most GLOBAL_SHARE_MAX, the points a
+    one-block chirp-z block holds), the points of each transform in a
+    float64 scratch buffer this wrapper allocates (at most SCRATCH_BYTES,
+    the transforms taken in chunks), and four kernels in turn: the passes
+    across the shares on tiles of local offsets, the passes within each
+    share, the passes across again, the bins. Its reach is M up to
+    GLOBAL_MAX_M = 2^20 (odd n_fft to 524,287, even ones to 1,048,576):
+    there C is at most 1,771 and a tile of 8 offsets of C points fits a
+    block. Beyond it the wrapper raises ValueError.
 
 `stft_magnitude` is differentiable. On a CUDA tensor its forward launches a
 kernel, which also writes the spectrum (re, im) when x takes a gradient,
@@ -91,6 +99,16 @@ FFT_MIN, FFT_MAX = 16, MAX_SMEM // 8
 BLUESTEIN_MAX_M = MAX_SMEM // 16
 # the blocks of a chirp-z cluster, smallest first (8: the portable limit)
 CLUSTER_SIZES = (2, 4, 8)
+# the two-level route: a share's points at most (the one-block chirp-z
+# kernel's points a block, kBluesteinPoints), M at most (its reach), a
+# tile's local offsets at least and at most (kTileMinOffsets,
+# kTileMaxOffsets), the shares at most (a tile of 8 offsets of C points in
+# a block: kGlobalMaxC), and the scratch bytes of one launch at most
+GLOBAL_SHARE_MAX = 4096
+GLOBAL_MAX_M = 1 << 20
+GLOBAL_TILE_MIN, GLOBAL_TILE_MAX = 8, 64
+GLOBAL_MAX_C = MAX_SMEM // (16 * GLOBAL_TILE_MIN)
+SCRATCH_BYTES = 512 << 20
 
 _CONSTS: Dict[Tuple[int, torch.device], Tuple[torch.Tensor, torch.Tensor]] = {}
 _ORDER: Dict[Tuple[int, torch.device], torch.Tensor] = {}
@@ -193,18 +211,65 @@ def bluestein_cluster_plan(n_fft: int, clusters: int = 0):
     return None
 
 
+@functools.lru_cache(maxsize=1024)
+def bluestein_global_plan(n_fft: int, clusters: int = 0):
+    """(L, M, C, pass list of M) of the two-level chirp-z route at n_fft: L
+    as `bluestein_plan`'s; M the smallest 7-smooth multiple of 8 that is >=
+    2L - 1; S the largest divisor of M that 8 divides and that is at most
+    GLOBAL_SHARE_MAX; C = M / S; the pass list `transform_passes(S)` (the
+    passes within a share) then `transform_passes(C)` (across the shares).
+    S is then above GLOBAL_SHARE_MAX / 7 (were it not, S times the smallest
+    prime of C would be a larger such divisor), so for M up to GLOBAL_MAX_M
+    C is at most 2^20 / 592 = 1,771 <= GLOBAL_MAX_C. None where another
+    route takes n_fft or M is above GLOBAL_MAX_M (the route's reach).
+    `clusters` asks for that C (7-smooth, at least 2) at any n_fft >= 2, M
+    then the smallest 7-smooth multiple of 8 C >= 2L - 1 as the cluster
+    plan's (the checks that the route computes the one-block and cluster
+    kernels' values); None where its share (16 S bytes) or its tile (16 x
+    GLOBAL_TILE_MIN x C bytes) is over a block."""
+    if clusters and (clusters < 2 or not transform_passes(clusters)):
+        raise ValueError(f"the two-level route takes a 7-smooth C >= 2, not {clusters}")
+    if n_fft < 2 or not clusters and (fft_passes(n_fft) or bluestein_plan(n_fft)
+                                      or bluestein_cluster_plan(n_fft)):
+        return None
+    length = n_fft if n_fft % 2 else n_fft // 2
+    if clusters:
+        m = smooth_multiple(2 * length - 1, 8 * clusters)
+        share = m // clusters
+        if 16 * share > MAX_SMEM or clusters > GLOBAL_MAX_C:
+            return None
+    else:
+        m = smooth_multiple(2 * length - 1, 8)
+        if m > GLOBAL_MAX_M:
+            return None
+        share = max(s for s in range(8, GLOBAL_SHARE_MAX + 1, 8) if m % s == 0)
+    return length, m, m // share, transform_passes(share) + transform_passes(m // share)
+
+
+def global_tile(clusters: int) -> int:
+    """The local offsets of a tile of the two-level route's kernels across
+    the shares at C = `clusters` (`global_tile` in csrc/stft.cu): the
+    largest power of two from GLOBAL_TILE_MAX down whose C points each stay
+    within GLOBAL_SHARE_MAX, and never below GLOBAL_TILE_MIN."""
+    kt = GLOBAL_TILE_MAX
+    while kt > GLOBAL_TILE_MIN and kt * clusters > GLOBAL_SHARE_MAX:
+        kt //= 2
+    return kt
+
+
 def route(n_fft: int) -> str:
     """"fft" where `fft_passes` has a plan, "bluestein" where
     `bluestein_plan` has one, "bluestein_cluster" where
-    `bluestein_cluster_plan` has one, "dft" for any other n_fft >= 2;
-    below 2 there is no STFT to take."""
+    `bluestein_cluster_plan` has one, "bluestein_global" for any other n_fft
+    >= 2 (whose launch raises beyond the route's reach, GLOBAL_MAX_M); below
+    2 there is no STFT to take."""
     if n_fft < 2:
         raise ValueError(f"stft: need n_fft >= 2, got {n_fft}")
     if fft_passes(n_fft):
         return "fft"
     if bluestein_plan(n_fft):
         return "bluestein"
-    return "bluestein_cluster" if bluestein_cluster_plan(n_fft) else "dft"
+    return "bluestein_cluster" if bluestein_cluster_plan(n_fft) else "bluestein_global"
 
 
 def digit_reversed(passes: Tuple[int, ...]) -> np.ndarray:
@@ -233,17 +298,21 @@ def twiddles(n_fft: int, device=None) -> torch.Tensor:
     expression the DFT basis is cast from: cast to float32, row j is the
     basis' column 1, (cos, sin)[j, 1]. The FFT's passes read it at a
     stride of n_fft / (R p) and their odd radices' constants at n_fft / R,
-    its real post-twiddle at stride 1; the DFT reads it at (n k) mod n_fft.
-    The chirp-z kernel reads the tables of 2L (its chirp, at j^2 mod 2L, and
-    for an even n_fft its post-twiddle: 2L = n_fft) and of M (its passes)."""
+    its real post-twiddle at stride 1 (the float32 DFT basis is this
+    expression read at (n k) mod n_fft). The chirp-z kernels read the
+    tables of 2L (its chirp, at j^2 mod 2L, and for an even n_fft its
+    post-twiddle: 2L = n_fft) and of M (its passes)."""
     return torch.from_numpy(_twiddles_np(n_fft)).to(device)
 
 
 def chirp_plan(n_fft: int):
     """(L, M, C, pass list) of the chirp-z route n_fft takes: the one-block
-    plan with C = 1, or the cluster plan."""
+    plan with C = 1, the cluster plan, or the two-level plan (None beyond
+    its reach)."""
     plan = bluestein_plan(n_fft)
-    return (*plan[:2], 1, plan[2]) if plan else bluestein_cluster_plan(n_fft)
+    if plan:
+        return (*plan[:2], 1, plan[2])
+    return bluestein_cluster_plan(n_fft) or bluestein_global_plan(n_fft)
 
 
 @functools.lru_cache(maxsize=32)
@@ -279,8 +348,8 @@ def bluestein_tables(n_fft: int, device=None, plan=None):
 
 
 def _constants(n_fft: int, device: torch.device):
-    """The float64 window and twiddle table the FFT and DFT kernels read,
-    cached per (n_fft, device)."""
+    """The float64 window and twiddle table the FFT kernel reads, cached per
+    (n_fft, device)."""
     key = (n_fft, device)
     if key not in _CONSTS:
         _CONSTS[key] = (S.hann_window(n_fft, device, torch.float64).contiguous(),
@@ -289,11 +358,15 @@ def _constants(n_fft: int, device: torch.device):
 
 
 COUNTERS = {"fft": "stft_magnitude", "bluestein": "stft_magnitude_bluestein",
-            "bluestein_cluster": "stft_magnitude_bluestein_cluster", "dft": "stft_magnitude_dft"}
+            "bluestein_cluster": "stft_magnitude_bluestein_cluster",
+            "bluestein_global": "stft_magnitude_bluestein_global"}
 
 
 def pack_passes(passes: Tuple[int, ...]) -> int:
-    """A pass list as the kernels take it: 4 bits a radix from the lowest."""
+    """A pass list as the kernels take it: 4 bits a radix from the lowest
+    (16 passes at most)."""
+    if len(passes) > 16:
+        raise ValueError(f"a pass list of {len(passes)} passes does not fit 64 bits")
     return sum(r << (4 * i) for i, r in enumerate(passes))
 
 
@@ -315,6 +388,9 @@ def _check(x: torch.Tensor, n_fft: int, hop: int) -> str:
         raise ValueError("x must be contiguous")
     b, t = x.shape
     kind = route(n_fft)
+    if kind == "bluestein_global" and bluestein_global_plan(n_fft) is None:
+        raise ValueError(f"stft: n_fft {n_fft} is beyond the two-level chirp-z route's reach "
+                         f"(M up to {GLOBAL_MAX_M}: odd n_fft to 524,287, even to 1,048,576)")
     if hop < 1 or t <= n_fft // 2:
         raise ValueError(f"stft: need hop >= 1 and T > n_fft//2 (T={t})")
     if not 1 <= b <= 65535:
@@ -340,23 +416,36 @@ def launch(x: torch.Tensor, n_fft: int, hop: int, spectrum: bool = False):
     kind = _check(x, n_fft, hop)
     if kind in ("bluestein", "bluestein_cluster"):
         return launch_chirp(x, n_fft, hop, chirp_plan(n_fft), spectrum)
+    if kind == "bluestein_global":
+        return launch_global(x, n_fft, hop, bluestein_global_plan(n_fft), spectrum)
     b, t = x.shape
     out, re, im = _outputs(x, n_fft, hop, spectrum)
     ptrs = (re.data_ptr(), im.data_ptr()) if spectrum else (None, None)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    lib = _build.library()
     win, tw = _constants(n_fft, x.device)
-    rest = (out.data_ptr(), *ptrs, b, t, n_fft, hop, out.shape[1])
-    if kind == "fft":
-        err = lib.nsc_stft_magnitude_fft(
-            x.data_ptr(), win.data_ptr(), tw.data_ptr(), fft_order(n_fft, x.device).data_ptr(),
-            *rest, pack_passes(fft_passes(n_fft)), stream)
-    else:
-        err = lib.nsc_stft_magnitude_dft(x.data_ptr(), win.data_ptr(), tw.data_ptr(), *rest,
-                                         stream)
-    _build.check(err, f"nsc_stft_magnitude_{kind}")
+    err = _build.library().nsc_stft_magnitude_fft(
+        x.data_ptr(), win.data_ptr(), tw.data_ptr(), fft_order(n_fft, x.device).data_ptr(),
+        out.data_ptr(), *ptrs, b, t, n_fft, hop, out.shape[1], pack_passes(fft_passes(n_fft)),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "nsc_stft_magnitude_fft")
     kernels.LAUNCHES[COUNTERS[kind]] += 1
     return (out, re, im) if spectrum else out
+
+
+def _chirp_args(x: torch.Tensor, n_fft: int, hop: int, plan, spectrum: bool):
+    """The outputs and the leading arguments of a chirp-z entry point at
+    `plan`: x, the float64 window and tables (cached per (n_fft, M, pass
+    list, device)), out, re, im, B, T, n_fft, hop, F, M."""
+    _check(x, n_fft, hop)
+    b, t = x.shape
+    _, m, _, passes = plan
+    key = (n_fft, m, tuple(passes), x.device)
+    if key not in _BLUESTEIN:
+        _BLUESTEIN[key] = (S.hann_window(n_fft, x.device, torch.float64).contiguous(),
+                           *(t_.contiguous() for t_ in bluestein_tables(n_fft, x.device, plan)))
+    out, re, im = _outputs(x, n_fft, hop, spectrum)
+    ptrs = (re.data_ptr(), im.data_ptr()) if spectrum else (None, None)
+    return (out, re, im), (x.data_ptr(), *(t_.data_ptr() for t_ in _BLUESTEIN[key]),
+                           out.data_ptr(), *ptrs, b, t, n_fft, hop, out.shape[1], m)
 
 
 def launch_chirp(x: torch.Tensor, n_fft: int, hop: int, plan, spectrum: bool = False):
@@ -366,18 +455,9 @@ def launch_chirp(x: torch.Tensor, n_fft: int, hop: int, plan, spectrum: bool = F
     same n_fft computes the same magnitudes up to float64 rounding."""
     from nsc_tpu_torch.kernels import _build
 
-    _check(x, n_fft, hop)
-    b, t = x.shape
-    _, m, c, passes = plan
-    key = (n_fft, m, tuple(passes), x.device)
-    if key not in _BLUESTEIN:
-        _BLUESTEIN[key] = (S.hann_window(n_fft, x.device, torch.float64).contiguous(),
-                           *(t_.contiguous() for t_ in bluestein_tables(n_fft, x.device, plan)))
-    out, re, im = _outputs(x, n_fft, hop, spectrum)
-    ptrs = (re.data_ptr(), im.data_ptr()) if spectrum else (None, None)
+    (out, re, im), args = _chirp_args(x, n_fft, hop, plan, spectrum)
+    _, _, c, passes = plan
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    args = (x.data_ptr(), *(t_.data_ptr() for t_ in _BLUESTEIN[key]), out.data_ptr(), *ptrs, b,
-            t, n_fft, hop, out.shape[1], m)
     lib = _build.library()
     if c == 1:
         kind = "bluestein"
@@ -387,6 +467,35 @@ def launch_chirp(x: torch.Tensor, n_fft: int, hop: int, plan, spectrum: bool = F
         err = lib.nsc_stft_magnitude_bluestein_cluster(*args, c, pack_passes(passes), stream)
     _build.check(err, f"nsc_stft_magnitude_{kind}")
     kernels.LAUNCHES[COUNTERS[kind]] += 1
+    return (out, re, im) if spectrum else out
+
+
+def global_chunk(transforms: int, m: int) -> int:
+    """The transforms the two-level route's scratch holds at once: all of
+    them, or as many as SCRATCH_BYTES holds at 16 M bytes each (one at
+    least)."""
+    return max(1, min(transforms, SCRATCH_BYTES // (16 * m)))
+
+
+def launch_global(x: torch.Tensor, n_fft: int, hop: int, plan, spectrum: bool = False):
+    """The two-level chirp-z route on a CUDA tensor at `plan`, (L, M, C,
+    pass list) of `bluestein_global_plan`'s form: its four kernels, chunk by
+    chunk of transforms (`global_chunk`), on a float64 scratch buffer made
+    here. `launch` gives it the route's plan; at a one-block or cluster
+    plan (`bluestein_global_plan(n_fft, C)`) it computes those kernels'
+    values bit for bit."""
+    from nsc_tpu_torch.kernels import _build
+
+    (out, re, im), args = _chirp_args(x, n_fft, hop, plan, spectrum)
+    _, m, c, passes = plan
+    per_row = (out.shape[1] + 1) // 2 if n_fft % 2 else out.shape[1]
+    chunk = global_chunk(x.shape[0] * per_row, m)
+    scratch = torch.empty(chunk, m, 2, dtype=torch.float64, device=x.device)
+    args = args[:5] + (scratch.data_ptr(),) + args[5:]
+    err = _build.library().nsc_stft_magnitude_bluestein_global(
+        *args, c, chunk, pack_passes(passes), torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "nsc_stft_magnitude_bluestein_global")
+    kernels.LAUNCHES[COUNTERS["bluestein_global"]] += 1
     return (out, re, im) if spectrum else out
 
 

@@ -15,26 +15,53 @@ bank n_fft 2048-128 and the mel STFT's 1024, hop n_fft/4) on 64 x 1 s of
 N(0, 0.3^2) noise (the target) and on it plus 0.05 N(0, 1) (the
 reconstruction, with the spectrum kept, as the loss launches it), every
 power of two 16-4096 at B = 2 on a T that no hop divides, the long and
-odd windows (8192, 12000, 441, 2018, hop n_fft/4) on the target, and the
+odd windows (8192, 12000, 441, 2018, hop n_fft/4) on the target, the
 chirp-z cluster route's shapes (8191, 11025, 30000, 31999, hop n_fft/4;
-the DFT remainder's in trees before that route) on the target. Only
-shapes on a tree's FFT route keep a digest (so two trees whose routes
-differ at a shape are not compared there); every shape is timed, with the
-route the tree took.
+the DFT remainder's in trees before that route) on the target, and the
+two-level chirp-z route's shapes (60001 and 115202 on 4 x 4 s, 131072 on
+4 x 8 s, 262145 on 2 x 20 s of N(0, 0.3^2) noise, hop n_fft/4; the DFT
+remainder's in trees before that route). Only shapes on a tree's FFT
+route keep a digest (so two trees whose routes differ at a shape are not
+compared there); every shape is timed, with the route the tree took.
 
 One JSON line per run: the card, each shape's route and ms (CUDA events,
-mean of 20 launches after one) and graph_ms (the same 20 launches
-captured in a CUDA graph: the card's time without the host's), and K4's
-ms and graph_ms per training step (the 12 launches).
+mean of 20 launches after one; 3 on the DFT remainder) and graph_ms (the
+same launches captured in a CUDA graph: the card's time without the
+host's), on the two-level route each of its four kernels' ms from
+`torch.profiler` (mean of 5 launches; None where the profiler saw no
+device time), and K4's ms and graph_ms per training step (the 12
+launches).
 """
 
 from __future__ import annotations
 
 import hashlib
 import json
+import re
 import sys
 
 import torch_tree_bench as TB
+
+
+def kernel_split(torch, fn, reps: int = 5) -> dict | None:
+    """Each kernel of the two-level route's launch: its mean device ms over
+    `reps` launches (after one) from `torch.profiler`, or None where the
+    profiler saw none of them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        m = re.search(r"bluestein_global_(\w+?)_kernel", e.key)
+        us = getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
+        if m and us:
+            out[m.group(1)] = out.get(m.group(1), 0.0) + us / 1e3 / reps
+    return out or None
 
 
 def run(tree: str, save: str | None) -> dict:
@@ -61,6 +88,10 @@ def run(tree: str, save: str | None) -> dict:
         cases.append((f"pow2_{n}", x, n, n // 4, True))
     cases += [(f"long_{n}", target, n, n // 4, False) for n in (8192, 12000, 441, 2018)]
     cases += [(f"cluster_{n}", target, n, n // 4, False) for n in (8191, 11025, 30000, 31999)]
+    for n, b, t in ((60001, 4, 64000), (115202, 4, 64000), (131072, 4, 128000),
+                    (262145, 2, 320000)):
+        x = torch.randn(b, t, device=dev, generator=g) * 0.3
+        cases.append((f"global_{n}", x, n, n // 4, False))
     with torch.no_grad():
         for name, x, n_fft, hop, spectrum in cases:
             route = KS.route(n_fft)
@@ -76,6 +107,8 @@ def run(tree: str, save: str | None) -> dict:
             out["shapes"][name] = {"n_fft": n_fft, "hop": hop, "B": x.shape[0], "T": x.shape[1],
                                    "spectrum": spectrum, "route": route, "ms": ms,
                                    "graph_ms": gms}
+            if route == "bluestein_global":
+                out["shapes"][name]["kernels_ms"] = kernel_split(torch, fn)
             if name.startswith("train_"):
                 out["train_step_ms"] += ms
                 out["train_step_graph_ms"] += gms

@@ -494,8 +494,9 @@ def test_stft_fft_route_matches_plain_at_every_power_of_two(dev, n_fft):
     got = KS.stft_magnitude(x, n_fft, hop)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["stft_magnitude"] == 1
-    assert kernels.LAUNCHES["stft_magnitude_bluestein"] == kernels.LAUNCHES["stft_magnitude_dft"] == 0
+    assert kernels.LAUNCHES["stft_magnitude_bluestein"] == 0
     assert kernels.LAUNCHES["stft_magnitude_bluestein_cluster"] == 0
+    assert kernels.LAUNCHES["stft_magnitude_bluestein_global"] == 0
     ref = KS.stft_magnitude_plain(x, n_fft, hop)
     assert got.shape == ref.shape == (1, 1 + t // hop, n_fft // 2 + 1)
     assert (got - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
@@ -669,38 +670,149 @@ def test_stft_bluestein_cluster_plan_and_launcher(dev):
     assert launch(m, c, passes) == 0 and torch.equal(out, KS.launch(x, n_fft, hop))
 
 
-# the remainder: an odd n_fft beyond an 8-block cluster (60001), B = 2 rows
-# of 4 s
+# the two-level route: an odd n_fft beyond an 8-block cluster (60001), B =
+# 2 rows of 4 s, against its plain version (the host builds 14.4 GB of
+# float32 bases, dropped after the test)
 @pytest.mark.parametrize("n_fft,hop,t", [(60001, 15000, 64000)])
-def test_stft_dft_route_matches_plain(dev, n_fft, hop, t):
-    """Launches `stft_magnitude_dft`; within 1e-4 of the peak of the plain
-    version, and within 2^-23 of each frame's peak of float64 (one rounding
-    to float32 moves a magnitude v by at most 2^-24 v; float32 sums read
-    ~5e-7 at n_fft 441)."""
+def test_stft_bluestein_global_route_matches_plain(dev, n_fft, hop, t):
+    """Launches `stft_magnitude_bluestein_global`; within 1e-4 of the peak
+    of the plain version, and every magnitude within 2 float32 ulps of
+    float64."""
+    from nsc_tpu_torch.ops import stft as S
+
     g = torch.Generator(device=dev).manual_seed(t)
     x = torch.randn(2, t, device=dev, generator=g) * 0.3
-    got = _launch_counted(x, n_fft, hop, "stft_magnitude_dft")
+    got = _launch_counted(x, n_fft, hop, "stft_magnitude_bluestein_global")
     ref = KS.stft_magnitude_plain(x, n_fft, hop)
     assert got.shape == ref.shape
     assert (got - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
-    m64, _ = _rfft64(x, n_fft, hop)
-    assert ((got.double() - m64).abs() / m64.amax(-1, keepdim=True)).max().item() <= 2.0 ** -23
+    assert _within_ulps_of_float64(got, x, n_fft, hop)
+    S._dft_basis_np.cache_clear()
+
+
+# the two-level route against float64 only: its first odd and even n_fft
+# (57601, 115202 = 2 x 57601), 131072 = 2^17 (M 131,072, C 32), 262145 odd
+# (M 524,880, C 135), the largest odd and even n_fft of its reach (M 2^20, C
+# 256), and chip_smoke.py's shapes (K4_GLOBAL_SHAPES); B 1-4, T that no hop
+# divides or that one does
+@pytest.mark.parametrize("n_fft,hop,b,t", [(57601, 14400, 2, 64000), (60001, 15000, 4, 64000),
+                                           (115202, 28800, 4, 64000), (131072, 32768, 4, 128000),
+                                           (262145, 65536, 2, 320000), (524287, 131072, 1, 600001),
+                                           (1 << 20, 1 << 18, 1, 1 << 20)])
+def test_stft_bluestein_global_route_against_float64(dev, n_fft, hop, b, t):
+    g = torch.Generator(device=dev).manual_seed(t + n_fft)
+    x = torch.randn(b, t, device=dev, generator=g) * 0.3
+    got = _launch_counted(x, n_fft, hop, "stft_magnitude_bluestein_global")
+    assert KS.chirp_plan(n_fft) == KS.bluestein_global_plan(n_fft)
+    assert _within_ulps_of_float64(got, x, n_fft, hop)
+
+
+@pytest.mark.parametrize("n_fft,clusters", [(441, 2), (441, 4), (441, 8), (441, 16), (2018, 2),
+                                            (2018, 4), (2018, 8), (2018, 16), (17, 16),
+                                            (2018, 64)])
+def test_stft_bluestein_global_kernels_are_the_one_block_kernel(dev, n_fft, clusters):
+    """Given the same M and pass list (`bluestein_global_plan(n_fft, C)`),
+    the two-level route's magnitudes and spectrum are the one-block chirp-z
+    kernel's bit for bit."""
+    g = torch.Generator(device=dev).manual_seed(n_fft + clusters)
+    x = torch.randn(3, 4 * n_fft + 37, device=dev, generator=g) * 0.3
+    plan = KS.bluestein_global_plan(n_fft, clusters)
+    one = KS.launch_chirp(x, n_fft, n_fft // 4, (plan[0], plan[1], 1, plan[3]), spectrum=True)
+    got = KS.launch_global(x, n_fft, n_fft // 4, plan, spectrum=True)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(one, got))
+
+
+@pytest.mark.parametrize("n_fft,hop", [(8191, 2048), (30000, 7500), (31999, 8000)])
+def test_stft_bluestein_global_kernels_are_the_cluster_kernel(dev, n_fft, hop):
+    """At the cluster route's own plans (C 2, 4 and 8), the two-level route's
+    magnitudes and spectrum are the cluster kernel's bit for bit."""
+    g = torch.Generator(device=dev).manual_seed(n_fft)
+    x = torch.randn(2, 2 * n_fft + 37, device=dev, generator=g) * 0.3
+    plan = KS.bluestein_cluster_plan(n_fft)
+    assert KS.bluestein_global_plan(n_fft, plan[2]) == plan
+    cluster = KS.launch_chirp(x, n_fft, hop, plan, spectrum=True)
+    got = KS.launch_global(x, n_fft, hop, plan, spectrum=True)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(cluster, got))
+
+
+@pytest.mark.parametrize("n_fft,hop", [(60001, 15000), (131072, 32768)])
+def test_stft_bluestein_global_spectrum_outputs(dev, n_fft, hop):
+    """With the spectrum kept, the magnitudes are those without it, sqrt(re^2
+    + im^2 + 1e-8) of it, and the spectrum is float64 rfft's within 2^-23
+    of the frame's peak; the scratch taken in chunks of one transform
+    computes the same values bit for bit."""
+    g = torch.Generator(device=dev).manual_seed(n_fft)
+    x = torch.randn(2, 2 * n_fft + 1001, device=dev, generator=g) * 0.3
+    mag, re, im = KS.launch(x, n_fft, hop, spectrum=True)
+    torch.cuda.synchronize()
+    assert torch.equal(mag, KS.launch(x, n_fft, hop))
+    torch.testing.assert_close(mag, torch.sqrt(re * re + im * im + 1e-8), rtol=1e-6, atol=0)
+    m64, z = _rfft64(x, n_fft, hop)
+    peak = m64.amax(-1, keepdim=True)
+    for got, ref in ((re, z.real), (im, z.imag)):
+        assert ((got.double() - ref).abs() / peak).max().item() <= 2.0 ** -23
+    bytes_ = KS.SCRATCH_BYTES
+    try:
+        KS.SCRATCH_BYTES = 16 * KS.bluestein_global_plan(n_fft)[1]
+        assert KS.global_chunk(10, KS.bluestein_global_plan(n_fft)[1]) == 1
+        chunked = KS.launch(x, n_fft, hop, spectrum=True)
+    finally:
+        KS.SCRATCH_BYTES = bytes_
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip((mag, re, im), chunked))
+
+
+def test_stft_bluestein_global_plan_and_launcher(dev):
+    """The two-level route's own plan (`nsc_stft_bluestein_global_plan`):
+    256 threads a block, `global_tile(C)` offsets a tile, 16 M / C bytes a
+    share block and 16 kt C a tile block; a C below 2 or above GLOBAL_MAX_C
+    or an M it does not divide refused. Its launcher refuses
+    (cudaErrorInvalidValue, 1) an M below 2L - 1, a pass list that is not a
+    transform of M or with no prefix of M / C, a C that does not divide M
+    and a chunk below 1; a launch after each runs and equals the
+    wrapper's. The wrapper raises beyond the route's reach."""
+    def plan(m, c):
+        out = (ctypes.c_longlong * 4)()
+        rc = _build.library().nsc_stft_bluestein_global_plan(m, c, out)
+        return rc, out[0], out[1], out[2], out[3]
+
+    for m, c in ((120960, 30), (115248, 42), (131072, 32), (524880, 135), (1 << 20, 256),
+                 (896, 16), (2048, 64)):
+        kt = KS.global_tile(c)
+        assert plan(m, c) == (0, 256, kt, 16 * m // c, 16 * kt * c), (m, c)
+    assert plan(120960, 1)[0] != 0 and plan(120961, 30)[0] != 0
+    assert plan(1817 * 64, 1817)[0] != 0
+
     from nsc_tpu_torch.ops import stft as S
 
-    S._dft_basis_np.cache_clear()  # the host's 14.4 GB of float32 bases
+    n_fft, hop, t = 60001, 15000, 64000
+    x = torch.randn(2, t, device=dev)
+    _, m, c, passes = KS.bluestein_global_plan(n_fft)
+    tables = [t_.contiguous() for t_ in KS.bluestein_tables(n_fft, dev)]
+    win = S.hann_window(n_fft, dev, torch.float64).contiguous()
+    frames = S.num_frames(t + 2 * (n_fft // 2), n_fft, hop, center=False)
+    out = torch.zeros(2, frames, n_fft // 2 + 1, device=dev)
+    scratch = torch.empty(2 * frames, m, 2, dtype=torch.float64, device=dev)
 
+    def launch(m_, c_, chunk, radices):
+        rc = _build.library().nsc_stft_magnitude_bluestein_global(
+            x.data_ptr(), win.data_ptr(), *(t_.data_ptr() for t_ in tables), scratch.data_ptr(),
+            out.data_ptr(), None, None, 2, t, n_fft, hop, frames, m_, c_, chunk,
+            KS.pack_passes(radices), torch.cuda.current_stream(dev).cuda_stream)
+        torch.cuda.synchronize()
+        return rc
 
-# the remainder's even branch: an even n_fft beyond an 8-block cluster and
-# off the FFT route (115202, half 57601 prime), one row, against float64
-# only (the plain version's bases there take 53 GB)
-@pytest.mark.parametrize("n_fft,hop,t", [(115202, 28800, 120001)])
-def test_stft_dft_route_even_against_float64(dev, n_fft, hop, t):
-    g = torch.Generator(device=dev).manual_seed(t)
-    x = torch.randn(1, t, device=dev, generator=g) * 0.3
-    got = _launch_counted(x, n_fft, hop, "stft_magnitude_dft")
-    m64, _ = _rfft64(x, n_fft, hop)
-    assert got.shape == m64.shape
-    assert ((got.double() - m64).abs() / m64.amax(-1, keepdim=True)).max().item() <= 2.0 ** -23
+    assert (m, c) == (120960, 30)
+    assert launch(115200, 30, 1, KS.transform_passes(3840) + (2, 3, 5)) == 1  # < 2 x 60001 - 1
+    for c_, chunk, radices in ((30, 1, KS.transform_passes(m)), (30, 1, (2,) + passes),
+                               (29, 1, passes), (1, 1, passes), (30, 0, passes),
+                               (32, 1, passes)):
+        assert launch(m, c_, chunk, radices) == 1, (c_, chunk, radices)
+    assert launch(m, c, 3, passes) == 0 and torch.equal(out, KS.launch(x, n_fft, hop))
+    with pytest.raises(ValueError, match="reach"):
+        KS.launch(torch.zeros(1, 600000, device=dev), 524289, 131072)
 
 
 @pytest.mark.parametrize("n_fft,hop", [(2048, 512), (128, 32), (400, 100), (441, 110),
@@ -895,7 +1007,7 @@ def test_full_width_train_step_launches_the_kernels(dev):
                                 "rvq_dequantize": 0, "stft_magnitude": 12,
                                 "stft_magnitude_bluestein": 0,
                                 "stft_magnitude_bluestein_cluster": 0,
-                                "stft_magnitude_dft": 0, "residual_stack_cl": 0,
+                                "stft_magnitude_bluestein_global": 0, "residual_stack_cl": 0,
                                 "fused_stage": 0, "int_mm": 0}
     assert all(torch.isfinite(v).item() for v in metrics.values())
 

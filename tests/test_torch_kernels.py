@@ -203,6 +203,6 @@ def test_cpu_wrappers_do_not_count_launches():
     assert kernels.LAUNCHES == {
         "residual_stack": 0, "rvq_quantize": 0, "rvq_split_planes": 0, "rvq_dequantize": 0,
         "stft_magnitude": 0, "stft_magnitude_bluestein": 0,
-        "stft_magnitude_bluestein_cluster": 0, "stft_magnitude_dft": 0,
+        "stft_magnitude_bluestein_cluster": 0, "stft_magnitude_bluestein_global": 0,
         "residual_stack_cl": 0, "fused_stage": 0, "int_mm": 0,
     }

@@ -159,18 +159,34 @@ def test_wrapper_refuses_other_devices():
 
 
 def test_kernel_shared_memory_budget():
-    """The DFT remainder stages its basis and samples in chunks of n, in
-    static shared memory whose size no shape enters: the wrapper refuses
-    no n_fft >= 2 and hop >= 1 for shared memory, small or large, and
-    routes each by n_fft alone. The FFT route's shapes are bounded by its
-    one-frame plan, one buffer of n_fft/2 complex float64 points, 8 n_fft
-    bytes (FFT_MAX), the chirp-z route's by its, 16 M bytes
-    (BLUESTEIN_MAX_M), and the cluster route's by 8 blocks of that."""
+    """The wrapper refuses no n_fft >= 2 and hop >= 1 for shared memory
+    within the routes' reach, small or large, and routes each by n_fft
+    alone. The FFT route's shapes are bounded by its one-frame plan, one
+    buffer of n_fft/2 complex float64 points, 8 n_fft bytes (FFT_MAX), the
+    chirp-z route's by its, 16 M bytes (BLUESTEIN_MAX_M), the cluster
+    route's by 8 blocks of that, and the two-level route's blocks by a
+    share of at most GLOBAL_SHARE_MAX points and a tile of C x kt points
+    (`global_tile`: kt from 64 down to 8 offsets while kt C is above
+    GLOBAL_SHARE_MAX), each within a block at every C its plans reach; past
+    its reach (M above 2^20) the wrapper raises."""
     x = torch.zeros(2, 64000)
     for n_fft, hop in ((2, 1), (3, 64000), (441, 110), (2048, 512), (6000, 1500), (8192, 2048),
-                       (12000, 3000), (20001, 1), (60000, 7), (127999, 1)):
+                       (12000, 3000), (20001, 1), (60000, 7), (60001, 1), (127999, 1)):
         assert KS._check(x, n_fft, hop) == KS.route(n_fft)
     assert 8 * KS.FFT_MAX <= KS.MAX_SMEM < 8 * (KS.FFT_MAX + 1)
     assert 16 * KS.BLUESTEIN_MAX_M <= KS.MAX_SMEM < 16 * (KS.BLUESTEIN_MAX_M + 1)
     assert [KS.route(n) for n in (2, 441, 12000, 20001, 60000, 60001)] == [
-        "bluestein", "bluestein", "fft", "bluestein_cluster", "bluestein_cluster", "dft"]
+        "bluestein", "bluestein", "fft", "bluestein_cluster", "bluestein_cluster",
+        "bluestein_global"]
+    assert KS.GLOBAL_MAX_C == 1816 and 16 * 8 * KS.GLOBAL_MAX_C <= KS.MAX_SMEM
+    assert 16 * KS.GLOBAL_SHARE_MAX <= KS.MAX_SMEM
+    for c, kt in ((2, 64), (30, 64), (64, 64), (65, 32), (135, 16), (256, 16), (257, 8),
+                  (1816, 8)):
+        assert KS.global_tile(c) == kt, c
+        assert 16 * kt * c <= KS.MAX_SMEM
+    with pytest.raises(ValueError, match="reach"):
+        KS._check(torch.zeros(1, 600000), 524289, 1000)
+    with pytest.raises(ValueError, match="64 bits"):
+        KS.pack_passes((2,) * 17)
+    assert KS.global_chunk(12, 120960) == 12 and KS.global_chunk(10 ** 6, 1 << 20) == 32
+    assert KS.global_chunk(5, 1 << 30) == 1

@@ -12,10 +12,15 @@ the M points in C contiguous shares, the passes within a share on each
 share, the passes across the shares on the C points of each local offset)
 against the one-buffer chirp-z plan at the same M and pass list, bit for
 bit, and against float64 `numpy.fft.rfft`, and its (M, C, pass list)
-against an independent search; the DFT remainder's arithmetic
-(`stft_magnitude_dft_plain`) against float64; the twiddle table against
-the DFT basis; the routing rule and its boundaries; and the spectrum
-backward against autograd of the plain version.
+against an independent search; the two-level route's plan
+(`stft_magnitude_bluestein_global_plain`: the M points of a transform in
+one array, the passes across the shares on tiles of local offsets, the
+passes within each share, the passes across again) against the one-buffer
+and cluster plans at the same M and pass list, bit for bit, against
+float64 `numpy.fft.rfft` at its route's shapes, its plan against an
+independent search and its 64-bit chirp index against exact integers; the
+twiddle table against the DFT basis; the routing rule and its boundaries;
+and the spectrum backward against autograd of the plain version.
 
 Tolerances:
   * the FFT and chirp-z plans (float64, rounded once) vs the plain version
@@ -25,15 +30,11 @@ Tolerances:
   * the FFT and chirp-z plans vs float64 rfft magnitudes (the same float64
     window): 2 float32 ulps elementwise, the plan's float64 passes rounded
     once (half an ulp) and their own float64 rounding far below it.
-  * the one-buffer plan vs the Stockham plan, and the cluster plan vs the
-    one-buffer chirp-z plan at its M and pass list: equal, bit for bit (the
-    same butterflies and twiddles in the same order per point, in other
-    slots or blocks).
-  * the DFT remainder's float64 sums vs float64 rfft: DFT_F64_TOL = 2^-23
-    of each frame's peak magnitude. One rounding to float32 moves a
-    magnitude v by at most 2^-24 v, so a float64 sum reads at most 2^-24
-    of the peak; float32 sums (the plain matmul-DFT) read ~5e-7 at n_fft
-    441 and 2018, so the limit is 2x the first and below the second.
+  * the one-buffer plan vs the Stockham plan, and the cluster and two-level
+    plans vs the one-buffer chirp-z plan at its M and pass list (and the
+    two-level plan vs the cluster plan): equal, bit for bit (the same
+    butterflies and twiddles in the same order per point, in other slots,
+    blocks or tiles).
   * the float64 twiddle table: cast to float32, bit-equal to the basis'
     column 1 (both come from the same float64 expression); any float64
     basis entry within 1e-11 of its table entry (the angle n*k/n_fft reduced
@@ -74,9 +75,12 @@ CLUSTER = [7205, 8191, 14410, 29056, 30000]
 # C 2 (8191 odd, 11025 = 3^2 5^2 7^2 odd), 4 (30000 = 2 x 3 x 5^4 x 2^3
 # even, above the FFT's limit), 8 (31999 odd)
 CLUSTER_SHAPES = [(8191, 2048), (11025, 2756), (30000, 7500), (31999, 8000)]
-# n_fft no 8-block cluster holds: the remainder
-REMAINDER = [57601, 60001, 115202, 127999, 131072]
-DFT_F64_TOL = 2.0 ** -23
+# n_fft no 8-block cluster holds: the two-level route (57601 and 115202 its
+# first odd and even ones, 131072 = 2^17, 262145 odd)
+GLOBAL = [57601, 60001, 115202, 127999, 131072, 262145]
+# the two-level route's shapes on the card (chip_smoke.py's
+# K4_GLOBAL_SHAPES), here at B 1 and a few frames
+GLOBAL_SHAPES = [(60001, 15000), (115202, 28800), (131072, 32768), (262145, 65536)]
 
 
 def fft_passes(n_fft):
@@ -309,13 +313,19 @@ def _chirped(x, n_fft, hop, chirp):
 
 def _chirp_z_end(zr, zi, n_fft, n_frames, chirp, spectrum):
     """Z[k] = c_k conj(G[k]) for k < L from the DIT passes' output G, then
-    for an odd n_fft the two frames' spectra (Z[k] +- conj Z[n-k]) / (2 or
-    2i), for an even one the real FFT's post-twiddle (W^k = tw2L[k])."""
-    odd = n_fft % 2 == 1
-    length = n_fft if odd else n_fft // 2
+    the bins (`_chirp_z_bins`)."""
+    length = n_fft if n_fft % 2 else n_fft // 2
     j = torch.arange(length, dtype=torch.int64)
     cj = chirp[(j * j) % (2 * length)]
     zr, zi = _cmul(zr[..., :length], -zi[..., :length], cj[:, 0], cj[:, 1])
+    return _chirp_z_bins(zr, zi, n_fft, n_frames, chirp, spectrum)
+
+
+def _chirp_z_bins(zr, zi, n_fft, n_frames, chirp, spectrum):
+    """From Z (its first L points): for an odd n_fft the two frames' spectra
+    (Z[k] +- conj Z[n-k]) / (2 or 2i), for an even one the real FFT's
+    post-twiddle (W^k = tw2L[k])."""
+    odd = n_fft % 2 == 1
     if odd:
         k = torch.arange(n_fft // 2 + 1)
         ar, ai = zr[..., k], zi[..., k]
@@ -431,6 +441,74 @@ def stft_magnitude_bluestein_cluster_plain(x, n_fft, hop, spectrum=False, plan=N
     return _chirp_z_end(zr.flatten(-2), zi.flatten(-2), n_fft, n_frames, chirp, spectrum)
 
 
+def _tile_passes(zr, zi, radices, share, c, s, m, dif):
+    """The two-level route's passes across the shares (csrc/stft.cu
+    `tile_pass`), on all local offsets at once: zr, zi (..., C, S), point g
+    = j S + k at [j, k]. A pass of radix R at p = S q (q the product of the
+    cross radices before it) is on the j axis a pass at q whose butterfly i
+    (j0 = i mod q) owns the rows (i - j0) R + j0 + m q and twiddles offset k
+    by the table's entry m (k + j0 S) C / (R q). DIT (first to last)
+    twiddles before the R-point DFT, DIF (last to first) after it."""
+    clusters = zr.shape[-2]
+    k = torch.arange(share)
+    for radix, q in (reversed(with_p(radices)) if dif else with_p(radices)):
+        step = clusters // (radix * q)
+        i = torch.arange(clusters // radix)
+        j0 = i % q
+        at = [(i - j0) * radix + j0 + r * q for r in range(radix)]
+        kg = k[None, :] + (j0 * share)[:, None]
+        ur = [zr[..., a, :] for a in at]
+        ui = [zi[..., a, :] for a in at]
+        if not dif:
+            for r in range(1, radix):
+                ur[r], ui[r] = _cmul(ur[r], ui[r], c[r * kg * step], s[r * kg * step])
+        yr, yi = _butterfly(radix, ur, ui, c, s, m)
+        if dif:
+            for r in range(1, radix):
+                yr[r], yi[r] = _cmul(yr[r], yi[r], c[r * kg * step], s[r * kg * step])
+        zr, zi = zr.clone(), zi.clone()
+        for r in range(radix):
+            zr[..., at[r], :] = yr[r]
+            zi[..., at[r], :] = yi[r]
+    return zr, zi
+
+
+def stft_magnitude_bluestein_global_plain(x, n_fft, hop, spectrum=False, plan=None):
+    """The two-level route's four kernels (csrc/stft.cu) restated in
+    PyTorch, in float64 with the magnitudes rounded to float32: the chirped
+    sequence zero-padded to M in one array per transform (point g at g, C
+    shares of S = M/C points, share-major); the DIF passes across the shares
+    (`_tile_passes`); the passes within each share (the twiddles of the
+    M-point table), times the conjugate chirp's transform, conjugated, the
+    DIT passes within each share; the DIT passes across; Z[g] = c_g
+    conj(G[g]) for g < L; the bins. `plan` is an (L, M, C, pass list) of
+    `KS.bluestein_global_plan`'s form, by default the route's: the pass
+    list that of S, whose prefix multiplies to S, then that of C."""
+    _, m, clusters, radices = plan or KS.bluestein_global_plan(n_fft)
+    share = m // clusters
+    split = next(i for i in range(len(radices) + 1) if int(np.prod(radices[:i])) == share)
+    local, cross = with_p(radices[:split]), radices[split:]
+    assert int(np.prod(cross)) == clusters
+    length = n_fft if n_fft % 2 else n_fft // 2
+    chirp, twm, fb = (torch.from_numpy(t) for t in bluestein_tables(n_fft, m, with_p(radices)))
+    c, s = twm[:, 0], twm[:, 1]
+    (ar, ai), n_frames = _chirped(x, n_fft, hop, chirp)
+    zr = torch.zeros(*ar.shape[:-1], m, dtype=torch.float64)
+    zi = torch.zeros_like(zr)
+    zr[..., :length], zi[..., :length] = ar, ai
+    zr, zi = zr.unflatten(-1, (clusters, share)), zi.unflatten(-1, (clusters, share))
+    zr, zi = _tile_passes(zr, zi, cross, share, c, s, m, dif=True)
+    zr, zi = _passes_in_place(zr, zi, local, c, s, m, dif=True)
+    zr, zi = _cmul(zr, zi, fb[:, 0].reshape(clusters, share), fb[:, 1].reshape(clusters, share))
+    zr, zi = _passes_in_place(zr, -zi, local, c, s, m, dif=False)
+    zr, zi = _tile_passes(zr, zi, cross, share, c, s, m, dif=False)
+    g = torch.arange(length, dtype=torch.int64)
+    cg = chirp[(g * g) % (2 * length)]
+    zr, zi = zr.flatten(-2)[..., :length], zi.flatten(-2)[..., :length]
+    zr, zi = _cmul(zr, -zi, cg[:, 0], cg[:, 1])
+    return _chirp_z_bins(zr, zi, n_fft, n_frames, chirp, spectrum)
+
+
 def stft_magnitude_stockham_plain(x, n_fft, hop):
     """The two-buffer Stockham plan the FFT kernel ran before the one-buffer
     plan, restated in float64 with the magnitudes rounded to float32: the
@@ -462,17 +540,6 @@ def stft_magnitude_stockham_plain(x, n_fft, hop):
             ni[..., out + t * p] = yi[t]
         zr, zi = nr, ni
     return _real_spectrum(zr, zi, c, s)
-
-
-def stft_magnitude_dft_plain(x, n_fft, hop):
-    """The DFT remainder's arithmetic restated: float64 windowed frames
-    against the float64 table read at (n k) mod n_fft, rounded once."""
-    tw = KS.twiddles(n_fft, x.device)
-    frames = S.frame_signal(x.float().double(), n_fft, hop) * S.hann_window(
-        n_fft, x.device, torch.float64)
-    j = (torch.arange(n_fft)[:, None] * torch.arange(n_fft // 2 + 1)[None, :]) % n_fft
-    re, im = frames @ tw[j, 0], frames @ tw[j, 1]
-    return torch.sqrt(re * re + im * im + 1e-8).float()
 
 
 def rfft_magnitude_f64(x, n_fft, hop):
@@ -550,8 +617,12 @@ def test_routing_rule():
     # the FFT's one-buffer limit; 20001 odd
     for n in CLUSTER + [KS.FFT_MAX + 2, 32768, 60000, 20001] + [n for n, _ in CLUSTER_SHAPES]:
         assert KS.route(n) == "bluestein_cluster", n
-    for n in REMAINDER:
-        assert KS.route(n) == "dft", n
+    for n in GLOBAL:
+        assert KS.route(n) == "bluestein_global", n
+    # every n_fft >= 2 takes one of the four routes (every 6007th to 2^21,
+    # and the powers of two)
+    sample = [*range(2, 1 << 21, 6007), *(1 << e for e in range(1, 21))]
+    assert {KS.route(n) for n in sample} == set(KS.COUNTERS)
     assert KS.FFT_MAX == 29056  # 8 bytes a point at one frame
     for n in (1, 0, -4):
         with pytest.raises(ValueError):
@@ -721,7 +792,16 @@ def test_route_boundaries():
     assert not [m for m in range(115200 + 64, 8 * KS.BLUESTEIN_MAX_M + 1, 64)
                 if KS.transform_passes(m)]
     assert KS.route(57599) == KS.route(115200) == "bluestein_cluster"
-    assert KS.route(57601) == KS.route(115202) == "dft"
+    assert KS.route(57601) == KS.route(115202) == "bluestein_global"
+    # the two-level route's reach, M up to 2^20: the largest odd n_fft
+    # (524,287: 2L - 1 = 2^20 - 3) and even one (2^20: L 2^19) have plans,
+    # the next ones none, and the wrapper refuses them
+    assert KS.bluestein_global_plan(524287)[1] == KS.bluestein_global_plan(1 << 20)[1] == 1 << 20
+    assert KS.bluestein_global_plan(524289) is KS.bluestein_global_plan((1 << 20) + 2) is None
+    for n in (524289, (1 << 20) + 2):
+        assert KS.route(n) == "bluestein_global"
+        with pytest.raises(ValueError, match="reach"):
+            KS._check(torch.zeros(1, n), n, n // 4)
     assert KS.digit_reversed(KS.transform_passes(24)).tolist() == digit_reversed(
         transform_passes(24)).tolist()
     for n in (1, 5, 64, 882, 2025, 6000):
@@ -758,7 +838,7 @@ def test_cluster_plan_is_the_searched_plan():
             continue
         want = cluster_plan_search(n)
         assert KS.bluestein_cluster_plan(n) == want, n
-        assert (KS.route(n) == "bluestein_cluster") == (want is not None), n
+        assert KS.route(n) == ("bluestein_cluster" if want else "bluestein_global"), n
         if want:
             _, m, c, radices = want
             assert int(np.prod(radices)) == m and (m // c) % 8 == 0
@@ -904,24 +984,141 @@ def test_cluster_bank_losses_through_the_restated_kernels_match_jax(monkeypatch)
     assert routes == {11025: "bluestein_cluster", 8191: "bluestein_cluster", 1024: "fft"}
 
 
-@pytest.mark.parametrize("n_fft,hop", [(2, 1), (3, 1), (17, 5), (441, 110), (2018, 504),
-                                       (12000, 3000)])
-def test_dft_remainder_against_float64_rfft(n_fft, hop):
-    """The remainder's float64 sums, rounded once, within DFT_F64_TOL of
-    each frame's peak of the float64 magnitudes; the frame count is the
-    plain version's (one fewer than 1 + T//hop for an odd n_fft where hop
-    divides T). The control: from n_fft 441 on, the plain version's
-    float32 sums lie beyond the limit."""
-    t = 2 * n_fft + 37 if n_fft > 3 else 60
-    x = _x(2, t, seed=n_fft)
-    got = stft_magnitude_dft_plain(torch.from_numpy(x), n_fft, hop).numpy()
+def global_plan_search(n_fft):
+    """The two-level plan by its rules, searched independently: M the first
+    multiple of 8 from 2L - 1 up with no prime factor above 7 (None above
+    2^20); S the largest of M's divisors that 8 divides, at most 4096,
+    found by trying them all from 4096 down; C = M / S; the pass list that
+    of S then that of C (radix 4 first, then 2, 3, 5, 7)."""
+    length = n_fft if n_fft % 2 else n_fft // 2
+    m = smallest_smooth(2 * length - 1)
+    while m % 8:
+        m = smallest_smooth(m + 1)
+    if m > 1 << 20:
+        return None
+    share = next(d for d in range(4096, 7, -1) if d % 8 == 0 and m % d == 0)
+    return length, m, m // share, tuple(r for r, _ in transform_passes(share)) + tuple(
+        r for r, _ in transform_passes(m // share))
+
+
+def test_global_plan_is_the_searched_plan():
+    """`KS.bluestein_global_plan` is the searched plan at every n_fft no
+    8-block cluster holds (every 97th n_fft from 57,601 to 300,000, and the
+    edges of the route and of its reach), None at every other; each share a
+    multiple of 8 points within GLOBAL_SHARE_MAX, C within GLOBAL_MAX_C, a
+    tile of GLOBAL_TILE_MIN offsets of C points within a block, at most 16
+    passes. With C asked for, the cluster plan's M at that C (equal to the
+    cluster plan at C 2, 4 and 8)."""
+    for n in list(range(57601, 300001, 97)) + [57599, 57601, 115200, 115202, 524287, 524288,
+                                                524289, 1 << 20, (1 << 20) + 2]:
+        plan = KS.bluestein_global_plan(n)
+        if KS.bluestein_cluster_plan(n):
+            assert plan is None, n
+            continue
+        assert plan == global_plan_search(n), n
+        if plan:
+            _, m, c, radices = plan
+            share = m // c
+            assert int(np.prod(radices)) == m and share % 8 == 0 and share <= KS.GLOBAL_SHARE_MAX
+            assert 2 <= c <= KS.GLOBAL_MAX_C and len(radices) <= 16
+            assert 16 * KS.global_tile(c) * c <= KS.MAX_SMEM
+    for n, c in ((441, 2), (441, 8), (2018, 4), (8191, 2), (30000, 4), (31999, 8)):
+        assert KS.bluestein_global_plan(n, c) == KS.bluestein_cluster_plan(n, c), (n, c)
+    assert KS.bluestein_global_plan(441, 16) == (441, 896, 16, (4, 2, 7, 4, 4))
+    assert KS.bluestein_global_plan(60001) == (60001, 120960, 30, (4, 4, 4, 3, 3, 7, 2, 3, 5))
+    assert KS.bluestein_global_plan(262145)[1:3] == (524880, 135)
+    for bad in (1, 11, -2):
+        with pytest.raises(ValueError):
+            KS.bluestein_global_plan(441, bad)
+    assert KS.bluestein_global_plan(441, 2048) is None  # a tile of 8 x 2048 points is over a block
+
+
+def test_global_chirp_index_in_64_bits():
+    """The chirp index j^2 mod 2L at L = 262,145 (n_fft 262145) as the
+    two-level kernels take it (64-bit integers), against exact integers: j^2
+    passes 2^32 from j = 65,536, where a 32-bit index would wrap; the table
+    read there is exp(-i pi j^2 / L)."""
+    length = 262145
+    j = np.arange(length, dtype=np.uint64)
+    idx = (j * j) % np.uint64(2 * length)
+    exact = [(int(v) * int(v)) % (2 * length) for v in range(0, length, 1009)]
+    assert idx[::1009].tolist() == exact
+    assert idx[-1] == ((length - 1) ** 2) % (2 * length)
+    wrapped = (j.astype(np.uint32) * j.astype(np.uint32)) % np.uint32(2 * length)
+    assert (wrapped[65536:] != idx[65536:]).any() and (wrapped[:65536] == idx[:65536]).all()
+    chirp = KS.twiddles(2 * length).numpy()
+    sample = np.arange(0, length, 4099)
+    got = chirp[idx[sample].astype(np.int64)]
+    ang = np.array([float((int(v) * int(v)) % (2 * length)) for v in sample]) * np.pi / length
+    np.testing.assert_allclose(got[:, 0] + 1j * got[:, 1], np.exp(-1j * ang), rtol=0, atol=1e-15)
+
+
+@pytest.mark.parametrize("n_fft,clusters", [(441, 2), (441, 4), (441, 8), (441, 16), (2018, 2),
+                                            (2018, 4), (2018, 8), (2018, 16), (17, 16),
+                                            (2018, 64)])
+def test_global_plan_is_the_one_buffer_plan(n_fft, clusters):
+    """The two-level plan at C asked for computes the one-buffer chirp-z
+    plan's float64 values at its M and pass list bit for bit, the spectrum
+    too (what chip_smoke.py holds the two-level kernels to beside the
+    one-block kernel on the card), and within 2 float32 ulps of float64."""
+    x = torch.from_numpy(_x(2, 3 * n_fft + 37, seed=n_fft + clusters))
+    hop = max(1, n_fft // 4)
+    plan = KS.bluestein_global_plan(n_fft, clusters)
+    got = stft_magnitude_bluestein_global_plain(x, n_fft, hop, spectrum=True, plan=plan)
+    want = stft_magnitude_bluestein_plain(x, n_fft, hop, spectrum=True, plan=(plan[1], plan[3]))
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    ref = rfft_magnitude_f64(x.numpy(), n_fft, hop)
+    ulp = np.spacing(ref.astype(np.float32)).astype(np.float64)
+    assert (np.abs(got[0].numpy() - ref) / ulp).max() <= 2.0
+
+
+@pytest.mark.parametrize("n_fft,hop,clusters", [(n, h, 0) for n, h in CLUSTER_SHAPES]
+                         + [(441, 110, 16), (2018, 504, 64), (8191, 2048, 16)])
+def test_global_plan_is_the_cluster_plan(n_fft, hop, clusters):
+    """The two-level plan (the passes across the shares on tiles of
+    offsets, `_tile_passes`) computes the cluster plan's float64 values
+    bit for bit, the spectrum too (the cross passes per offset,
+    `_cross_passes`): at the cluster route's own plans (C 2, 2, 4, 8: what
+    chip_smoke.py holds the two-level kernels to beside the cluster kernel
+    on the card), and at C 16 and 64, which only the two-level kernels
+    run."""
+    x = torch.from_numpy(_x(1, 2 * n_fft + 37, seed=n_fft + 5))
+    plan = (KS.bluestein_global_plan(n_fft, clusters) if clusters
+            else KS.bluestein_global_plan(n_fft, KS.bluestein_cluster_plan(n_fft)[2]))
+    assert clusters or plan == KS.bluestein_cluster_plan(n_fft)
+    got = stft_magnitude_bluestein_global_plain(x, n_fft, hop, spectrum=True, plan=plan)
+    want = stft_magnitude_bluestein_cluster_plain(x, n_fft, hop, spectrum=True, plan=plan)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("n_fft,hop", GLOBAL_SHAPES)
+def test_global_plan_against_float64_rfft(n_fft, hop):
+    """The two-level route's plan gives the float64 spectrum's magnitudes,
+    rounded once: within 2 float32 ulps each, at its route's plans (odd
+    and even n_fft, C 30, 42, 32 and 135), B 1 and 3-5 frames. (The plain
+    version's bases at these n_fft take 14-275 GB on the host: the card
+    holds the kernels to it at 60001, chip_smoke.py's K4_GLOBAL_SHAPES.)"""
+    x = _x(1, n_fft + 37, seed=n_fft)
+    got = stft_magnitude_bluestein_global_plain(torch.from_numpy(x), n_fft, hop).numpy()
     ref = rfft_magnitude_f64(x, n_fft, hop)
-    plain = KS.stft_magnitude_plain(torch.from_numpy(x), n_fft, hop).numpy()
-    assert got.shape == ref.shape == plain.shape
-    peak = ref.max(-1, keepdims=True)
-    assert (np.abs(got - ref) / peak).max() <= DFT_F64_TOL
-    if n_fft >= 441:
-        assert (np.abs(plain - ref) / peak).max() > DFT_F64_TOL
+    assert got.shape == ref.shape and got.shape[1] >= 3
+    ulp = np.spacing(ref.astype(np.float32)).astype(np.float64)
+    assert (np.abs(got - ref) / ulp).max() <= 2.0
+
+
+@pytest.mark.parametrize("n_fft", [60001, 115202, 131072])
+def test_global_tables_are_the_restated_tables(n_fft):
+    """The wrapper's float64 tables at the two-level plan
+    (`KS.bluestein_tables` of the route's plan: the conjugate chirp's
+    transform where the DIF passes of its pass list, across the shares
+    first, leave each point) are the restated ones at its M and pass list."""
+    length, m, _, radices = KS.chirp_plan(n_fft)
+    assert (length, m, _, radices) == KS.bluestein_global_plan(n_fft)
+    want = bluestein_tables(n_fft, m, with_p(radices))
+    got = [t.numpy() for t in KS.bluestein_tables(n_fft)]
+    assert [g.shape for g in got] == [(2 * length, 2), (m, 2), (m, 2)]
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, w, rtol=0, atol=1e-15)
 
 
 @pytest.mark.parametrize("n_fft,hop,t", [(256, 64, 1500), (128, 32, 999), (16, 5, 300),

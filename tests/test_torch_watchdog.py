@@ -52,12 +52,24 @@ sys.exit(act.get("rc", 0))
 
 
 @pytest.fixture
-def fake(tmp_path):
+def fake(tmp_path, monkeypatch):
     """supervise() of tmp_path/run with the fake trainer and a plan;
-    returns (result, launches, the backoff sleeps it asked for)."""
+    returns (result, launches, the backoff sleeps it asked for). Each
+    launch's "launched_at" is the clock just after the supervisor's Popen
+    returned (its own launch time is taken right after that), so the gap
+    between two launches is the supervisor's, not that of the two fakes'
+    interpreter start-ups, which vary under load."""
     script = tmp_path / "fake_trainer.py"
     script.write_text(FAKE_TRAINER)
     procs = []
+    popen, launched_at = subprocess.Popen, {}
+
+    def timed_popen(*a, **kw):
+        proc = popen(*a, **kw)
+        launched_at[proc.pid] = time.time()
+        return proc
+
+    monkeypatch.setattr(W.subprocess, "Popen", timed_popen)
 
     def run(plan, args=(), **kw):
         plan_path = tmp_path / "plan.json"
@@ -77,6 +89,8 @@ def fake(tmp_path):
         procs.append(res.proc)
         with open(tmp_path / "run" / "launches.jsonl") as f:
             launches = [json.loads(line) for line in f]
+        for launch in launches:
+            launch["launched_at"] = launched_at[launch["pid"]]
         return res, launches, [s for s in sleeps if s != POLL]
 
     yield run
@@ -168,7 +182,7 @@ def test_no_stale_kill_within_the_grace(fake):
     # no row at all: stale from the start, but killed only once the grace is over
     res, launches, _ = fake([{"hang": True}, {"rows": [1], "rc": 0}], grace_s=0.6, stale_s=0.1)
     assert (res.status, res.restarts, len(launches)) == ("complete", 1, 2)
-    assert launches[1]["t"] - launches[0]["t"] >= 0.6
+    assert launches[1]["launched_at"] - launches[0]["launched_at"] >= 0.6
 
 
 def test_the_last_row_at_steps_means_complete(fake):
@@ -206,7 +220,7 @@ def test_the_wedged_marker_means_backoff(fake):
                                    wedge_backoff_s=0.3)
     assert (res.status, res.restarts, len(launches), backoffs) == ("complete", 1, 2, [0.3])
     assert any("wedge suspected (fruitless=1) -> backoff 0.3s" in e for e in res.events)
-    assert launches[1]["t"] - launches[0]["t"] >= 0.3
+    assert launches[1]["launched_at"] - launches[0]["launched_at"] >= 0.3
 
 
 def test_two_fruitless_restarts_mean_growing_backoff(fake):
@@ -264,15 +278,28 @@ def test_total_steps(args, want):
 
 def test_the_entry_point_killed_after_its_first_full_save(tmp_path, monkeypatch):
     """python -m nsc_tpu_torch.train on tiny_test (CPU, 3 steps, a full
-    state at 1 and 3) under the watchdog: SIGKILLed once ckpt 1 is written,
-    relaunched once, resumed from step 1, complete at step 3."""
+    state at 1 and 3) under the watchdog: SIGKILLed once the step-1
+    boundary's writes are done, relaunched once, resumed from step 1,
+    complete at step 3. The boundary writes the full state, then the
+    inference export, then (a first boundary improves on no best) the best
+    export and best.json, last; a kill between the full state and the
+    export loses export 1 for good, in the JAX package's loop as in this
+    one (the relaunch resumes after step 1), so the kill waits for
+    best.json."""
     run, pid_file = tmp_path / "run", tmp_path / "train.pid"
     ckpt1 = run / "train" / os.path.basename(ckpt.path_for("", 1))
+    best = run / "best.json"
     killed = {}
+
+    def step1_boundary_written():
+        try:
+            return ckpt1.exists() and json.loads(best.read_text())["step"] >= 1
+        except (OSError, ValueError, KeyError):
+            return False
 
     def kill_after_first_full_save():
         deadline = time.time() + 300
-        while not ckpt1.exists() and time.time() < deadline:
+        while not step1_boundary_written() and time.time() < deadline:
             time.sleep(0.02)
         pid = int(pid_file.read_text())
         os.kill(pid, signal.SIGKILL)
