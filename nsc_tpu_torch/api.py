@@ -25,6 +25,7 @@ from nsc_tpu_torch import bitstream, weights
 from nsc_tpu_torch.configs import CodecConfig, get_config, list_configs
 from nsc_tpu_torch.models.codec import NeuralSpeechCodec
 from nsc_tpu_torch.train import checkpoint as ckpt
+from nsc_tpu_torch.utils import profiling
 
 ArrayLike = Union[np.ndarray, torch.Tensor]
 
@@ -175,6 +176,13 @@ def _pad_to_bucket(wav: np.ndarray, hop: int) -> np.ndarray:
     return wav
 
 
+def _count_frames(rows: int, frames: int, frames_run: int) -> None:
+    """The traced counters of the bucket's waste: frames asked for and
+    frames the model runs, times rows."""
+    profiling.count("api.frames", rows * frames)
+    profiling.count("api.frames_run", rows * frames_run)
+
+
 def _as_batch(wav: ArrayLike) -> tuple[np.ndarray, bool]:
     if isinstance(wav, torch.Tensor):
         wav = wav.detach().cpu().numpy()
@@ -204,19 +212,25 @@ def encode(
     bundle: ModelBundle, wav: ArrayLike, n_q: Optional[int] = None
 ) -> np.ndarray:
     """Waveform -> codebook indices. (T,) -> (F, n_q); (N, T) -> (N, F, n_q)."""
-    batch, single = _as_batch(wav)
-    t = batch.shape[-1]
     cfg = bundle.cfg
-    if cfg.causal:
-        batch = _pad_to_bucket(batch, cfg.hop)
-    else:
-        # 'same' padding: trailing zeros reach the final frames' receptive
-        # fields, so pad tightly
-        batch = _pad_to_hop(batch, cfg.hop)
-    x = torch.tensor(batch, device=bundle.device)
-    idx = bundle.model.encode(bundle.params, bundle.rvq, x, n_q=n_q)
-    frames = (t + cfg.hop - 1) // cfg.hop
-    idx = idx.cpu().numpy()[:, :frames]
+    with profiling.span("api.encode"):
+        with profiling.span("api.encode.pad"):
+            batch, single = _as_batch(wav)
+            t = batch.shape[-1]
+            if cfg.causal:
+                batch = _pad_to_bucket(batch, cfg.hop)
+            else:
+                # 'same' padding: trailing zeros reach the final frames'
+                # receptive fields, so pad tightly
+                batch = _pad_to_hop(batch, cfg.hop)
+        frames = (t + cfg.hop - 1) // cfg.hop
+        _count_frames(batch.shape[0], frames, batch.shape[-1] // cfg.hop)
+        with profiling.span("api.encode.to_device"):
+            x = torch.tensor(batch, device=bundle.device)
+        with profiling.span("api.encode.model"):
+            idx = bundle.model.encode(bundle.params, bundle.rvq, x, n_q=n_q)
+        with profiling.span("api.encode.to_host"):
+            idx = idx.cpu().numpy()[:, :frames]
     return idx[0] if single else idx
 
 
@@ -225,20 +239,26 @@ def decode(
     bundle: ModelBundle, indices: ArrayLike, n_q: Optional[int] = None
 ) -> np.ndarray:
     """Codebook indices -> waveform. (F, n_q) -> (F*hop,); batched likewise."""
-    if isinstance(indices, torch.Tensor):
-        indices = indices.detach().cpu().numpy()
-    idx = np.asarray(indices, dtype=np.int32)
-    single = idx.ndim == 2
-    if single:
-        idx = idx[None]
-    frames = idx.shape[1]
-    if bundle.cfg.causal and frames:
-        bucket = _bucket_frames(frames)
-        if bucket != frames:
-            idx = np.pad(idx, ((0, 0), (0, bucket - frames), (0, 0)))
-    x = torch.tensor(idx, device=bundle.device)
-    wav = bundle.model.decode(bundle.params, bundle.rvq, x, n_q=n_q)
-    wav = wav.cpu().numpy()[:, : frames * bundle.cfg.hop]
+    with profiling.span("api.decode"):
+        with profiling.span("api.decode.pad"):
+            if isinstance(indices, torch.Tensor):
+                indices = indices.detach().cpu().numpy()
+            idx = np.asarray(indices, dtype=np.int32)
+            single = idx.ndim == 2
+            if single:
+                idx = idx[None]
+            frames = idx.shape[1]
+            if bundle.cfg.causal and frames:
+                bucket = _bucket_frames(frames)
+                if bucket != frames:
+                    idx = np.pad(idx, ((0, 0), (0, bucket - frames), (0, 0)))
+        _count_frames(idx.shape[0], frames, idx.shape[1])
+        with profiling.span("api.decode.to_device"):
+            x = torch.tensor(idx, device=bundle.device)
+        with profiling.span("api.decode.model"):
+            wav = bundle.model.decode(bundle.params, bundle.rvq, x, n_q=n_q)
+        with profiling.span("api.decode.to_host"):
+            wav = wav.cpu().numpy()[:, : frames * bundle.cfg.hop]
     return wav[0] if single else wav
 
 

@@ -47,6 +47,7 @@ from nsc_tpu_torch.models.codec import DTYPES, NeuralSpeechCodec
 from nsc_tpu_torch.ops import conv as C
 from nsc_tpu_torch.ops import rvq as rvq_ops
 from nsc_tpu_torch.ops.precision import float32_numerics
+from nsc_tpu_torch.utils import profiling
 
 State = Dict[str, Any]
 
@@ -266,11 +267,15 @@ class StreamingEncoder:
         cfg = self.model.cfg
         if arr.shape[1] % cfg.hop:
             raise ValueError(f"chunk length {arr.shape[1]} not a multiple of hop {cfg.hop}")
-        x = torch.tensor(arr, device=self.device)[:, None, :].to(self.model.compute_dtype)
-        z, self._state = encoder_stream(self.params["encoder"], self._state, x, cfg)
-        z = self.model._project_in(self.params, z.transpose(1, 2))
-        idx = rvq_ops.quantize(self.rvq, z, n_q=self.n_q, kernel=self.model.kernels.rvq)
-        idx = idx.cpu().numpy()
+        with profiling.span("stream.encode"):
+            with profiling.span("stream.encode.to_device"):
+                x = torch.tensor(arr, device=self.device)[:, None, :].to(self.model.compute_dtype)
+            with profiling.span("stream.encode.model"):
+                z, self._state = encoder_stream(self.params["encoder"], self._state, x, cfg)
+                z = self.model._project_in(self.params, z.transpose(1, 2))
+                idx = rvq_ops.quantize(self.rvq, z, n_q=self.n_q, kernel=self.model.kernels.rvq)
+            with profiling.span("stream.encode.to_host"):
+                idx = idx.cpu().numpy()
         return idx[0] if single else idx
 
     def push_many(self, chunks) -> list:
@@ -328,12 +333,16 @@ class StreamingDecoder:
         if self._state is None:
             self.reset(idx.shape[0])
         model = self.model
-        z = rvq_ops.dequantize(self.rvq, torch.tensor(idx, device=self.device),
-                               n_q=self.n_q, kernel=model.kernels.rvq)
-        z = model._project_out(self.params, z).to(model.compute_dtype)
-        wav, self._state = decoder_stream(self.params["decoder"], self._state,
-                                          z.transpose(1, 2), model.cfg)
-        wav = wav[:, 0, :].float().cpu().numpy()
+        with profiling.span("stream.decode"):
+            with profiling.span("stream.decode.to_device"):
+                x = torch.tensor(idx, device=self.device)
+            with profiling.span("stream.decode.model"):
+                z = rvq_ops.dequantize(self.rvq, x, n_q=self.n_q, kernel=model.kernels.rvq)
+                z = model._project_out(self.params, z).to(model.compute_dtype)
+                wav, self._state = decoder_stream(self.params["decoder"], self._state,
+                                                  z.transpose(1, 2), model.cfg)
+            with profiling.span("stream.decode.to_host"):
+                wav = wav[:, 0, :].float().cpu().numpy()
         return wav[0] if single else wav
 
     def push_many(self, index_blocks) -> list:

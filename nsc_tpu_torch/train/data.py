@@ -36,7 +36,7 @@ from typing import Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
-from nsc_tpu_torch.utils import audio
+from nsc_tpu_torch.utils import audio, profiling
 
 
 def _rng_state(rng: np.random.RandomState) -> dict:
@@ -412,7 +412,8 @@ class Prefetcher:
         return self
 
     def __next__(self):
-        item = self._q.get()
+        with profiling.span("data.wait"):
+            item = self._q.get()
         if item is self._STOP:
             self._q.put(self._STOP)  # later calls stop too
             if self._err is not None:

@@ -61,6 +61,7 @@ from nsc_tpu_torch.models import discriminators as disc
 from nsc_tpu_torch.models.codec import KernelOptions, NeuralSpeechCodec
 from nsc_tpu_torch.ops import rvq as rvq_ops
 from nsc_tpu_torch.ops.precision import float32_numerics
+from nsc_tpu_torch.utils import profiling
 
 TrainState = Dict[str, Any]
 
@@ -281,7 +282,7 @@ def make_train_step(model: NeuralSpeechCodec, tcfg: TrainConfig, *, axis=None):
         return total, metrics, fwd, z, recon
 
     def train_step(state: TrainState, batch: torch.Tensor, **kwargs):
-        with float32_numerics():
+        with float32_numerics(), profiling.span("train.step"):
             return _train_step(state, batch, **kwargs)
 
     def _train_step(
@@ -294,64 +295,67 @@ def make_train_step(model: NeuralSpeechCodec, tcfg: TrainConfig, *, axis=None):
         step = state["step"]
         gen = step_generator(tcfg.seed, step)
         n = batch.shape[0]
-        if depth is None and tcfg.quantizer_dropout > 0:
-            depth = sample_depths(gen, n * world, cfg.num_quantizers, tcfg.quantizer_dropout)
-        if depth is not None and axis is not None:
-            depth = depth[axis.rank * n:(axis.rank + 1) * n]
-        adv_on = 1.0 if step >= tcfg.disc_start_step else 0.0
+        with profiling.span("train.generator"):
+            if depth is None and tcfg.quantizer_dropout > 0:
+                depth = sample_depths(gen, n * world, cfg.num_quantizers, tcfg.quantizer_dropout)
+            if depth is not None and axis is not None:
+                depth = depth[axis.rank * n:(axis.rank + 1) * n]
+            adv_on = 1.0 if step >= tcfg.disc_start_step else 0.0
 
-        # --- generator gradients (old discriminator) ---
-        g_params = tree_leaves(state["params_g"])
-        total, metrics, fwd, z, recon = g_loss(state, batch, depth, adv_on)
-        g_grads = list(torch.autograd.grad(total, g_params))
-        if axis is not None:
-            axis.pmean_(g_grads)
-        metrics["grad/g_norm"] = global_norm(g_grads)
-        fake = recon.detach()
-        del total, recon
+            # --- generator gradients (old discriminator) ---
+            g_params = tree_leaves(state["params_g"])
+            total, metrics, fwd, z, recon = g_loss(state, batch, depth, adv_on)
+            g_grads = list(torch.autograd.grad(total, g_params))
+            if axis is not None:
+                axis.pmean_(g_grads)
+            metrics["grad/g_norm"] = global_norm(g_grads)
+            fake = recon.detach()
+            del total, recon
         mark("generator")
 
         # --- discriminator gradients (same old parameters) ---
         d_grads = None
-        if tcfg.use_gan:
-            d_params = tree_leaves(state["params_d"])
-            outs = disc.apply_discriminators(
-                state["params_d"], torch.cat([batch, fake]), periods=tcfg.mpd_periods
-            )
-            d_total = gan_losses.discriminator_loss(*_split(outs, batch.shape[0]))
-            d_grads = [g * adv_on for g in torch.autograd.grad(d_total, d_params)]
-            if axis is not None:
-                axis.pmean_(d_grads)
-            metrics["loss/d_total"] = d_total
-            del outs
+        with profiling.span("train.discriminator"):
+            if tcfg.use_gan:
+                d_params = tree_leaves(state["params_d"])
+                outs = disc.apply_discriminators(
+                    state["params_d"], torch.cat([batch, fake]), periods=tcfg.mpd_periods
+                )
+                d_total = gan_losses.discriminator_loss(*_split(outs, batch.shape[0]))
+                d_grads = [g * adv_on for g in torch.autograd.grad(d_total, d_params)]
+                if axis is not None:
+                    axis.pmean_(d_grads)
+                metrics["loss/d_total"] = d_total
+                del outs
         mark("discriminator")
 
         # --- updates: generator, RVQ EMA, discriminator ---
-        clip_adam_update(state["params_g"], g_grads, state["opt_g"], tcfg, lr_g)
-        with torch.no_grad():
-            pool = z.detach().reshape(-1, z.shape[-1])
-            candidates = rvq_ops.sample_reseed_candidates(
-                pool, fwd.counts.shape[0], cfg.codebook_size,
-                generator=gen, picks=reseed_picks, axis=axis,
-            )
-            new_rvq, reseed_frac = rvq_ops.ema_update(
-                state["rvq"], fwd.counts, fwd.sums,
-                decay=cfg.ema_decay, eps=cfg.ema_eps,
-                dead_threshold=cfg.threshold_dead_code,
-                reseed_candidates=candidates,
-            )
-            metrics["rvq/perplexity"] = torch.mean(rvq_ops.codebook_perplexity(fwd.counts))
-            metrics["rvq/usage"] = torch.mean(fwd.usage)
-            metrics["rvq/reseed_frac"] = reseed_frac
-        metrics["lr/g"] = torch.tensor(lr_g(step))
-        if d_grads is not None:
-            clip_adam_update(state["params_d"], d_grads, state["opt_d"], tcfg, lr_d)
+        with profiling.span("train.update"):
+            clip_adam_update(state["params_g"], g_grads, state["opt_g"], tcfg, lr_g)
+            with torch.no_grad():
+                pool = z.detach().reshape(-1, z.shape[-1])
+                candidates = rvq_ops.sample_reseed_candidates(
+                    pool, fwd.counts.shape[0], cfg.codebook_size,
+                    generator=gen, picks=reseed_picks, axis=axis,
+                )
+                new_rvq, reseed_frac = rvq_ops.ema_update(
+                    state["rvq"], fwd.counts, fwd.sums,
+                    decay=cfg.ema_decay, eps=cfg.ema_eps,
+                    dead_threshold=cfg.threshold_dead_code,
+                    reseed_candidates=candidates,
+                )
+                metrics["rvq/perplexity"] = torch.mean(rvq_ops.codebook_perplexity(fwd.counts))
+                metrics["rvq/usage"] = torch.mean(fwd.usage)
+                metrics["rvq/reseed_frac"] = reseed_frac
+            metrics["lr/g"] = torch.tensor(lr_g(step))
+            if d_grads is not None:
+                clip_adam_update(state["params_d"], d_grads, state["opt_d"], tcfg, lr_d)
 
-        state["rvq"] = new_rvq
-        state["step"] = step + 1
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        if axis is not None:
-            metrics = axis.pmean_metrics(metrics)
+            state["rvq"] = new_rvq
+            state["step"] = step + 1
+            metrics = {k: v.detach() for k, v in metrics.items()}
+            if axis is not None:
+                metrics = axis.pmean_metrics(metrics)
         mark("updates")
         return state, metrics
 

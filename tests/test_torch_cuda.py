@@ -1149,3 +1149,43 @@ def test_int8_serving_bundle_launches(dev):
                  "int_mm": len(list(Q._conv_sites(b.params)))})
     assert kernels.LAUNCHES == want
     assert out.shape == wav.shape and torch.isfinite(out).all()
+
+
+def test_spans_reach_the_trace_as_a_host_clock_only(dev):
+    """`api.encode` / `api.decode` of a `small` serving bundle under a CUDA
+    profiler: no CUDA-typed event carries a span's name or `nsc.clock`
+    (the spans stay in the program's memory), and the CUDA-event time of
+    `api.encode.model` lies within the trace's device interval of the
+    model's kernels: from the input's host-to-device copy to the last
+    kernel before the indices' copy back."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from nsc_tpu_torch import api
+    from nsc_tpu_torch.utils import profiling
+
+    b = api.load_model("small", serving=True, device=dev)
+    wav = (np.random.RandomState(0).randn(2, 64 * b.cfg.hop) * 0.1).astype(np.float32)
+    api.decode(b, api.encode(b, wav))
+    torch.cuda.synchronize()
+    profiling.clear()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        api.decode(b, api.encode(b, wav))
+        torch.cuda.synchronize()
+    rec = profiling.recorded()
+    profiling.clear()
+    names = {s["name"] for s in rec["spans"]}
+    assert len(names) == 10
+    on_card = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                     if str(e.device_type).split(".")[-1] == "CUDA")
+    assert on_card
+    assert not [n for _, _, n in on_card if n in names | {profiling.CLOCK}]
+    i = next(k for k, e in enumerate(on_card) if "HtoD" in e[2])
+    j = next(k for k in range(i + 1, len(on_card)) if "DtoH" in on_card[k][2])
+    kernels = on_card[i + 1:j]
+    assert kernels
+    model = next(s for s in rec["spans"] if s["name"] == "api.encode.model")
+    least = (kernels[-1][1] - kernels[0][0]) / 1e3
+    most = (kernels[-1][1] - on_card[i][1]) / 1e3
+    tol = 0.1 + 0.01 * most
+    assert least - tol <= model["device_ms"] <= most + tol, (least, model["device_ms"], most)

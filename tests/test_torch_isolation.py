@@ -24,7 +24,7 @@ PORT_SCRIPTS = ("torch_write_gpu_pin.py", "torch_refit_flips.py", "torch_rvq_ben
                 "torch_refit_flagship.py", "torch_finetune_flagship.py", "torch_rd_ceiling.py",
                 "torch_harvest_checkpoints.py", "torch_heldout_trend.py",
                 "torch_pick_export_step.py", "torch_export_flagship.py",
-                "torch_train_watchdog.py")
+                "torch_train_watchdog.py", "torch_span_cost.py")
 PORT_SHELL_SCRIPTS = ("torch_close_flagship.sh", "torch_round_close.sh")
 
 
